@@ -1,0 +1,129 @@
+"""Vectorized element operations on component tuples.
+
+Counterpart of starkpack_winterfell_tpu/ops/vec.py.  An element array is a
+tuple of ``deg`` int64 tensors (see ops/gl64.py).  Only degree 1 is ported;
+the tuple-of-components shape is kept so the quadratic and cubic extensions
+slot in later (``_ext_unsupported`` marks where).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import gl64 as gl
+
+
+def _ext_unsupported(d: int):
+    raise NotImplementedError(
+        f"extension degree {d} is not ported yet (ops/gl64_ext.py counterpart)"
+    )
+
+
+def deg(a) -> int:
+    return len(a)
+
+
+def promote(a, target_deg: int):
+    if len(a) == target_deg:
+        return a
+    assert len(a) == 1, "can only promote base elements"
+    return a + (torch.zeros_like(a[0]),) * (target_deg - 1)
+
+
+def vadd(a, b):
+    d = max(len(a), len(b))
+    a, b = promote(a, d), promote(b, d)
+    return tuple(gl.add(x, y) for x, y in zip(a, b))
+
+
+def vsub(a, b):
+    d = max(len(a), len(b))
+    a, b = promote(a, d), promote(b, d)
+    return tuple(gl.sub(x, y) for x, y in zip(a, b))
+
+
+def vmul(a, b):
+    """Full product with base-mul shortcut when either side is base."""
+    if len(a) == 1 and len(b) == 1:
+        return (gl.mul(a[0], b[0]),)
+    if len(b) == 1:
+        return tuple(gl.mul(x, b[0]) for x in a)
+    if len(a) == 1:
+        return tuple(gl.mul(a[0], y) for y in b)
+    _ext_unsupported(len(a))
+
+
+def vsquare(a):
+    if len(a) == 1:
+        return (gl.square(a[0]),)
+    _ext_unsupported(len(a))
+
+
+def vinv(a):
+    if len(a) == 1:
+        return (gl.inv(a[0]),)
+    _ext_unsupported(len(a))
+
+
+def vzeros(shape, d: int = 1, device="cpu"):
+    return tuple(gl.zeros(shape, device) for _ in range(d))
+
+
+def vones(shape, d: int = 1, device="cpu"):
+    return (gl.ones(shape, device),) + tuple(
+        gl.zeros(shape, device) for _ in range(d - 1)
+    )
+
+
+def vbroadcast(a, shape):
+    return tuple(c.broadcast_to(shape) for c in a)
+
+
+def vsum(a, axis=-1):
+    """Modular sum along an axis via log-halving tree reduction (a plain
+    ``sum`` would overflow the 64-bit words)."""
+    comps = a
+    nd = comps[0].ndim
+    axis = axis % nd
+    n = comps[0].shape[axis]
+    while n > 1:
+        half = n // 2
+        new_comps = []
+        for c in comps:
+            s = gl.add(c.narrow(axis, 0, half), c.narrow(axis, half, half))
+            if n % 2:
+                s = torch.cat([s, c.narrow(axis, 2 * half, 1)], dim=axis)
+            new_comps.append(s)
+        comps = tuple(new_comps)
+        n = comps[0].shape[axis]
+    return tuple(c.select(axis, 0) for c in comps)
+
+
+def horner(coeffs, x, axis=-1):
+    """Evaluate polynomials along ``axis`` at point-array x (same shape as
+    the remaining axes)."""
+    n = coeffs[0].shape[axis]
+
+    def take(j):
+        return tuple(c.select(axis, j) for c in coeffs)
+
+    acc = take(n - 1)
+    for j in range(n - 2, -1, -1):
+        acc = vadd(vmul(acc, x), take(j))
+    return acc
+
+
+def power_series_elem(x, n: int):
+    """[1, x, x^2, ..., x^(n-1)] for an element array x of shape (1,) ->
+    tuple of tensors shaped (n,).  Log-doubling."""
+    d = len(x)
+    out = vones((1,), d, x[0].device)
+    length = 1
+    cur_pow = x  # x^(length)
+    while length < n:
+        nxt = vmul(out, vbroadcast(cur_pow, out[0].shape))
+        out = tuple(torch.cat([a, b]) for a, b in zip(out, nxt))
+        length *= 2
+        if length < n:
+            cur_pow = vsquare(cur_pow)
+    return tuple(c[:n] for c in out)

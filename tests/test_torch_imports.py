@@ -1,0 +1,93 @@
+"""PyTorch port, independence: importing starkpack_winterfell_tpu_torch, its
+CLI or chip_smoke pulls in neither jax nor the JAX package, and sets up
+none of that package's process state; the default device is the CUDA card,
+and asking for it on a machine without one raises.
+
+Each check runs in a fresh interpreter: this test process has both packages
+loaded."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+LEAK_CHECK = """
+import sys
+leaked = [m for m in sys.modules
+          if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'
+          or m == 'starkpack_winterfell_tpu' or m.startswith('starkpack_winterfell_tpu.')]
+assert not leaked, leaked
+"""
+
+
+def _run(code, env_extra=None):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(env_extra or {})
+    return subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+
+
+@pytest.mark.parametrize("module", [
+    "starkpack_winterfell_tpu_torch",
+    "starkpack_winterfell_tpu_torch.models.cli",
+    "starkpack_winterfell_tpu_torch.prover.device_big",
+    "starkpack_winterfell_tpu_torch.ops.ntt4",
+    "chip_smoke",
+])
+def test_import_leaves_jax_and_the_jax_package_out(module):
+    code = (
+        "import os\nbefore = dict(os.environ)\n"
+        f"import {module}\n" + LEAK_CHECK +
+        "changed = {k for k in set(before) | set(os.environ)"
+        " if before.get(k) != os.environ.get(k)}\n"
+        "assert not changed, changed  # no XLA_FLAGS, no compile cache set-up\n"
+    )
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+
+
+def test_default_device_raises_without_a_card():
+    """prove() with the default device never carries on on the CPU."""
+    code = """
+import torch
+import starkpack_winterfell_tpu_torch as T
+from starkpack_winterfell_tpu_torch.models.rescue_chain import RescueChainProver, build_chain_trace
+from starkpack_winterfell_tpu_torch.ops import gl64, ntt4
+assert not torch.cuda.is_available()
+prover = RescueChainProver(T.ProofOptions(8, 8, 0, 1, 4, 31), T.Blake3_256)
+trace = build_chain_trace([1] * 8, 2)
+try:
+    prover.prove(1, [trace])
+except RuntimeError as e:
+    assert 'cuda' in str(e).lower(), e
+else:
+    raise SystemExit('prove() ran without a CUDA device')
+""" + LEAK_CHECK
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+
+
+def test_cli_runs_on_the_cpu_and_refuses_the_default_device():
+    base = [sys.executable, "-m", "starkpack_winterfell_tpu_torch.models.cli",
+            "rescue-chain", "-n", "1", "-l", "128"]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run(base, cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode != 0 and "cuda" in r.stderr.lower()
+    # 1024 rows is below the big-trace path: the CPU run names the config
+    r = subprocess.run(base + ["--device", "cpu"], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0 and "NotImplementedError" in r.stderr
+
+
+def test_chip_smoke_exits_nonzero_without_a_card():
+    r = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")],
+                       cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
