@@ -12,10 +12,15 @@
 //        (a, b) -> (a + b*w, a - b*w)        stages m = 2, 4, ..., n
 //   with w = tw[j * n/m] = root^(j * n/m) for butterfly j of a size-m group.
 //
-// Bound on this card: memory.  The function reads the array once and writes
-// it once (plus the epilogue table, read once per batch entry from L2), and
-// does 1.5 * log2(n) field multiplies-or-adds per word, far below the
-// integer rate needed to hide behind 3.35 TB/s.  So the design keeps every
+// Bound on this card.  Bytes: the function reads the array once and writes
+// it once (plus the epilogue table, read once per batch entry from L2), 16
+// bytes per word against 3.35 TB/s.  Operations: log2(n)/2 butterflies per
+// word, each one field multiply, one add and one subtract (28 + 10 + 8
+// 32-bit integer instructions in the SASS, csrc/gl64_sass_count.py), against
+// 132 SMs x 64 INT32 lanes x 1.98 GHz.  From n = 16 up the operations are
+// the larger of the two, about four times the bytes at n = 4096, so a stage
+// that touched device memory would add to a time the arithmetic already sets.
+// So the design keeps every
 // stage in shared memory: one thread block stages a (n, LG) tile — n rows of
 // LG adjacent lanes, LG a power of two chosen by the wrapper so the tile is
 // at most 128 KB — runs the stages with __syncthreads() between them, and

@@ -63,15 +63,10 @@ def find_nvcc() -> str:
     )
 
 
-def cuda_build_command(name: str, sources, extra=()):
-    """(command, output path) that builds csrc sources into build/lib<name>.so."""
-    so = os.path.join(BUILD_DIR, f"lib{name}.so")
-    return [find_nvcc(), *NVCC_FLAGS, *extra, "-o", so, *sources], so
-
-
-def build_cuda(name: str, sources, extra=()) -> ctypes.CDLL:
-    """Compile CUDA sources (absolute paths) with nvcc and load the library.
-    Raises RuntimeError carrying nvcc's output when the build fails."""
+def build_cuda(name: str, sources) -> ctypes.CDLL:
+    """Compile CUDA sources (absolute paths) with nvcc into
+    build/lib<name>.so and load the library.  Raises RuntimeError carrying
+    nvcc's output when the build fails."""
     if name not in _CACHE:
         os.makedirs(BUILD_DIR, exist_ok=True)
         headers = [
@@ -81,8 +76,8 @@ def build_cuda(name: str, sources, extra=()) -> ctypes.CDLL:
         ]
         so = os.path.join(BUILD_DIR, f"lib{name}.so")
         if _stale(so, list(sources) + headers):
-            cmd, so = cuda_build_command(name, sources, extra)
-            _run(cmd, f"nvcc build of {name}")
+            _run([find_nvcc(), *NVCC_FLAGS, "-o", so, *sources],
+                 f"nvcc build of {name}")
         _CACHE[name] = ctypes.CDLL(so)
     return _CACHE[name]
 

@@ -8,9 +8,12 @@ Pallas kernel ``_make_body`` / ``_build_call`` there).  ``ntt_tile_plain`` is
 the same function in plain PyTorch; the wrapper ``ntt_tile`` takes it only
 for tensors that lie on the CPU and launches the kernel for CUDA tensors.
 
-Bound on an H100: memory.  One call reads the array once and writes it once
-(2 * B*n*lanes*8 bytes against 3.35 TB/s); the kernel keeps all stages of a
-tile in shared memory so no stage touches device memory.
+Bound on an H100: one call reads the array once and writes it once
+(2 * B*n*lanes*8 bytes against 3.35 TB/s) and does log2(n)/2 butterflies per
+word, 46 32-bit integer instructions each (csrc/gl64_sass_count.py), against
+the card's INT32 rate; from n = 16 up the operations are the larger bound.
+The kernel keeps all stages of a tile in shared memory so no stage touches
+device memory.
 
 The four-step decomposition is the JAX package's, with the same index
 algebra and the same **permuted coefficient layout** (the K2 output: a
@@ -368,8 +371,7 @@ def _run_interleave_k3k4(comps, c, L, scale=None):
     return tuple(out)
 
 
-def interpolate_lde(comps, blowup: int, offset: int, consts=None,
-                    return_permuted: bool = False):
+def interpolate_lde(comps, blowup: int, offset: int, return_permuted: bool = False):
     """Length-n natural-order evaluations (..., n) -> natural-order coset
     LDE (..., n*blowup) through four tile transforms.
 
@@ -382,7 +384,7 @@ def interpolate_lde(comps, blowup: int, offset: int, consts=None,
     """
     n = comps[0].shape[-1]
     L = n * blowup
-    c = consts if consts is not None else lde_consts(n, L, offset, comps[0].device)
+    c = lde_consts(n, L, offset, comps[0].device)
     pc = _run_k1k2(comps, c)
     lde = _run_interleave_k3k4(pc, c, L)
     if return_permuted:
@@ -390,7 +392,7 @@ def interpolate_lde(comps, blowup: int, offset: int, consts=None,
     return lde
 
 
-def intt_permuted(comps, interp_offset: int, L: int, consts=None):
+def intt_permuted(comps, interp_offset: int, L: int):
     """Natural-order evaluations (..., n) over the coset interp_offset*<w_n>
     -> TRUE polynomial coefficients in permuted layout (..., b, a):
     out[..., rev_b(j2), rev_a(j1)] = c_{j1 + a*j2}.
@@ -399,20 +401,18 @@ def intt_permuted(comps, interp_offset: int, L: int, consts=None):
     factor ``a`` shared with a later lde_from_permuted to size L.
     """
     n = comps[0].shape[-1]
-    c = consts if consts is not None else intt_consts(
-        n, L, interp_offset, comps[0].device)
+    c = intt_consts(n, L, interp_offset, comps[0].device)
     return _run_k1k2(comps, c)
 
 
-def lde_from_permuted(comps, L: int, eval_offset: int, consts=None):
+def lde_from_permuted(comps, L: int, eval_offset: int):
     """Permuted TRUE coefficients (..., rows, a) of length rows*a polys ->
     natural-order evaluations over eval_offset*<w_L> shaped (..., L).
 
     == ntt.evaluate_poly_with_offset, fed from the permuted layout.
     """
     rows, a = comps[0].shape[-2:]
-    c = consts if consts is not None else fwd_consts(
-        L, a, eval_offset, rows, comps[0].device)
+    c = fwd_consts(L, a, eval_offset, rows, comps[0].device)
     return _run_interleave_k3k4(comps, c, L, scale=c["o"])
 
 

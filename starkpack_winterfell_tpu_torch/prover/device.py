@@ -117,7 +117,9 @@ def run_fri_phase(channel, deep_evals, options, domain, ext_deg, hasher):
         )
         fri_layers.append((transposed, tree))
 
-    # the final layer is tiny: interpolate it on the host
+    # the final layer (at most a few hundred elements) is interpolated on
+    # the host, as the JAX package does at this step (its prover/device.py
+    # run_fri_phase): the coefficients go straight into the host transcript
     evals = tuple(c.cpu() for c in evals)
     coeffs = ntt.interpolate_poly_with_offset(evals, domain.domain_offset)
     rem_size = evals[0].shape[-1] // fri_options.blowup_factor
