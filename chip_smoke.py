@@ -3,17 +3,27 @@
 
     python3 chip_smoke.py [--seed N]
 
-Drives the port's main path (Rescue hash-chain STARK, 2^20 rows x 12
-columns, BLAKE3-256, ProofOptions(28, 8, 16, NONE, 4, 31)) through the
-entry points a user calls, and beside it a 2^14-row prove with a pinned
-digest and an aggregated prove of 4 x 2^16 rows.  Builds the CUDA kernel
-from ``csrc/`` and holds it against its plain PyTorch version on the card at
-every shape any of the three proves launches; each prove's launch counts
-are set to 0 just before it, read just after it and must be exactly the
-compared shapes.  Every proof is checked with the port's verifier.  Each of
-the six phases (device, build, kernels, small, main, aggregated) prints one
-JSON line as it ends; any failure raises and the run exits non-zero.  The
-last two lines are the per-kernel table and the ``{"ok": ...}`` summary.
+Drives the port's two main paths through the entry points a user calls,
+both with BLAKE3-256 and ProofOptions(28, 8, 16, NONE, 4, 31):
+
+* the f64 big-trace path: a Rescue hash-chain STARK of 2^20 rows x 12
+  columns, beside it a 2^14-row prove with a pinned digest and an aggregated
+  prove of 4 x 2^16 rows;
+* the f128 limb-field path: a Rescue128 hash-chain STARK of 2^20 rows x 6
+  columns of 16-byte elements, beside it a 2^12-row prove with a pinned
+  digest and an aggregated prove of 4 x 2^14 rows.
+
+Builds the CUDA kernels from ``csrc/`` (one nvcc per library, all started
+together) and holds each against its plain PyTorch version on the card at
+every shape any of the six proves launches; each prove's launch counts are
+set to 0 just before it, read just after it and must be exactly the
+compared shapes.  The f64 shapes are known in advance (``path_shapes``); the
+limb path's are read off a first prove of each size, compared, and then
+required of the counted prove.  Every proof is checked with the port's
+verifier.  Each phase (device, build, kernels, small, main, aggregated,
+limb_small, limb_fib, limb_fib62, limb_main, limb_aggregated) prints one JSON line as it ends; any
+failure raises and the run exits non-zero.  The last two lines are the
+per-kernel table and the ``{"ok": ...}`` summary.
 
 Needs a CUDA device (exits non-zero without one) and no network.
 """
@@ -22,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import hashlib
 import json
 import logging
@@ -41,15 +52,26 @@ from starkpack_winterfell_tpu_torch import (
     VerifierError,
     verify,
 )
-from starkpack_winterfell_tpu_torch import native
+from starkpack_winterfell_tpu_torch import TraceInfo, native
+from starkpack_winterfell_tpu_torch.models.fib_multifield import get_fib_family
+from starkpack_winterfell_tpu_torch.models.rescue128_chain import (
+    Rescue128ChainAir,
+    Rescue128ChainInputs,
+    Rescue128ChainProver,
+    build_rescue128_chain_trace,
+)
 from starkpack_winterfell_tpu_torch.models.rescue_chain import (
     ChainInputs,
     RescueChainAir,
     RescueChainProver,
     build_chain_trace,
 )
+from starkpack_winterfell_tpu_torch.ops import cons_kernel
 from starkpack_winterfell_tpu_torch.ops import gl64 as gl
+from starkpack_winterfell_tpu_torch.ops import limb_ntt
 from starkpack_winterfell_tpu_torch.ops import ntt4
+from starkpack_winterfell_tpu_torch.ops.backend import get_backend
+from starkpack_winterfell_tpu_torch.parallel.full_pipeline import plan_groups
 
 BENCH_OPTIONS = (28, 8, 16, FieldExtension.NONE, 4, 31)
 BLOWUP = 8
@@ -57,6 +79,11 @@ WIDTH = 12
 COMPOSITION_COLUMNS = 7
 # the three proves this script drives: name -> (log2 of the rows, instances)
 PATHS = {"small": (14, 1), "main": (20, 1), "aggregated": (16, 4)}
+# the limb-field proves (limb_fib, limb_fib62: the cheap second AIR over
+# f128 and over f62): name -> (log2 of the rows, instances)
+LIMB_PATHS = {"limb_small": (12, 1), "limb_fib": (9, 2), "limb_fib62": (9, 2),
+              "limb_main": (20, 1), "limb_aggregated": (14, 4)}
+LIMB_WIDTH = 6
 
 # NVIDIA H100 SXM: HBM bandwidth from the data sheet; 32-bit integer rate
 # from 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock, one operation per
@@ -71,6 +98,15 @@ OPS_FIELD_MUL = 28
 OPS_FIELD_ADD = 10
 OPS_FIELD_SUB = 8
 
+# the same for one limb-field operation (same script): f128 on {lo, hi}
+# words, f62 on one word
+OPS_LIMB = {"f128": {"mul": 130, "sqr": 114, "add": 25, "sub": 20},
+            "f62": {"mul": 78, "sqr": 74, "add": 8, "sub": 8}}
+
+GOLDEN_LIMB = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)),
+    "starkpack_winterfell_tpu_torch", "golden", "rescue128_12_bench.sha256",
+)
 GOLDEN = os.path.join(
     os.path.dirname(os.path.abspath(__file__)),
     "starkpack_winterfell_tpu_torch", "golden", "rescue14_bench.sha256",
@@ -353,6 +389,328 @@ def phase_aggregated(prover, kernel_rows, rng):
          kernel_launches=total, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# the limb-field path: kernels 4 (limb NTT tile) and 5 (constraint evaluation)
+# ---------------------------------------------------------------------------
+
+# fib over a limb field: (air class, build_trace, prover class, inputs)
+FIB = {field: get_fib_family(field) for field in ("f128", "f62")}
+
+
+def limb_air_config(air0):
+    """(w, periodic columns, K, plan groups) of the constraint kernel of an
+    AIR — what keys its emitted source."""
+    template = air0.get_boundary_constraints(None, [0] * air0.context.num_assertions())
+    return (air0.trace_info().width(), len(air0.get_periodic_column_values()),
+            air0.context.num_transition_constraints(), plan_groups(template))
+
+
+def smoke_airs():
+    """One AIR object per constraint kernel the limb phases launch."""
+    options = ProofOptions(*BENCH_OPTIONS)
+    airs = {("f128", "Rescue128ChainAir"): Rescue128ChainAir(
+        TraceInfo(LIMB_WIDTH, 64), Rescue128ChainInputs([1, 2], [3, 4]), options)}
+    for field, fam in FIB.items():
+        airs[(field, "FibAirF")] = fam[0](TraceInfo(2, 64), fam[3](5), options)
+    return airs
+
+
+def random_limb(field, shape, rng, device):
+    """Canonical elements of a limb field drawn with numpy from the run's
+    seed, as word planes: f128 (lo, hi) with hi below 2^64 - 1, which keeps
+    every value below p; f62 one word below p."""
+    if field == "f62":
+        return (gl.from_u64(rng.integers(0, get_backend("f62").P, size=shape,
+                                         dtype=np.uint64), device),)
+    lo = rng.integers(0, 1 << 64, size=shape, dtype=np.uint64)
+    hi = rng.integers(0, (1 << 64) - 1, size=shape, dtype=np.uint64)
+    return gl.from_u64(lo, device), gl.from_u64(hi, device)
+
+
+def mismatching(got, want):
+    return sum(int((g != w).sum()) for g, w in zip(got, want))
+
+
+def limb_tile_bound(field: str, n: int, B: int, lanes: int, has_pre: bool):
+    """Least time (ms) for one limb tile transform; see ``tile_bound``."""
+    cost = OPS_LIMB[field]
+    elems = B * n * lanes
+    el_bytes = get_backend(field).ELEMENT_BYTES
+    nbytes = el_bytes * (2 * elems + n // 2 + (n * lanes if has_pre else 0))
+    stages = n.bit_length() - 1
+    ops = elems * stages * (cost["mul"] + cost["add"] + cost["sub"]) // 2
+    if has_pre:
+        ops += elems * cost["mul"]
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare_limb_tile(key, rng, device, used_by):
+    """Kernel 4 at one launched shape: the wrapper against its plain version
+    (0 mismatching words required), then the tile transform's time."""
+    field, inverse, B, n, lanes, has_pre = key
+    F = get_backend(field).F
+    if has_pre:
+        a = random_limb(field, (B, lanes, n), rng, device)
+        pre = random_limb(field, (lanes, n), rng, device)
+    else:
+        a = random_limb(field, (lanes, n), rng, device)
+        pre = None
+    got = limb_ntt.ntt_last_axis(F, a, inverse, pre)
+    want = limb_ntt.ntt_last_axis_plain(F, a, inverse, pre)
+    torch.cuda.synchronize()
+    mism = mismatching(got, want)
+    if mism:
+        raise RuntimeError(f"limb_ntt_tile disagrees with its plain version in "
+                           f"{mism} words at {key}")
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    del got, want, a
+    x = random_limb(field, (B, n, lanes), rng, device)
+    pt = random_limb(field, (n, lanes), rng, device) if has_pre else None
+    tw = limb_ntt.tile_twiddles(F, n, inverse, device)
+    ms = time_cuda(lambda: limb_ntt._tile_launch(F, x, tw, pt, inverse), 7)
+    plain_ms = time_cuda(lambda: limb_ntt.tile_plain(F, x, tw, pt), 1)
+    bound_ms, bound_by = limb_tile_bound(field, n, B, lanes, has_pre)
+    torch.cuda.empty_cache()
+    return {
+        "name": f"limb_ntt_tile[{field} {'inverse' if inverse else 'forward'} B={B} n={n} "
+                f"lanes={lanes}{' +pre' if has_pre else ''}]",
+        "route": "cuda",
+        "source": "starkpack_winterfell_tpu_torch/csrc/limb_ntt_tile.cu",
+        "replaces": "starkpack_winterfell_tpu/ops/pallas/limb_kernel.py:151",
+        "used_by": [used_by], "launches": 0, "launches_by_path": {},
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }
+
+
+def compare_cons(key, air0, rng, device, used_by):
+    """Kernel 5 at one launched shape (AIR, n, w, ce) on random inputs:
+    kernel against ``constraint_eval_plain``, then its time."""
+    field, air_name, n, w, ce = key
+    B = get_backend(field)
+    cost, el_bytes = OPS_LIMB[field], B.ELEMENT_BYTES
+    w_air, n_per, K, groups = limb_air_config(air0)
+    assert w_air == w
+    shift = BLOWUP // air0.ce_blowup_factor()
+    L = ce * shift
+    n_ccs = sum(len(g) for g in groups)
+    rows = (random_limb(field, (n, w, L), rng, device),)
+    period = 8 * air0.ce_blowup_factor()
+    pers = [random_limb(field, (period,), rng, device) for _ in range(n_per)]
+    divs = [random_limb(field, (ce,), rng, device) for _ in range(1 + len(groups))]
+    scal = torch.stack(random_limb(field, (n, K + 2 * n_ccs + 1), rng, device),
+                       dim=-1).contiguous()
+    args = (B, air0, groups, K, shift, BLOWUP, rows, pers, divs, scal)
+    got = cons_kernel.constraint_eval(*args)[0]
+    want = cons_kernel.constraint_eval_plain(*args)[0]
+    torch.cuda.synchronize()
+    mism = mismatching(got, want)
+    if mism:
+        raise RuntimeError(f"the constraint kernel disagrees with its plain "
+                           f"version in {mism} words at {key}")
+    err = max(float((g - x).abs().max()) for g, x in zip(got, want))
+    del got, want
+    ms = time_cuda(lambda: cons_kernel.constraint_eval(*args), 7)
+    plain_ms = time_cuda(lambda: cons_kernel.constraint_eval_plain(*args), 1)
+    # bound: every input read once, the output written once; the recorded
+    # transition plus the frame's operations per point and instance
+    counts = cons_kernel.count_ops(cons_kernel.record_transition(air0, w, n_per, K)[0])
+    mul = counts["mul"] + K + 1 + len(groups) + n_ccs + 1
+    add = counts["add"] + (K - 1) + len(groups) + n_ccs + 1
+    sub = counts["sub"] + counts["neg"] + n_ccs
+    ops = n * ce * (mul * cost["mul"] + counts["sqr"] * cost["sqr"]
+                    + add * cost["add"] + sub * cost["sub"])
+    nbytes = (el_bytes * (n * w * L + n_per * period + (1 + len(groups)) * ce + ce)
+              + 8 * scal.numel())
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_INT32_OPS_PER_S * 1e3
+    bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    _, path = cons_kernel.kernel_source(air0, w, n_per, K, groups)
+    del rows, pers, divs
+    torch.cuda.empty_cache()
+    return {
+        "name": f"cons_eval[{field} {air_name} n={n} w={w} ce={ce}]",
+        "route": "cuda",
+        "source": "starkpack_winterfell_tpu_torch/csrc/cons_frame.cuh + "
+                  "ops/cons_kernel.py emit_cuda",
+        "emitted_source": os.path.relpath(path, os.path.dirname(os.path.abspath(__file__))),
+        "emitted_lines": open(path).read().count("\n"),
+        "field_ops_per_point": {"mul": mul, "sqr": counts["sqr"], "add": add, "sub": sub},
+        "replaces": "starkpack_winterfell_tpu/ops/pallas/cons_kernel.py:137",
+        "used_by": [used_by], "launches": 0, "launches_by_path": {},
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }
+
+
+def limb_counts():
+    shapes = {("ntt",) + k: v for k, v in limb_ntt.LAUNCHES_BY_SHAPE.items()}
+    shapes.update({("cons",) + k: v for k, v in cons_kernel.LAUNCHES_BY_SHAPE.items()})
+    return shapes
+
+
+def reset_limb_counts():
+    limb_ntt.reset_launch_counts()
+    cons_kernel.reset_launch_counts()
+
+
+def limb_phase(path, prover, air_class, traces, kernel_rows, rng, device, airs,
+               golden=None, tamper=None):
+    """One limb-path size: a first prove shows which shapes the path
+    launches; each new shape is held against its plain version; then the
+    counted prove must launch only compared shapes, each as often as the
+    first prove did.  (The first prove of a config also builds its periodic
+    and divisor tables, which later proves find cached: those shapes are
+    compared too, and named ``first_prove_only`` in the phase's line.)"""
+    log2_rows, n = LIMB_PATHS[path]
+    pub = [prover.get_pub_inputs(t) for t in traces]
+    reset_limb_counts()
+    first_proof, first_s, _ = timed_prove(prover, traces)
+    verify(air_class, first_proof, pub, Blake3_256)
+    seen = limb_counts()
+    if not any(k[0] == "ntt" for k in seen) or not any(k[0] == "cons" for k in seen):
+        raise RuntimeError(f"the {path} prove did not launch both limb kernels: {seen}")
+    compared, new_rows = 0, {}
+    for key in seen:
+        if key in kernel_rows:
+            continue
+        if key[0] == "ntt":
+            new_rows[key] = compare_limb_tile(key[1:], rng, device, path)
+        else:
+            new_rows[key] = compare_cons(key[1:], airs[key[1:3]], rng, device, path)
+        compared += 1
+
+    reset_limb_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()  # tables cached by earlier proves
+    proof, seconds, phases = timed_prove(prover, traces)
+    peak = torch.cuda.max_memory_allocated()
+    counted = limb_counts()
+    if not counted or any(seen.get(k) != v for k, v in counted.items()):
+        raise RuntimeError(f"the {path} prove launched {counted}, compared were {seen}")
+    for key, count in counted.items():
+        if key not in kernel_rows:
+            kernel_rows[key] = new_rows[key]
+        else:
+            kernel_rows[key]["used_by"].append(path)
+        kernel_rows[key]["launches"] += count
+        kernel_rows[key]["launches_by_path"][path] = count
+    data = proof.to_bytes()
+    parsed = proof.from_bytes(data)
+    if parsed.to_bytes() != data:
+        raise RuntimeError("proof serialization round trip failed")
+    t0 = time.perf_counter()
+    verify(air_class, parsed, pub, Blake3_256)
+    verify_s = time.perf_counter() - t0
+    fields = {}
+    if golden is not None:
+        digest = hashlib.sha256(data).hexdigest()
+        with open(golden) as f:
+            pinned = f.read().strip()
+        if digest != pinned:
+            raise RuntimeError(f"{path} proof digest {digest} differs from pinned {pinned}")
+        fields.update(sha256=digest, matches_pinned=True)
+    if tamper is not None:
+        try:
+            verify(air_class, proof.from_bytes(data), tamper(pub), Blake3_256)
+        except VerifierError as e:
+            fields["tampered_rejected"] = str(e)
+        else:
+            raise RuntimeError("a tampered public input was accepted")
+    el_bytes = traces[0].spec.ELEMENT_BYTES
+    lde_bytes = n * traces[0].width * (traces[0].length * BLOWUP) * el_bytes
+    emit(path, rows=1 << log2_rows, columns=traces[0].width, n=n,
+         field=traces[0].field,
+         first_prove_s=first_s, steady_prove_s=seconds,
+         phases_ms={name: ms for name, ms in phases},
+         shapes_compared=compared, mismatching_words=0,
+         first_prove_only=[new_rows[k]["name"] for k in new_rows if k not in counted],
+         ntt_launches=sum(v for k, v in counted.items() if k[0] == "ntt"),
+         cons_launches=sum(v for k, v in counted.items() if k[0] == "cons"),
+         launches={kernel_rows[k]["name"]: v for k, v in counted.items()},
+         peak_memory_bytes=peak, resident_before_bytes=resident,
+         peak_over_main_lde=(peak - resident) / lde_bytes,
+         proof_bytes=len(data), verify_s=verify_s, verified=True, **fields)
+
+
+def tamper_seed(pub):
+    bad = list(pub)
+    bad[-1] = Rescue128ChainInputs(
+        [(bad[-1].seed[0] + 1) % get_backend("f128").P, bad[-1].seed[1]], bad[-1].result)
+    return bad
+
+
+def limb_phases(kernel_rows, rng, device):
+    airs = smoke_airs()
+    options = ProofOptions(*BENCH_OPTIONS)
+    prover = Rescue128ChainProver(options, Blake3_256)
+
+    rows = 1 << LIMB_PATHS["limb_small"][0]
+    limb_phase("limb_small", prover, Rescue128ChainAir,
+               [build_rescue128_chain_trace([7, 9], rows // 8)],
+               kernel_rows, rng, device, airs, golden=GOLDEN_LIMB)
+
+    # the cheap second AIR over both limb fields: other emitted bodies of
+    # the constraint kernel, and the f62 instantiation of both kernels
+    for path, field in (("limb_fib", "f128"), ("limb_fib62", "f62")):
+        fib_air, fib_build, fib_prover, _ = FIB[field]
+        log2_rows, n = LIMB_PATHS[path]
+        limb_phase(path, fib_prover(options, Blake3_256), fib_air,
+                   [fib_build(1 << log2_rows) for _ in range(n)],
+                   kernel_rows, rng, device, airs)
+
+    rows = 1 << LIMB_PATHS["limb_main"][0]
+    t0 = time.perf_counter()
+    trace = build_rescue128_chain_trace([7, 9], rows // 8)
+    emit("limb_trace", rows=rows, trace_build_s=time.perf_counter() - t0)
+    limb_phase("limb_main", prover, Rescue128ChainAir, [trace],
+               kernel_rows, rng, device, airs, tamper=tamper_seed)
+    del trace
+
+    log2_rows, n = LIMB_PATHS["limb_aggregated"]
+    seeds = rng.integers(0, 1 << 62, size=(n, 2), dtype=np.uint64)
+    traces = [build_rescue128_chain_trace([int(v) for v in sd], (1 << log2_rows) // 8)
+              for sd in seeds]
+    limb_phase("limb_aggregated", prover, Rescue128ChainAir, traces,
+               kernel_rows, rng, device, airs, tamper=tamper_seed)
+
+
+def build_all():
+    """Build every kernel library and host builder of the driven paths, one
+    compiler process per library, all started together."""
+    airs = smoke_airs()
+    jobs = {
+        "ntt_tile": ntt4._lib,
+        "limb_ntt_tile": limb_ntt._lib,
+        "trace_builder": native.get_builders,
+        "rescue128_builder": native.get_rescue128,
+    }
+    for (field, name), air0 in airs.items():
+        jobs[f"cons_eval {field} {name}"] = lambda air0=air0: cons_kernel._lib(
+            air0, *limb_air_config(air0))
+    seconds = {}
+
+    def run(item):
+        name, fn = item
+        t0 = time.perf_counter()
+        fn()
+        seconds[name] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        list(pool.map(run, jobs.items()))
+    root = os.path.dirname(os.path.abspath(__file__))
+    emitted = [cons_kernel.kernel_source(a, *limb_air_config(a))[1] for a in airs.values()]
+    emit("build", wall_s=time.perf_counter() - t0, seconds=seconds,
+         sources=[os.path.relpath(p, root) for p in
+                  ntt4.kernel_sources() + limb_ntt.kernel_sources() + emitted],
+         emitted_lines={os.path.relpath(p, root): open(p).read().count("\n")
+                        for p in emitted})
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -374,19 +732,12 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     prover = RescueChainProver(ProofOptions(*BENCH_OPTIONS), Blake3_256)
 
-    t0 = time.perf_counter()
-    ntt4._lib()
-    kernel_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    native.get_builders()
-    emit("build", kernel_library_s=kernel_s,
-         trace_builder_s=time.perf_counter() - t0,
-         sources=[os.path.relpath(s, os.path.dirname(os.path.abspath(__file__)))
-                  for s in ntt4.kernel_sources()])
+    build_all()
     kernel_rows = phase_kernels(rng, device)
     phase_small(prover, kernel_rows)
     phase_main(prover, kernel_rows)
     phase_aggregated(prover, kernel_rows, rng)
+    limb_phases(kernel_rows, rng, device)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": list(kernel_rows.values())}), flush=True)

@@ -1,4 +1,4 @@
-# Copy of starkpack_winterfell_tpu/math/fieldspec.py; cut: the f62 and f128 specs (F62_SPEC, F128_SPEC); only GL64_SPEC is registered.
+# Copy of starkpack_winterfell_tpu/math/fieldspec.py; cut: nothing.
 """Field specifications — the multi-field abstraction the reference expresses
 through the StarkField/ExtensibleField traits (math/src/field/traits.rs).
 
@@ -235,4 +235,17 @@ GL64_SPEC = FieldSpec(
     cubic_reduce=(0, 1, 1),  # x^3 = x + 1  (f64/mod.rs:440)
 )
 
-FIELDS = {GL64_SPEC.name: GL64_SPEC}
+F62_SPEC = FieldSpec(
+    "f62", 4611624995532046337, 8, 3, 39, 4421547261963328785,
+    quad_reduce=(1, 1),  # x^2 = x + 1  (f62/mod.rs:321)
+    cubic_reduce=(0, -2, -2),  # x^3 = -2x - 2  (f62/mod.rs:345)
+)
+
+F128_SPEC = FieldSpec(
+    "f128", 340282366920938463463374557953744961537, 16, 3, 40,
+    23953097886125630542083529559205016746,
+    quad_reduce=(1, 1),  # x^2 = x + 1  (f128/mod.rs:270)
+    cubic_reduce=None,  # unsupported (f128/mod.rs:295-298)
+)
+
+FIELDS = {f.name: f for f in (GL64_SPEC, F62_SPEC, F128_SPEC)}

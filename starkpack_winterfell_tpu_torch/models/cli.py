@@ -1,12 +1,15 @@
 """Example runner CLI: prove + serialize + round-trip + verify with timing
 and proof-size reporting.
 
-Counterpart of starkpack_winterfell_tpu/models/cli.py cut to the one example
-that reaches the ported big-trace path.
+Counterpart of starkpack_winterfell_tpu/models/cli.py cut to the examples
+that reach a ported path: rescue-chain (f64, big-trace pipeline),
+rescue128-chain and fib-f128 (f128) and fib-f62 (f62), limb pipeline.
 
 Usage:
   python -m starkpack_winterfell_tpu_torch.models.cli rescue-chain -n 1 -l 131072
   python -m starkpack_winterfell_tpu_torch.models.cli rescue-chain -n 2 -l 2048 --device cpu
+  python -m starkpack_winterfell_tpu_torch.models.cli rescue128-chain -n 1 -l 512 --device cpu
+  python -m starkpack_winterfell_tpu_torch.models.cli fib-f128 -n 2 -l 512 --device cpu
 """
 
 from __future__ import annotations
@@ -31,15 +34,34 @@ def get_example(name: str):
             RescueChainProver,
             lambda i, l: build_chain_trace([i + 1] * 8, l),
         )
+    if name == "rescue128-chain":
+        from .rescue128_chain import (
+            Rescue128ChainAir,
+            Rescue128ChainProver,
+            build_rescue128_chain_trace,
+        )
+
+        # -l is the CHAIN LENGTH; trace length = 8 * l
+        return (
+            Rescue128ChainAir,
+            Rescue128ChainProver,
+            lambda i, l: build_rescue128_chain_trace([i + 1, 2 * i + 7], l),
+        )
+    if name in ("fib-f128", "fib-f62"):
+        from .fib_multifield import get_fib_family
+
+        air, build, prover, _ = get_fib_family(name[4:])
+        return air, prover, lambda i, l: build(l)
     raise SystemExit(f"unknown example {name}")
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("example", choices=["rescue-chain"])
+    p.add_argument("example", choices=["rescue-chain", "rescue128-chain", "fib-f128", "fib-f62"])
     p.add_argument("-n", "--num-traces", type=int, default=2)
     p.add_argument("-l", "--trace-length", type=int, default=2048,
-                   help="CHAIN length (hashes); the trace has 8*l rows")
+                   help="the hash chains: CHAIN length (hashes), the trace has "
+                        "8*l rows; fib-*: the trace length")
     p.add_argument("-q", "--queries", type=int, default=32)
     p.add_argument("-b", "--blowup", type=int, default=8)
     p.add_argument("-g", "--grinding", type=int, default=0)

@@ -3,8 +3,8 @@
 Two kinds of shared library are built into ``starkpack_winterfell_tpu_torch/
 build/`` (ignored by git) and loaded through ctypes:
 
-* host C++ (``native/builders.cpp``) with the host compiler — the sequential
-  trace builder;
+* host C/C++ (``native/builders.cpp``, ``native/rescue128.c``) with the host
+  compiler — the sequential trace builders;
 * CUDA C++ (``csrc/*.cu``) with ``nvcc`` for ``sm_90a`` — the hand-written
   kernels.  Plain C interface, no PyTorch headers, so a build takes seconds.
 
@@ -63,43 +63,78 @@ def find_nvcc() -> str:
     )
 
 
+CSRC_DIR = os.path.join(_PKG, "csrc")
+
+
 def build_cuda(name: str, sources) -> ctypes.CDLL:
     """Compile CUDA sources (absolute paths) with nvcc into
-    build/lib<name>.so and load the library.  Raises RuntimeError carrying
-    nvcc's output when the build fails."""
+    build/lib<name>.so and load the library; ``csrc/`` is on the include
+    path.  Raises RuntimeError carrying nvcc's output when the build fails."""
     if name not in _CACHE:
         os.makedirs(BUILD_DIR, exist_ok=True)
-        headers = [
-            os.path.join(os.path.dirname(sources[0]), f)
-            for f in os.listdir(os.path.dirname(sources[0]))
-            if f.endswith(".cuh")
-        ]
+        headers = [os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+                   if f.endswith(".cuh")]
         so = os.path.join(BUILD_DIR, f"lib{name}.so")
         if _stale(so, list(sources) + headers):
-            _run([find_nvcc(), *NVCC_FLAGS, "-o", so, *sources],
+            _run([find_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", so, *sources],
                  f"nvcc build of {name}")
         _CACHE[name] = ctypes.CDLL(so)
     return _CACHE[name]
+
+
+def _build_host(name: str, source: str, compilers) -> ctypes.CDLL:
+    """Compile one file of native/ with the first host compiler found into
+    build/lib<name>.so and load it."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), source)
+    so = os.path.join(BUILD_DIR, f"lib{name}.so")
+    if _stale(so, [src]):
+        cc = next((c for c in compilers if shutil.which(c)), None)
+        if cc is None:
+            raise RuntimeError(f"no host compiler found for {source}")
+        _run([cc, "-O3", "-shared", "-fPIC", src, "-o", so],
+             f"host build of {source}")
+    return ctypes.CDLL(so)
 
 
 def get_builders() -> ctypes.CDLL:
     """ctypes handle for the sequential rescue-chain trace builder
     (native/builders.cpp), compiled with the host C++ compiler."""
     if "builders" not in _CACHE:
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "builders.cpp")
-        so = os.path.join(BUILD_DIR, "libstarkbuilders.so")
-        if _stale(so, [src]):
-            cxx = next((c for c in ("c++", "g++", "clang++", "cc", "gcc")
-                        if shutil.which(c)), None)
-            if cxx is None:
-                raise RuntimeError("no host C++ compiler found for builders.cpp")
-            _run([cxx, "-O3", "-shared", "-fPIC", src, "-o", so],
-                 "host build of builders.cpp")
-        lib = ctypes.CDLL(so)
+        lib = _build_host("starkbuilders", "builders.cpp",
+                          ("c++", "g++", "clang++", "cc", "gcc"))
         u64 = ctypes.c_uint64
         p = ctypes.c_void_p
         lib.rescue_chain_trace.argtypes = [p, u64, p, p, p, u64, p]
         lib.rescue_chain_trace.restype = None
         _CACHE["builders"] = lib
     return _CACHE["builders"]
+
+
+def get_rescue128() -> ctypes.CDLL:
+    """ctypes handle for the f128 Rescue128 chain-trace builder
+    (native/rescue128.c), initialized with the protocol constants."""
+    if "r128" not in _CACHE:
+        import numpy as np
+
+        from ..crypto import rescue128_constants as rc
+
+        lib = _build_host("starkr128", "rescue128.c", ("cc", "gcc", "clang"))
+        p = ctypes.c_void_p
+        lib.r128_init.argtypes = [p, p, p]
+        lib.r128_init.restype = None
+        lib.r128_chain_trace.argtypes = [p, ctypes.c_uint64, p, p]
+        lib.r128_chain_trace.restype = None
+
+        def pairs(vals):
+            flat = []
+            for v in vals:
+                flat.append(v & 0xFFFFFFFFFFFFFFFF)
+                flat.append(v >> 64)
+            return np.array(flat, dtype=np.uint64)
+
+        consts = (pairs([v for row in rc.MDS for v in row]),
+                  pairs([v for r in rc.ARK for v in r]), pairs([rc.INV_ALPHA]))
+        lib.r128_init(*[c.ctypes.data_as(p) for c in consts])
+        _CACHE["r128"] = lib
+    return _CACHE["r128"]

@@ -7,10 +7,11 @@ vectorized: the same constraint code runs on whole chunks of the
 constraint-evaluation domain on the device, and on python ints in the
 verifier (through ``ScalarFelt``, verifier/verifier.py).
 
-The JAX package routes every operation through a ``FieldBackend``
-(ops/backend.py, there for the f62/f128 limb fields); that indirection is
-not carried over — ``Felt`` calls gl64/vec directly.  Only degree 1 is
-ported.
+A Felt without a backend holds one int64 tensor per component and calls
+gl64/vec directly (the f64 big-trace path).  ``Felt(..., B=backend)`` holds
+one tuple of word planes per component and routes every operation through
+the ``FieldBackend`` (ops/backend.py), so the same AIR code runs on f128
+planes.  Only degree 1 is ported.
 """
 
 from __future__ import annotations
@@ -23,13 +24,26 @@ from . import vec
 
 
 class Felt:
-    __slots__ = ("c", "deg")
+    __slots__ = ("c", "deg", "B")
 
-    def __init__(self, components, deg=None):
-        """components: tuple of per-component int64 tensors."""
+    def __init__(self, components, deg=None, B=None):
+        """components: tuple of per-component int64 tensors, or with a
+        backend ``B`` tuple of per-component word-plane tuples."""
         self.c = tuple(components)
         self.deg = deg if deg is not None else len(self.c)
+        self.B = B
         assert self.deg == len(self.c) in (1, 2, 3)
+
+    @property
+    def _v(self):
+        """The element-array ops of this Felt's field: ops/vec or a backend."""
+        return vec if self.B is None else self.B
+
+    def _map(self, f) -> "Felt":
+        """Apply a tensor op to every plane."""
+        if self.B is None:
+            return Felt(tuple(f(x) for x in self.c))
+        return Felt(self.B.emap(f, self.c), B=self.B)
 
     # -- constructors -------------------------------------------------------
 
@@ -39,7 +53,9 @@ class Felt:
         return Felt((gl.from_u64(np.asarray(arr, dtype=np.uint64), device),))
 
     @staticmethod
-    def from_int(v: int, shape=(), device="cpu") -> "Felt":
+    def from_int(v: int, shape=(), device="cpu", B=None) -> "Felt":
+        if B is not None:
+            return Felt((B.b_from_int(v, shape, device),), B=B)
         return Felt((gl.from_int(v, shape, device),))
 
     def to_u64s(self) -> np.ndarray:
@@ -49,32 +65,37 @@ class Felt:
     # -- shape/utils --------------------------------------------------------
 
     @property
+    def _plane(self):
+        return self.c[0] if self.B is None else self.c[0][0]
+
+    @property
     def shape(self):
-        return self.c[0].shape
+        return self._plane.shape
 
     @property
     def device(self):
-        return self.c[0].device
+        return self._plane.device
 
     def __getitem__(self, idx) -> "Felt":
-        return Felt(tuple(x[idx] for x in self.c))
+        return self._map(lambda x: x[idx])
 
     def reshape(self, *shape) -> "Felt":
-        return Felt(tuple(x.reshape(*shape) for x in self.c))
+        return self._map(lambda x: x.reshape(*shape))
 
     def broadcast_to(self, shape) -> "Felt":
-        return Felt(vec.vbroadcast(self.c, shape))
+        return Felt(self._v.vbroadcast(self.c, shape), B=self.B)
 
     # -- promotion ----------------------------------------------------------
 
     def _promote(self, other):
         """Coerce other to a Felt of the same degree as self."""
         if isinstance(other, int):
-            other = Felt.from_int(other, (), self.device)
+            other = Felt.from_int(other, (), self.device, self.B)
         if not isinstance(other, Felt):
             return NotImplemented
         d = max(self.deg, other.deg)
-        return Felt(vec.promote(self.c, d)), Felt(vec.promote(other.c, d))
+        v = self._v
+        return Felt(v.promote(self.c, d), B=self.B), Felt(v.promote(other.c, d), B=self.B)
 
     # -- arithmetic ---------------------------------------------------------
 
@@ -82,7 +103,7 @@ class Felt:
         r = self._promote(other)
         if r is NotImplemented:
             return NotImplemented
-        return Felt(vec.vadd(r[0].c, r[1].c))
+        return Felt(self._v.vadd(r[0].c, r[1].c), B=self.B)
 
     __radd__ = __add__
 
@@ -90,30 +111,30 @@ class Felt:
         r = self._promote(other)
         if r is NotImplemented:
             return NotImplemented
-        return Felt(vec.vsub(r[0].c, r[1].c))
+        return Felt(self._v.vsub(r[0].c, r[1].c), B=self.B)
 
     def __rsub__(self, other):
         r = self._promote(other)
         if r is NotImplemented:
             return NotImplemented
-        return Felt(vec.vsub(r[1].c, r[0].c))
+        return Felt(self._v.vsub(r[1].c, r[0].c), B=self.B)
 
     def __neg__(self):
-        return Felt(tuple(gl.neg(x) for x in self.c))
+        return Felt(self._v.vneg(self.c), B=self.B)
 
     def __mul__(self, other):
         if isinstance(other, int):
-            other = Felt.from_int(other, (), self.device)
+            other = Felt.from_int(other, (), self.device, self.B)
         if not isinstance(other, Felt):
             return NotImplemented
-        return Felt(vec.vmul(self.c, other.c))
+        return Felt(self._v.vmul(self.c, other.c), B=self.B)
 
     __rmul__ = __mul__
 
     def __pow__(self, e: int):
         e = int(e)
         if e == 0:
-            return Felt(vec.vones(self.shape, self.deg, self.device))
+            return Felt(self._v.vones(self.shape, self.deg, self.device), B=self.B)
         result = None
         base = self
         while e:
@@ -125,10 +146,10 @@ class Felt:
         return result
 
     def square(self):
-        return Felt(vec.vsquare(self.c))
+        return Felt(self._v.vsquare(self.c), B=self.B)
 
     def inverse(self):
-        return Felt(vec.vinv(self.c))
+        return Felt(self._v.vinv(self.c), B=self.B)
 
     def __truediv__(self, other):
         r = self._promote(other)
@@ -143,14 +164,17 @@ class Felt:
         r = self._promote(other)
         if r is NotImplemented:
             return NotImplemented
+        planes = lambda f: f.c if self.B is None else [l for c in f.c for l in c]
         out = None
-        for x, y in zip(r[0].c, r[1].c):
+        for x, y in zip(planes(r[0]), planes(r[1])):
             e = x == y
             out = e if out is None else out & e
         return out
 
     def __repr__(self):
-        return f"Felt(deg={self.deg}, shape={tuple(self.shape)}, device={self.device})"
+        field = "f64" if self.B is None else self.B.name
+        return (f"Felt({field}, deg={self.deg}, shape={tuple(self.shape)}, "
+                f"device={self.device})")
 
 
 def mds_apply(states, rows) -> list:

@@ -42,6 +42,10 @@ def vsub(a, b):
     return tuple(gl.sub(x, y) for x, y in zip(a, b))
 
 
+def vneg(a):
+    return tuple(gl.neg(x) for x in a)
+
+
 def vmul(a, b):
     """Full product with base-mul shortcut when either side is base."""
     if len(a) == 1 and len(b) == 1:

@@ -4,7 +4,9 @@ Counterpart of starkpack_winterfell_tpu/prover/device.py cut to what the
 big-trace pipeline (prover/device_big.py) borrows: the FRI layer hash and
 fold (``fri_hash_kernel`` :353, ``fri_fold_kernel`` :376), ``run_fri_phase``
 :562, ``assemble_proof`` :600, the scalar stacking helpers, and the routing
-of ``prove_device`` :400 reduced to "supported -> prove_big, else raise".
+of ``prove_device`` :400: a field other than f64 goes to the limb pipeline
+(parallel/full_pipeline.py ``prove_mesh``), an f64 config the big-trace
+pipeline supports goes to ``prove_big``, anything else raises.
 The small-trace pipeline ``_generate_proof_device`` is not ported, and there
 is no jit cache: the functions below are plain eager tensor code.
 """
@@ -54,10 +56,10 @@ def fri_fold_kernel(transposed, alpha_l, offset: int, ext_deg: int):
 
 
 def prove_device(prover, n: int, traces, device="cuda"):
-    """Route a prove to the pipeline that supports its config.  Only the
-    big-trace pipeline is ported; anything it does not cover raises
-    NotImplementedError naming the config (there is no host pipeline to
-    fall back to)."""
+    """Route a prove to the pipeline that supports its config: limb fields
+    to ``prove_mesh``, f64 to the big-trace pipeline.  Anything they do not
+    cover raises NotImplementedError naming the config (there is no host
+    pipeline to fall back to)."""
     from . import device_big
 
     dev = resolve_device(device)
@@ -80,10 +82,14 @@ def prove_device(prover, n: int, traces, device="cuda"):
         refuse("only the blake3_256 hasher is ported")
     if traces[0].num_aux_segments() > 0:
         refuse("auxiliary trace segments are not ported")
-    if air0.field_spec().name != "f64":
-        refuse("only the f64 field is ported")
     if ext_deg != 1:
         refuse("only extension degree 1 is ported")
+    if air0.field_spec().name != "f64":
+        if air0.field_spec().name not in ("f128", "f62"):
+            refuse("no backend for this field")
+        from ..parallel.full_pipeline import prove_mesh
+
+        return prove_mesh(prover, n, traces, dev)
     if length < device_big.MIN_TRACE_LENGTH:
         refuse(f"trace lengths below {device_big.MIN_TRACE_LENGTH} need the "
                "small-trace pipeline")

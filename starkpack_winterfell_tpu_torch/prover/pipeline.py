@@ -2,12 +2,13 @@
 prover/src/lib.rs's ``Prover`` trait.
 
 Counterpart of starkpack_winterfell_tpu/prover/pipeline.py cut to the
-``Prover`` base class: subclasses provide the AIR class, proof options,
+``Prover`` base class — subclasses provide the AIR class, proof options,
 hash function and public-input extraction; ``prove(n, traces)`` produces
 one aggregated StarkProof for all traces sharing a single Fiat-Shamir
-transcript.  The host (numpy) pipeline ``_generate_proof`` / ``finish_proof``
-is not ported: every prove runs the tensor pipeline of prover/device.py on
-the device the caller names.
+transcript — and ``finish_proof`` (:190) with its device hooks only.  The
+host (numpy) pipeline ``_generate_proof`` is not ported: every prove runs a
+tensor pipeline (prover/device_big.py, parallel/full_pipeline.py) on the
+device the caller names.
 """
 
 from __future__ import annotations
@@ -41,3 +42,61 @@ class Prover:
         if n != len(traces):
             raise ProverError(f"expected {n} traces, got {len(traces)}")
         return prove_device(self, n, traces, device=device)
+
+
+def finish_proof(channel, airs, domain, options, ext_deg, B, spec,
+                 main_tree, constraint_tree, ood_fn, deep_fn, deep_lde_and_fri,
+                 query_rows_fn, mark=None):
+    """Phases 4-8 of generate_proof (OOD + DEEP + FRI + queries + assembly,
+    prover/src/lib.rs:476-603) for a pipeline that keeps its tables on the
+    device and hands over four hooks:
+
+    ood_fn(z, zg) -> (ood_traces_states, ood_evaluations) as host elements;
+    deep_fn(z, cc, ood_traces_states, ood_evaluations) -> DEEP coefficient
+    comps; deep_lde_and_fri(deep_coeffs) runs the LDE and the FRI layer
+    commits against ``channel`` and returns the FRI prover;
+    query_rows_fn(positions) -> (main rows per instance, composition rows),
+    holding ONLY the queried columns.  ``mark(phase name)`` is called as
+    each phase ends."""
+    from ..crypto.merkle import MerkleTree
+    from .commitment import build_constraint_queries, build_segment_queries
+
+    mark = mark or (lambda name: None)
+    trace_length = domain.trace_length
+
+    # Phase 4: OOD evaluation + DEEP (lib.rs:476-535)
+    z = channel.get_ood_point()
+    g_trace = spec.get_root_of_unity(trace_length.bit_length() - 1)
+    zg = spec.fmul(z, g_trace)
+    ood_traces_states, ood_evaluations = ood_fn(z, zg)
+    channel.send_ood_trace_states(ood_traces_states)
+    channel.send_ood_constraint_evaluations(ood_evaluations)
+    mark("P4 OOD")
+
+    deep_coefficients = channel.get_deep_composition_coeffs()
+    deep_coeffs = deep_fn(z, deep_coefficients, ood_traces_states, ood_evaluations)
+
+    # Phase 5-6: DEEP evaluation over the LDE domain + FRI (lib.rs:543-561)
+    fri_prover = deep_lde_and_fri(deep_coeffs)
+    mark("P5+6 DEEP+FRI")
+
+    # Phase 7: PoW + query positions (lib.rs:574-577)
+    channel.grind_query_seed()
+    query_positions = channel.get_query_positions()
+    mark("P7 PoW+positions")
+
+    # Phase 8: proof assembly (lib.rs:585-603)
+    MerkleTree.prefetch_trees(
+        [(main_tree, query_positions), (constraint_tree, query_positions)]
+    )
+    fri_proof = fri_prover.build_proof(query_positions)
+    main_rows, comp_rows = query_rows_fn(query_positions)
+    trace_queries = [
+        build_segment_queries(main_rows, main_tree, query_positions, 1, B)
+    ]
+    constraint_queries = build_constraint_queries(
+        comp_rows, constraint_tree, query_positions, ext_deg, B
+    )
+    proof = channel.build_proof(trace_queries, constraint_queries, fri_proof)
+    mark("P8 queries+assembly")
+    return proof

@@ -1,10 +1,11 @@
 """Execution traces — equivalent of prover/src/trace/{mod,trace_table}.rs.
 
-Counterpart of starkpack_winterfell_tpu/prover/trace.py cut to the f64
-main-segment ``TraceTable``: column-major numpy uint64 staging filled by
-host builders, handed to the device with one copy.  Not ported: the limb
-fields' python-int staging, ``from_u64_pairs``, ``validate`` and the
-device-builder hooks (``set_device_builder`` / ``device_planes``).
+Counterpart of starkpack_winterfell_tpu/prover/trace.py cut to the
+main-segment ``TraceTable``: column-major host staging filled by host
+builders, handed to the device with one copy.  f64 traces stage numpy uint64
+columns; f128 traces stage (lo, hi) uint64 planes (``from_u64_pairs``, or
+``init`` from python ints).  Not ported: ``validate`` and the device-builder
+hooks (``set_device_builder`` / ``device_planes``).
 """
 
 from __future__ import annotations
@@ -12,21 +13,28 @@ from __future__ import annotations
 import numpy as np
 
 from ..air.trace_info import TraceInfo, TraceLayout
-from ..math import scalar as fs
+from ..math.fieldspec import FIELDS
+
+_M64 = 0xFFFFFFFFFFFFFFFF
 
 
 class TraceTable:
     """prover/src/trace/trace_table.rs:62 — main-segment-only trace."""
 
-    field = "f64"
-
-    def __init__(self, width: int, length: int, meta: bytes = b""):
+    def __init__(self, width: int, length: int, meta: bytes = b"", field: str = "f64"):
         assert 0 < width <= TraceInfo.MAX_TRACE_WIDTH
         assert length >= TraceInfo.MIN_TRACE_LENGTH and length & (length - 1) == 0
         self.width = width
         self.length = length
         self.meta = meta
-        self._columns = np.zeros((width, length), dtype=np.uint64)
+        self.field = field
+        self.spec = FIELDS[field]
+        # word planes of the columns: one (width, length) uint64 array per
+        # 64-bit word of an element, low word first
+        self._planes = [
+            np.zeros((width, length), dtype=np.uint64)
+            for _ in range(self.spec.ELEMENT_BYTES // 8)
+        ]
 
     # -- constructors --------------------------------------------------------
 
@@ -34,13 +42,29 @@ class TraceTable:
     def from_u64_columns(cls, columns: np.ndarray, meta: bytes = b"") -> "TraceTable":
         columns = np.asarray(columns, dtype=np.uint64)
         obj = cls(columns.shape[0], columns.shape[1], meta)
-        obj._columns = columns.copy()
+        obj._planes = [columns.copy()]
         return obj
 
     @classmethod
-    def init(cls, columns) -> "TraceTable":
+    def from_u64_pairs(cls, lo: np.ndarray, hi: np.ndarray, field: str,
+                       meta: bytes = b"") -> "TraceTable":
+        """From (width, length) u64 lo/hi planes of <= 128-bit canonical
+        elements (filled by native builders)."""
+        lo = np.asarray(lo, dtype=np.uint64)
+        hi = np.asarray(hi, dtype=np.uint64)
+        obj = cls(lo.shape[0], lo.shape[1], meta, field=field)
+        assert len(obj._planes) == 2, f"{field} elements are not two words"
+        obj._planes = [lo.copy(), hi.copy()]
+        return obj
+
+    @classmethod
+    def init(cls, columns, field: str = "f64") -> "TraceTable":
         """From a list of per-column python-int lists (trace_table.rs:107)."""
-        return cls.from_u64_columns(np.array(columns, dtype=np.uint64))
+        obj = cls(len(columns), len(columns[0]), field=field)
+        for c, col in enumerate(columns):
+            for step, v in enumerate(col):
+                obj.set(c, step, v)
+        return obj
 
     def fill(self, init_fn, update_fn):
         """Sequential builder (trace_table.rs:230-243): ``init_fn(state)``
@@ -48,18 +72,22 @@ class TraceTable:
         step.  ``state`` is a list of python ints."""
         state = [0] * self.width
         init_fn(state)
-        self._columns[:, 0] = [s % fs.P for s in state]
+        for c, s in enumerate(state):
+            self.set(c, 0, s)
         for i in range(self.length - 1):
             update_fn(i, state)
-            self._columns[:, i + 1] = [s % fs.P for s in state]
+            for c, s in enumerate(state):
+                self.set(c, i + 1, s)
 
     # -- accessors -----------------------------------------------------------
 
     def get(self, column: int, step: int) -> int:
-        return int(self._columns[column, step])
+        return sum(int(p[column, step]) << (64 * i) for i, p in enumerate(self._planes))
 
     def set(self, column: int, step: int, value: int):
-        self._columns[column, step] = value % fs.P
+        value %= self.spec.P
+        for i, p in enumerate(self._planes):
+            p[column, step] = (value >> (64 * i)) & _M64
 
     def get_info(self) -> TraceInfo:
         return TraceInfo(self.width, self.length, self.meta)
@@ -68,10 +96,18 @@ class TraceTable:
         return self.get_info().layout
 
     def main_columns_u64(self) -> np.ndarray:
-        return self._columns
+        assert self.field == "f64"
+        return self._planes[0]
+
+    def main_segment_limbs(self, backend=None, device="cpu"):
+        """Main segment as a tuple-of-1 component of int64 word planes shaped
+        (width, length) on ``device`` (one copy per plane)."""
+        from ..ops import gl64 as gl
+
+        return (tuple(gl.from_u64(p, device) for p in self._planes),)
 
     def num_aux_segments(self) -> int:
         return 0
 
     def read_row(self, step: int):
-        return [int(v) for v in self._columns[:, step]]
+        return [self.get(c, step) for c in range(self.width)]

@@ -5,7 +5,9 @@ Counterpart of starkpack_winterfell_tpu/utils/convert.py on the one-word
 representation (ops/gl64.py).  ``from_limb_pairs`` / ``to_limb_pairs`` /
 ``trace_from_u64_columns`` carry data across from the JAX package's
 ``(lo, hi)`` u32-pair arrays (handed over as numpy), so both packages can
-prove the same statement from the same numpy data.
+prove the same statement from the same numpy data; ``from_limb_planes`` /
+``to_limb_planes`` do the same for the limb fields' k-tuples of u32 planes
+(k = 4 for f128, k = 2 for a 64-bit field) and the port's word planes.
 """
 
 from __future__ import annotations
@@ -77,6 +79,24 @@ def ext_from_limb_pairs(comps, device="cpu"):
 
 def ext_to_limb_pairs(comps):
     return tuple(to_limb_pairs(c) for c in comps)
+
+
+def from_limb_planes(planes, device="cpu"):
+    """k-tuple of uint32 numpy limb planes (little-endian limbs, k even) ->
+    k/2-tuple of word planes: word i joins limbs 2i and 2i+1."""
+    assert len(planes) % 2 == 0
+    return tuple(
+        from_limb_pairs((planes[2 * i], planes[2 * i + 1]), device)
+        for i in range(len(planes) // 2)
+    )
+
+
+def to_limb_planes(t):
+    """Tuple of word planes -> the k-tuple of uint32 numpy limb planes."""
+    out = []
+    for plane in t:
+        out.extend(to_limb_pairs(plane))
+    return tuple(out)
 
 
 def trace_from_u64_columns(columns: np.ndarray):

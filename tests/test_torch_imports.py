@@ -38,6 +38,16 @@ def _run(code, env_extra=None):
     "starkpack_winterfell_tpu_torch.models.cli",
     "starkpack_winterfell_tpu_torch.prover.device_big",
     "starkpack_winterfell_tpu_torch.ops.ntt4",
+    # the limb-field slice, one interpreter for all of its modules
+    "starkpack_winterfell_tpu_torch.ops.limb_field, "
+    "starkpack_winterfell_tpu_torch.ops.limb_ntt, "
+    "starkpack_winterfell_tpu_torch.ops.cons_kernel, "
+    "starkpack_winterfell_tpu_torch.ops.backend, "
+    "starkpack_winterfell_tpu_torch.parallel.full_pipeline, "
+    "starkpack_winterfell_tpu_torch.parallel.streamed, "
+    "starkpack_winterfell_tpu_torch.prover.commitment, "
+    "starkpack_winterfell_tpu_torch.models.rescue128_chain, "
+    "starkpack_winterfell_tpu_torch.models.fib_multifield",
     "chip_smoke",
 ])
 def test_import_leaves_jax_and_the_jax_package_out(module):
@@ -84,6 +94,18 @@ def test_cli_runs_on_the_cpu_and_refuses_the_default_device():
     r = subprocess.run(base + ["--device", "cpu"], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode != 0 and "NotImplementedError" in r.stderr
+
+
+def test_limb_cli_runs_on_the_cpu_and_refuses_the_default_device():
+    base = [sys.executable, "-m", "starkpack_winterfell_tpu_torch.models.cli",
+            "fib-f128", "-n", "2", "-l", "64"]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run(base, cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode != 0 and "cuda" in r.stderr.lower()
+    r = subprocess.run(base + ["--device", "cpu"], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and "Proof verified" in r.stdout, r.stderr
 
 
 def test_chip_smoke_exits_nonzero_without_a_card():
