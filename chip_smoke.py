@@ -3,27 +3,34 @@
 
     python3 chip_smoke.py [--seed N]
 
-Drives the port's two main paths through the entry points a user calls,
-both with BLAKE3-256 and ProofOptions(28, 8, 16, NONE, 4, 31):
+Drives the port's three main paths through the entry points a user calls,
+all with BLAKE3-256 and ProofOptions(28, 8, 16, NONE, 4, 31):
 
 * the f64 big-trace path: a Rescue hash-chain STARK of 2^20 rows x 12
   columns, beside it a 2^14-row prove with a pinned digest and an aggregated
   prove of 4 x 2^16 rows;
 * the f128 limb-field path: a Rescue128 hash-chain STARK of 2^20 rows x 6
   columns of 16-byte elements, beside it a 2^12-row prove with a pinned
-  digest and an aggregated prove of 4 x 2^14 rows.
+  digest and an aggregated prove of 4 x 2^14 rows;
+* the f64 small-trace path (every transform through the DIT kernels):
+  do-work 32 x 1024 rows x 10 columns and a Rescue hash chain of 64
+  instances x 2^13 rows x 12 columns, beside them do-work 2 x 64 with
+  ProofOptions(16, 8, 0, NONE, 4, 31) and a pinned digest.
 
 Builds the CUDA kernels from ``csrc/`` (one nvcc per library, all started
 together) and holds each against its plain PyTorch version on the card at
-every shape any of the six proves launches; each prove's launch counts are
-set to 0 just before it, read just after it and must be exactly the
-compared shapes.  The f64 shapes are known in advance (``path_shapes``); the
-limb path's are read off a first prove of each size, compared, and then
-required of the counted prove.  Every proof is checked with the port's
-verifier.  Each phase (device, build, kernels, small, main, aggregated,
-limb_small, limb_fib, limb_fib62, limb_main, limb_aggregated) prints one JSON line as it ends; any
-failure raises and the run exits non-zero.  The last two lines are the
-per-kernel table and the ``{"ok": ...}`` summary.
+every shape any of the proves launches; each prove's launch counts are set
+to 0 just before it, read just after it and must be exactly the compared
+shapes.  The big-trace path's tile shapes are known in advance
+(``path_shapes``); the shapes of the limb kernels and of the DIT kernels
+(which also serve the small transforms of the big-trace path) are read off
+a first prove of each size, compared, and then required of the counted
+prove.  Every proof is checked with the port's verifier.  Each phase
+(device, build, kernels, dit_kernels, small, main, aggregated,
+small_trace_golden, small_trace_main_do_work, small_trace_main_rescue,
+limb_small, limb_fib, limb_fib62, limb_main, limb_aggregated) prints one
+JSON line as it ends; any failure raises and the run exits non-zero.  The
+last two lines are the per-kernel table and the ``{"ok": ...}`` summary.
 
 Needs a CUDA device (exits non-zero without one) and no network.
 """
@@ -53,6 +60,12 @@ from starkpack_winterfell_tpu_torch import (
     verify,
 )
 from starkpack_winterfell_tpu_torch import TraceInfo, native
+from starkpack_winterfell_tpu_torch.models.do_work import (
+    DoWorkAir,
+    DoWorkProver,
+    PublicInputs as DoWorkInputs,
+    build_do_work_trace,
+)
 from starkpack_winterfell_tpu_torch.models.fib_multifield import get_fib_family
 from starkpack_winterfell_tpu_torch.models.rescue128_chain import (
     Rescue128ChainAir,
@@ -70,6 +83,7 @@ from starkpack_winterfell_tpu_torch.ops import cons_kernel
 from starkpack_winterfell_tpu_torch.ops import gl64 as gl
 from starkpack_winterfell_tpu_torch.ops import limb_ntt
 from starkpack_winterfell_tpu_torch.ops import ntt4
+from starkpack_winterfell_tpu_torch.ops import ntt_kernel
 from starkpack_winterfell_tpu_torch.ops.backend import get_backend
 from starkpack_winterfell_tpu_torch.parallel.full_pipeline import plan_groups
 
@@ -84,6 +98,10 @@ PATHS = {"small": (14, 1), "main": (20, 1), "aggregated": (16, 4)}
 LIMB_PATHS = {"limb_small": (12, 1), "limb_fib": (9, 2), "limb_fib62": (9, 2),
               "limb_main": (20, 1), "limb_aggregated": (14, 4)}
 LIMB_WIDTH = 6
+# the small-trace proves: name -> (log2 of the rows, instances)
+SMALL_TRACE_PATHS = {"small_trace_golden": (6, 2), "small_trace_main_do_work": (10, 32),
+                     "small_trace_main_rescue": (13, 64)}
+GOLDEN_OPTIONS = (16, 8, 0, FieldExtension.NONE, 4, 31)
 
 # NVIDIA H100 SXM: HBM bandwidth from the data sheet; 32-bit integer rate
 # from 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock, one operation per
@@ -110,6 +128,10 @@ GOLDEN_LIMB = os.path.join(
 GOLDEN = os.path.join(
     os.path.dirname(os.path.abspath(__file__)),
     "starkpack_winterfell_tpu_torch", "golden", "rescue14_bench.sha256",
+)
+GOLDEN_SMALL_TRACE = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)),
+    "starkpack_winterfell_tpu_torch", "golden", "do_work_2x64.sha256",
 )
 
 
@@ -265,6 +287,80 @@ def phase_kernels(rng, device):
 
 
 # ---------------------------------------------------------------------------
+# kernels 2 and 3: the DIT transforms of ops/ntt_kernel.py
+# ---------------------------------------------------------------------------
+
+
+def dit_inputs(key, rng, device):
+    """(function, plain version, arguments) of one DIT kernel shape:
+    ("axis0", n, lanes) or ("axis1", B, n, lanes, has pre)."""
+    if key[0] == "axis0":
+        _, n, lanes = key
+        args = (random_words((n, lanes), rng, device),
+                ntt4.tile_twiddles(n, False, device))
+        return ntt_kernel.dit_axis0, ntt_kernel.dit_axis0_plain, args
+    _, B, n, lanes, has_pre = key
+    args = (random_words((B, n, lanes), rng, device),
+            ntt4.tile_twiddles(n, False, device),
+            random_words((n, lanes), rng, device) if has_pre else None)
+    return ntt_kernel.dit_axis1, ntt_kernel.dit_axis1_plain, args
+
+
+def dit_mismatches(key, rng, device):
+    fn, plain, args = dit_inputs(key, rng, device)
+    got, want = fn(*args), plain(*args)
+    torch.cuda.synchronize()
+    mism = int((got != want).sum())
+    if mism:
+        raise RuntimeError(f"ntt_dit disagrees with its plain version in {mism} "
+                           f"words at {key}")
+    return fn, plain, args, float((got - want).abs().max())
+
+
+def compare_dit(key, rng, device, used_by):
+    """Kernel 2 or 3 at one launched shape: the wrapper against its plain
+    version (0 mismatching words required), then its time and bound."""
+    fn, plain, args, err = dit_mismatches(key, rng, device)
+    ms = time_cuda(lambda: fn(*args), 7)
+    plain_ms = time_cuda(lambda: plain(*args), 1)
+    if key[0] == "axis0":
+        B, (n, lanes), has_pre = 1, key[1:], False
+        name = f"ntt_dit_axis0[n={n} lanes={lanes}]"
+        replaces = "starkpack_winterfell_tpu/ops/pallas/ntt_kernel.py:91"
+    else:
+        B, n, lanes, has_pre = key[1:]
+        name = f"ntt_dit_axis1[B={B} n={n} lanes={lanes}{' +pre' if has_pre else ''}]"
+        replaces = "starkpack_winterfell_tpu/ops/pallas/ntt_kernel.py:224"
+    bound_ms, bound_by = tile_bound(False, B, n, lanes, has_pre)
+    del args
+    torch.cuda.empty_cache()
+    return {
+        "name": name, "route": "cuda",
+        "source": "starkpack_winterfell_tpu_torch/csrc/ntt_dit.cu",
+        "replaces": replaces,
+        "used_by": [used_by], "launches": 0, "launches_by_path": {},
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }
+
+
+def phase_dit_kernels(rng, device):
+    """Both DIT kernels against their plain versions at fixed shapes before
+    any prove runs: the smallest and the largest length, one lane, ragged
+    lane groups, with and without the pre-multiply.  The shapes the proves
+    launch are compared, and timed, in the proves' own phases."""
+    keys = [("axis0", 2, 1), ("axis0", 4, 5000), ("axis0", 64, 1), ("axis0", 1024, 24),
+            ("axis0", 4096, 7), ("axis1", 3, 2, 3, True), ("axis1", 2, 64, 130, False),
+            ("axis1", 2, 64, 130, True), ("axis1", 5, 256, 768, True),
+            ("axis1", 2, 4096, 9, True), ("axis1", 1, 4096, 4, False)]
+    for key in keys:
+        dit_mismatches(key, rng, device)
+    emit("dit_kernels", names=["ntt_dit_axis0", "ntt_dit_axis1<PRE>", "ntt_dit_axis1"],
+         tolerance="exact (modular integer arithmetic)",
+         compared=len(keys), mismatching_words=0, shapes=[list(k) for k in keys])
+
+
+# ---------------------------------------------------------------------------
 # proofs
 # ---------------------------------------------------------------------------
 
@@ -299,13 +395,56 @@ def timed_prove(prover, traces):
     return proof, seconds, log.phases
 
 
-def counted_prove(path, prover, traces, kernel_rows):
-    """One prove of the path with the kernel's launch counts set to 0 just
-    before and read just after.  The launched shapes and their counts must
-    be exactly those ``path_shapes`` lists (all of them held against the
-    plain version by the kernels phase); the counts go into the table."""
+def first_prove(path, prover, traces, kernel_rows, rng, device, airs=None):
+    """A first prove of a size shows which shapes of the kernels whose
+    shapes are not known in advance (the DIT and the limb kernels) the path
+    launches; each shape not yet in the table is held against its plain
+    version.  Returns (proof, seconds, seen counts, rows of the new shapes)."""
+    reset_observed_counts()
+    proof, seconds, _ = timed_prove(prover, traces)
+    seen = observed_counts()
+    new_rows = {}
+    for key in seen:
+        if key in kernel_rows:
+            continue
+        if key[0] == "dit":
+            new_rows[key] = compare_dit(key[1:], rng, device, path)
+        elif key[0] == "ntt":
+            new_rows[key] = compare_limb_tile(key[1:], rng, device, path)
+        else:
+            new_rows[key] = compare_cons(key[1:], airs[key[1:3]], rng, device, path)
+    return proof, seconds, seen, new_rows
+
+
+def record_observed(path, seen, new_rows, kernel_rows, required):
+    """Reads the counts just after a counted prove: it must have launched
+    every kind of kernel in ``required``, only compared shapes, and each as
+    often as the first prove did.  The counts go into the table."""
+    counted = observed_counts()
+    kinds = {k[0] for k in counted}
+    if not set(required) <= kinds or any(seen.get(k) != v for k, v in counted.items()):
+        raise RuntimeError(f"the {path} prove launched {counted}, required kinds "
+                           f"{required}, compared were {seen}")
+    for key, count in counted.items():
+        if key not in kernel_rows:
+            kernel_rows[key] = new_rows[key]
+        elif path not in kernel_rows[key]["used_by"]:
+            kernel_rows[key]["used_by"].append(path)
+        kernel_rows[key]["launches"] += count
+        kernel_rows[key]["launches_by_path"][path] = count
+    return counted
+
+
+def counted_prove(path, prover, traces, kernel_rows, seen, new_rows):
+    """One prove of the path with every launch count set to 0 just before
+    and read just after.  The launched tile shapes and their counts must be
+    exactly those ``path_shapes`` lists (all of them held against the plain
+    version by the kernels phase), the DIT shapes (periodic columns, FRI
+    folds) those of the first prove; the counts go into the table."""
     ntt4.reset_launch_counts()
+    reset_observed_counts()
     proof, seconds, phases = timed_prove(prover, traces)
+    dit = record_observed(path, seen, new_rows, kernel_rows, ("dit",))
     total = ntt4.LAUNCHES
     by_shape = collections.Counter(ntt4.LAUNCHES_BY_SHAPE)
     expected = expected_launches(path)
@@ -319,7 +458,8 @@ def counted_prove(path, prover, traces, kernel_rows):
         kernel_rows[key]["launches"] += count
         kernel_rows[key]["launches_by_path"][path] = count
     launches = {kernel_rows[key]["name"]: count for key, count in by_shape.items()}
-    return proof, seconds, phases, total, launches
+    launches.update({kernel_rows[key]["name"]: count for key, count in dit.items()})
+    return proof, seconds, phases, total + sum(dit.values()), launches
 
 
 def verified_bytes(prover, proof, traces):
@@ -334,11 +474,12 @@ def verified_bytes(prover, proof, traces):
     return data, time.perf_counter() - t0
 
 
-def phase_small(prover, kernel_rows):
+def phase_small(prover, kernel_rows, rng, device):
     rows = 1 << PATHS["small"][0]
     traces = [build_chain_trace([7] * 8, rows // 8)]
+    _, _, seen, new_rows = first_prove("small", prover, traces, kernel_rows, rng, device)
     proof, seconds, _, total, launches = counted_prove(
-        "small", prover, traces, kernel_rows)
+        "small", prover, traces, kernel_rows, seen, new_rows)
     data, verify_s = verified_bytes(prover, proof, traces)
     digest = hashlib.sha256(data).hexdigest()
     with open(GOLDEN) as f:
@@ -350,15 +491,15 @@ def phase_small(prover, kernel_rows):
          kernel_launches=total, launches=launches)
 
 
-def phase_main(prover, kernel_rows):
+def phase_main(prover, kernel_rows, rng, device):
     rows = 1 << PATHS["main"][0]
     t0 = time.perf_counter()
     traces = [build_chain_trace([7] * 8, rows // 8)]
     trace_s = time.perf_counter() - t0
-    _, first_s, _ = timed_prove(prover, traces)
+    _, first_s, seen, new_rows = first_prove("main", prover, traces, kernel_rows, rng, device)
     torch.cuda.reset_peak_memory_stats()
     proof, steady_s, phases, total, launches = counted_prove(
-        "main", prover, traces, kernel_rows)
+        "main", prover, traces, kernel_rows, seen, new_rows)
     peak = torch.cuda.max_memory_allocated()
     data, verify_s = verified_bytes(prover, proof, traces)
     emit("main", rows=rows, columns=WIDTH, n=1,
@@ -368,13 +509,14 @@ def phase_main(prover, kernel_rows):
          proof_bytes=len(data), verify_s=verify_s, verified=True)
 
 
-def phase_aggregated(prover, kernel_rows, rng):
+def phase_aggregated(prover, kernel_rows, rng, device):
     log2_rows, n = PATHS["aggregated"]
     rows = 1 << log2_rows
     seeds = rng.integers(0, gl.P, size=(n, 8), dtype=np.uint64)
     traces = [build_chain_trace([int(v) for v in s], rows // 8) for s in seeds]
+    _, _, seen, new_rows = first_prove("aggregated", prover, traces, kernel_rows, rng, device)
     proof, seconds, _, total, launches = counted_prove(
-        "aggregated", prover, traces, kernel_rows)
+        "aggregated", prover, traces, kernel_rows, seen, new_rows)
     data, verify_s = verified_bytes(prover, proof, traces)
     pub = [prover.get_pub_inputs(t) for t in traces]
     pub[2] = ChainInputs([(pub[2].seed[0] + 1) % gl.P] + pub[2].seed[1:], pub[2].result)
@@ -545,59 +687,45 @@ def compare_cons(key, air0, rng, device, used_by):
     }
 
 
-def limb_counts():
-    shapes = {("ntt",) + k: v for k, v in limb_ntt.LAUNCHES_BY_SHAPE.items()}
+def observed_counts():
+    """Launch counts by shape of the kernels whose shapes a first prove
+    shows: ("dit", ...) kernels 2 and 3, ("ntt", ...) kernel 4, ("cons",
+    ...) kernel 5."""
+    shapes = {("dit",) + k: v for k, v in ntt_kernel.LAUNCHES_BY_SHAPE.items()}
+    shapes.update({("ntt",) + k: v for k, v in limb_ntt.LAUNCHES_BY_SHAPE.items()})
     shapes.update({("cons",) + k: v for k, v in cons_kernel.LAUNCHES_BY_SHAPE.items()})
     return shapes
 
 
-def reset_limb_counts():
+def reset_observed_counts():
+    ntt_kernel.reset_launch_counts()
     limb_ntt.reset_launch_counts()
     cons_kernel.reset_launch_counts()
 
 
-def limb_phase(path, prover, air_class, traces, kernel_rows, rng, device, airs,
-               golden=None, tamper=None):
-    """One limb-path size: a first prove shows which shapes the path
-    launches; each new shape is held against its plain version; then the
-    counted prove must launch only compared shapes, each as often as the
-    first prove did.  (The first prove of a config also builds its periodic
-    and divisor tables, which later proves find cached: those shapes are
-    compared too, and named ``first_prove_only`` in the phase's line.)"""
-    log2_rows, n = LIMB_PATHS[path]
+def observed_phase(path, prover, air_class, traces, kernel_rows, rng, device,
+                   required, airs=None, golden=None, tamper=None):
+    """One size of a path whose kernel shapes are read off a first prove
+    (``first_prove``): each new shape is held against its plain version;
+    then the counted prove must launch every kind of kernel in ``required``,
+    only compared shapes, each as often as the first prove did.  (The first
+    prove of a limb config also builds its periodic and divisor tables,
+    which later proves find cached: those shapes are compared too, and named
+    ``first_prove_only`` in the phase's line.)"""
+    n = len(traces)
     pub = [prover.get_pub_inputs(t) for t in traces]
-    reset_limb_counts()
-    first_proof, first_s, _ = timed_prove(prover, traces)
+    first_proof, first_s, seen, new_rows = first_prove(
+        path, prover, traces, kernel_rows, rng, device, airs)
     verify(air_class, first_proof, pub, Blake3_256)
-    seen = limb_counts()
-    if not any(k[0] == "ntt" for k in seen) or not any(k[0] == "cons" for k in seen):
-        raise RuntimeError(f"the {path} prove did not launch both limb kernels: {seen}")
-    compared, new_rows = 0, {}
-    for key in seen:
-        if key in kernel_rows:
-            continue
-        if key[0] == "ntt":
-            new_rows[key] = compare_limb_tile(key[1:], rng, device, path)
-        else:
-            new_rows[key] = compare_cons(key[1:], airs[key[1:3]], rng, device, path)
-        compared += 1
+    del first_proof
 
-    reset_limb_counts()
+    reset_observed_counts()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()  # tables cached by earlier proves
     proof, seconds, phases = timed_prove(prover, traces)
     peak = torch.cuda.max_memory_allocated()
-    counted = limb_counts()
-    if not counted or any(seen.get(k) != v for k, v in counted.items()):
-        raise RuntimeError(f"the {path} prove launched {counted}, compared were {seen}")
-    for key, count in counted.items():
-        if key not in kernel_rows:
-            kernel_rows[key] = new_rows[key]
-        else:
-            kernel_rows[key]["used_by"].append(path)
-        kernel_rows[key]["launches"] += count
-        kernel_rows[key]["launches_by_path"][path] = count
+    counted = record_observed(path, seen, new_rows, kernel_rows, required)
     data = proof.to_bytes()
     parsed = proof.from_bytes(data)
     if parsed.to_bytes() != data:
@@ -622,12 +750,13 @@ def limb_phase(path, prover, air_class, traces, kernel_rows, rng, device, airs,
             raise RuntimeError("a tampered public input was accepted")
     el_bytes = traces[0].spec.ELEMENT_BYTES
     lde_bytes = n * traces[0].width * (traces[0].length * BLOWUP) * el_bytes
-    emit(path, rows=1 << log2_rows, columns=traces[0].width, n=n,
+    emit(path, rows=traces[0].length, columns=traces[0].width, n=n,
          field=traces[0].field,
          first_prove_s=first_s, steady_prove_s=seconds,
          phases_ms={name: ms for name, ms in phases},
-         shapes_compared=compared, mismatching_words=0,
+         shapes_compared=len(new_rows), mismatching_words=0,
          first_prove_only=[new_rows[k]["name"] for k in new_rows if k not in counted],
+         dit_launches=sum(v for k, v in counted.items() if k[0] == "dit"),
          ntt_launches=sum(v for k, v in counted.items() if k[0] == "ntt"),
          cons_launches=sum(v for k, v in counted.items() if k[0] == "cons"),
          launches={kernel_rows[k]["name"]: v for k, v in counted.items()},
@@ -649,33 +778,77 @@ def limb_phases(kernel_rows, rng, device):
     prover = Rescue128ChainProver(options, Blake3_256)
 
     rows = 1 << LIMB_PATHS["limb_small"][0]
-    limb_phase("limb_small", prover, Rescue128ChainAir,
-               [build_rescue128_chain_trace([7, 9], rows // 8)],
-               kernel_rows, rng, device, airs, golden=GOLDEN_LIMB)
+    both = ("ntt", "cons")
+    observed_phase("limb_small", prover, Rescue128ChainAir,
+                   [build_rescue128_chain_trace([7, 9], rows // 8)],
+                   kernel_rows, rng, device, both, airs, golden=GOLDEN_LIMB)
 
     # the cheap second AIR over both limb fields: other emitted bodies of
     # the constraint kernel, and the f62 instantiation of both kernels
     for path, field in (("limb_fib", "f128"), ("limb_fib62", "f62")):
         fib_air, fib_build, fib_prover, _ = FIB[field]
         log2_rows, n = LIMB_PATHS[path]
-        limb_phase(path, fib_prover(options, Blake3_256), fib_air,
-                   [fib_build(1 << log2_rows) for _ in range(n)],
-                   kernel_rows, rng, device, airs)
+        observed_phase(path, fib_prover(options, Blake3_256), fib_air,
+                       [fib_build(1 << log2_rows) for _ in range(n)],
+                       kernel_rows, rng, device, both, airs)
 
     rows = 1 << LIMB_PATHS["limb_main"][0]
     t0 = time.perf_counter()
     trace = build_rescue128_chain_trace([7, 9], rows // 8)
     emit("limb_trace", rows=rows, trace_build_s=time.perf_counter() - t0)
-    limb_phase("limb_main", prover, Rescue128ChainAir, [trace],
-               kernel_rows, rng, device, airs, tamper=tamper_seed)
+    observed_phase("limb_main", prover, Rescue128ChainAir, [trace],
+                   kernel_rows, rng, device, both, airs, tamper=tamper_seed)
     del trace
 
     log2_rows, n = LIMB_PATHS["limb_aggregated"]
     seeds = rng.integers(0, 1 << 62, size=(n, 2), dtype=np.uint64)
     traces = [build_rescue128_chain_trace([int(v) for v in sd], (1 << log2_rows) // 8)
               for sd in seeds]
-    limb_phase("limb_aggregated", prover, Rescue128ChainAir, traces,
-               kernel_rows, rng, device, airs, tamper=tamper_seed)
+    observed_phase("limb_aggregated", prover, Rescue128ChainAir, traces,
+                   kernel_rows, rng, device, both, airs, tamper=tamper_seed)
+
+
+# ---------------------------------------------------------------------------
+# the f64 small-trace path: kernels 2 and 3 carry every transform
+# ---------------------------------------------------------------------------
+
+
+def small_trace_phases(kernel_rows, rng, device):
+    """do-work 2 x 64 against its pinned digest, then the two sizes users of
+    this path run, with the bench options: do-work 32 x 1024 and a Rescue
+    hash chain of 64 instances x 2^13 rows (main LDE 64 * 12 * 2^16 words).
+    Each proof is verified and a tampered public input rejected."""
+    dit = ("dit",)
+
+    def tamper_start(pub):
+        return pub[:-1] + [DoWorkInputs((pub[-1].start + 1) % gl.P, pub[-1].result)]
+
+    def tamper_chain(pub):
+        return pub[:-1] + [ChainInputs([(pub[-1].seed[0] + 1) % gl.P] + pub[-1].seed[1:],
+                                       pub[-1].result)]
+
+    log2_rows, n = SMALL_TRACE_PATHS["small_trace_golden"]
+    observed_phase("small_trace_golden",
+                   DoWorkProver(ProofOptions(*GOLDEN_OPTIONS), Blake3_256), DoWorkAir,
+                   [build_do_work_trace(i, 1 << log2_rows) for i in range(n)],
+                   kernel_rows, rng, device, dit, golden=GOLDEN_SMALL_TRACE,
+                   tamper=tamper_start)
+
+    options = ProofOptions(*BENCH_OPTIONS)
+    log2_rows, n = SMALL_TRACE_PATHS["small_trace_main_do_work"]
+    observed_phase("small_trace_main_do_work", DoWorkProver(options, Blake3_256), DoWorkAir,
+                   [build_do_work_trace(i + 1, 1 << log2_rows) for i in range(n)],
+                   kernel_rows, rng, device, dit, tamper=tamper_start)
+
+    log2_rows, n = SMALL_TRACE_PATHS["small_trace_main_rescue"]
+    seeds = rng.integers(0, gl.P, size=(n, 8), dtype=np.uint64)
+    t0 = time.perf_counter()
+    traces = [build_chain_trace([int(v) for v in sd], (1 << log2_rows) // 8) for sd in seeds]
+    emit("small_trace_traces", n=n, rows=1 << log2_rows,
+         trace_build_s=time.perf_counter() - t0)
+    observed_phase("small_trace_main_rescue", RescueChainProver(options, Blake3_256),
+                   RescueChainAir, traces, kernel_rows, rng, device, dit,
+                   tamper=tamper_chain)
 
 
 def build_all():
@@ -684,6 +857,7 @@ def build_all():
     airs = smoke_airs()
     jobs = {
         "ntt_tile": ntt4._lib,
+        "ntt_dit": ntt_kernel._lib,
         "limb_ntt_tile": limb_ntt._lib,
         "trace_builder": native.get_builders,
         "rescue128_builder": native.get_rescue128,
@@ -706,7 +880,8 @@ def build_all():
     emitted = [cons_kernel.kernel_source(a, *limb_air_config(a))[1] for a in airs.values()]
     emit("build", wall_s=time.perf_counter() - t0, seconds=seconds,
          sources=[os.path.relpath(p, root) for p in
-                  ntt4.kernel_sources() + limb_ntt.kernel_sources() + emitted],
+                  ntt4.kernel_sources() + ntt_kernel.kernel_sources()
+                  + limb_ntt.kernel_sources() + emitted],
          emitted_lines={os.path.relpath(p, root): open(p).read().count("\n")
                         for p in emitted})
 
@@ -734,9 +909,11 @@ def main(argv=None):
 
     build_all()
     kernel_rows = phase_kernels(rng, device)
-    phase_small(prover, kernel_rows)
-    phase_main(prover, kernel_rows)
-    phase_aggregated(prover, kernel_rows, rng)
+    phase_dit_kernels(rng, device)
+    phase_small(prover, kernel_rows, rng, device)
+    phase_main(prover, kernel_rows, rng, device)
+    phase_aggregated(prover, kernel_rows, rng, device)
+    small_trace_phases(kernel_rows, rng, device)
     limb_phases(kernel_rows, rng, device)
 
     print(smi, flush=True)

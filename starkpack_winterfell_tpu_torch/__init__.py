@@ -7,8 +7,11 @@ asking for the default on a machine without a CUDA device raises — nothing
 carries on silently on the CPU.  Pass ``device="cpu"`` to run the plain
 tensor code on the host (the tests do).
 
-Ported so far: the big-trace path (prover/device_big.py) for f64 base-field
-AIRs with BLAKE3-256, driven through ``Prover.prove`` and ``verify``.
+Ported so far, all driven through ``Prover.prove`` and ``verify``, extension
+degree 1, main segment only: f64 traces of 2^14 rows and more through the
+big-trace path (prover/device_big.py), shorter f64 traces through the
+small-trace path (prover/device.py), both with BLAKE3-256 or BLAKE3-192, and
+f128/f62 traces through the limb path (parallel/full_pipeline.py).
 """
 
 from .air import (
@@ -22,7 +25,7 @@ from .air import (
     TraceLayout,
     TransitionConstraintDegree,
 )
-from .crypto.hashers import Blake3_256, get_hasher
+from .crypto.hashers import Blake3_192, Blake3_256, get_hasher
 from .crypto.random_coin import RandomCoin
 from .errors import DeserializationError, ProverError
 from .prover import Prover, TraceTable

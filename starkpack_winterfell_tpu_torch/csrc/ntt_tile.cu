@@ -7,10 +7,8 @@
 // multiply by a static (n, lanes) table.
 //
 //   DIF: natural-order input, bit-reversed output
-//        (a, b) -> (a + b, (a - b) * w)      stages m = n, n/2, ..., 2
 //   DIT: bit-reversed input, natural-order output
-//        (a, b) -> (a + b*w, a - b*w)        stages m = 2, 4, ..., n
-//   with w = tw[j * n/m] = root^(j * n/m) for butterfly j of a size-m group.
+//   (the staged butterflies are gl64::tile_stages of gl64_stages.cuh).
 //
 // Bound on this card.  Bytes: the function reads the array once and writes
 // it once (plus the epilogue table, read once per batch entry from L2), 16
@@ -34,7 +32,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "gl64.cuh"
+#include "gl64_stages.cuh"
 
 namespace {
 
@@ -61,32 +59,7 @@ __global__ void ntt_tile_kernel(const uint64_t* __restrict__ x,
   }
   __syncthreads();
 
-  const int nb = total >> 1;  // butterflies per stage
-  for (int step = 0; step < log_n; ++step) {
-    const int s = DIF ? (log_n - step) : (step + 1);  // group size m = 2^s
-    const int half = 1 << (s - 1);
-    const int stride = n >> s;  // twiddle index multiplier n/m
-    for (int t = threadIdx.x; t < nb; t += blockDim.x) {
-      const int l = t & lmask;
-      const int k = t >> log_lg;
-      const int j = k & (half - 1);
-      const int i0 = ((k >> (s - 1)) << s) + j;
-      const int p0 = (i0 << log_lg) + l;
-      const int p1 = p0 + (half << log_lg);
-      const uint64_t w = __ldg(tw + (size_t)j * stride);
-      const uint64_t a = sm[p0];
-      const uint64_t c = sm[p1];
-      if (DIF) {
-        sm[p0] = gl64::add(a, c);
-        sm[p1] = gl64::mul(gl64::sub(a, c), w);
-      } else {
-        const uint64_t tmul = gl64::mul(c, w);
-        sm[p0] = gl64::add(a, tmul);
-        sm[p1] = gl64::sub(a, tmul);
-      }
-    }
-    __syncthreads();
-  }
+  gl64::tile_stages<DIF>(sm, tw, n, log_n, log_lg);
 
   for (int t = threadIdx.x; t < total; t += blockDim.x) {
     const int l = t & lmask;

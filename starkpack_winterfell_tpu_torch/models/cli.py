@@ -2,10 +2,14 @@
 and proof-size reporting.
 
 Counterpart of starkpack_winterfell_tpu/models/cli.py cut to the examples
-that reach a ported path: rescue-chain (f64, big-trace pipeline),
+that reach a ported path: do-work, fib and rescue-chain (f64: the
+small-trace pipeline below 2^14 rows, the big-trace pipeline from there up),
 rescue128-chain and fib-f128 (f128) and fib-f62 (f62), limb pipeline.
 
 Usage:
+  python -m starkpack_winterfell_tpu_torch.models.cli do-work -n 32 -l 1024
+  python -m starkpack_winterfell_tpu_torch.models.cli do-work -n 4 -l 256 --device cpu
+  python -m starkpack_winterfell_tpu_torch.models.cli fib -n 2 -l 1024 --device cpu
   python -m starkpack_winterfell_tpu_torch.models.cli rescue-chain -n 1 -l 131072
   python -m starkpack_winterfell_tpu_torch.models.cli rescue-chain -n 2 -l 2048 --device cpu
   python -m starkpack_winterfell_tpu_torch.models.cli rescue128-chain -n 1 -l 512 --device cpu
@@ -24,6 +28,14 @@ from ..verifier import verify
 
 
 def get_example(name: str):
+    if name == "do-work":
+        from .do_work import DoWorkAir, DoWorkProver, build_do_work_trace
+
+        return DoWorkAir, DoWorkProver, lambda i, l: build_do_work_trace(i, l)
+    if name == "fib":
+        from .fibonacci import FibAir, FibProver, build_fib_trace
+
+        return FibAir, FibProver, lambda i, l: build_fib_trace(l)
     if name == "rescue-chain":
         from .rescue_chain import RescueChainAir, RescueChainProver, build_chain_trace
 
@@ -57,11 +69,12 @@ def get_example(name: str):
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("example", choices=["rescue-chain", "rescue128-chain", "fib-f128", "fib-f62"])
+    p.add_argument("example", choices=["do-work", "fib", "rescue-chain",
+                                       "rescue128-chain", "fib-f128", "fib-f62"])
     p.add_argument("-n", "--num-traces", type=int, default=2)
     p.add_argument("-l", "--trace-length", type=int, default=2048,
                    help="the hash chains: CHAIN length (hashes), the trace has "
-                        "8*l rows; fib-*: the trace length")
+                        "8*l rows; the others: the trace length")
     p.add_argument("-q", "--queries", type=int, default=32)
     p.add_argument("-b", "--blowup", type=int, default=8)
     p.add_argument("-g", "--grinding", type=int, default=0)

@@ -98,8 +98,9 @@ def _build_host(name: str, source: str, compilers) -> ctypes.CDLL:
 
 
 def get_builders() -> ctypes.CDLL:
-    """ctypes handle for the sequential rescue-chain trace builder
-    (native/builders.cpp), compiled with the host C++ compiler."""
+    """ctypes handle for the sequential trace builders (native/builders.cpp:
+    rescue chain, do_work chain, fibonacci), compiled with the host C++
+    compiler."""
     if "builders" not in _CACHE:
         lib = _build_host("starkbuilders", "builders.cpp",
                           ("c++", "g++", "clang++", "cc", "gcc"))
@@ -107,6 +108,10 @@ def get_builders() -> ctypes.CDLL:
         p = ctypes.c_void_p
         lib.rescue_chain_trace.argtypes = [p, u64, p, p, p, u64, p]
         lib.rescue_chain_trace.restype = None
+        lib.do_work_chain.argtypes = [u64, u64, p]
+        lib.do_work_chain.restype = None
+        lib.fib_trace.argtypes = [u64, p]
+        lib.fib_trace.restype = None
         _CACHE["builders"] = lib
     return _CACHE["builders"]
 

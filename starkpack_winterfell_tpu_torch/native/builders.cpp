@@ -1,8 +1,8 @@
-// Copy of starkpack_winterfell_tpu/native/builders.cpp; cut: do_work_chain and fib_trace (only the rescue-chain builder is ported).
+// Copy of starkpack_winterfell_tpu/native/builders.cpp; cut: nothing.
 //
-// Native trace builder for the Rescue hash chain.
+// Native code that fills the traces of the sequential example chains.
 //
-// The chain has a single scalar dependency through the whole trace, so no
+// Each chain has a single scalar dependency through the whole trace, so no
 // accelerator width can hide the latency; it is built with a sequential row
 // scan on the CPU using native u64 Goldilocks arithmetic (mulmod via
 // __uint128_t + the 2^64 = 2^32 - 1 sparse reduction).
@@ -96,6 +96,30 @@ void rescue_chain_trace(const uint64_t* seed8, uint64_t num_perms,
       for (int i = 0; i < W; i++)
         out[(uint64_t)i * length + base + r + 1] = state[i];
     }
+  }
+}
+
+// do_work chain (models/do_work.py build_do_work_trace): x <- x^3 + 42.
+void do_work_chain(uint64_t start, uint64_t length, uint64_t* out) {
+  uint64_t x = start % P;
+  for (uint64_t i = 0; i < length; i++) {
+    out[i] = x;
+    uint64_t x2 = mulmod(x, x);
+    x = addmod(mulmod(x2, x), 42);
+  }
+}
+
+// Fibonacci trace (prover/src/tests/mod.rs:17-29): two columns, each row
+// advances (a, b) -> (a+b, a+2b); out is column-major (2 x length).
+void fib_trace(uint64_t length, uint64_t* out) {
+  uint64_t a = 1, b = 1;
+  for (uint64_t i = 0; i < length; i++) {
+    out[i] = a;
+    out[length + i] = b;
+    uint64_t na = addmod(a, b);
+    uint64_t nb = addmod(a, addmod(b, b));
+    a = na;
+    b = nb;
   }
 }
 

@@ -170,7 +170,12 @@ def exp7(a):
 
 
 def inv(a):
-    """Field inverse via Fermat: a^(p-2).  a == 0 maps to 0."""
+    """Field inverse via Fermat: a^(p-2).  a == 0 maps to 0.  A single
+    element is inverted on the host with a python ``pow`` (one 8-byte copy
+    each way in place of the ~4000 launches of the ladder)."""
+    if a.numel() == 1:
+        v = int(to_u64(a).reshape(-1)[0])
+        return from_int(pow(v, P - 2, P), a.shape, a.device)
     return exp_int(a, P - 2)
 
 

@@ -1,11 +1,13 @@
 """Number-theoretic transform over Goldilocks on one-word tensors.
 
-Counterpart of starkpack_winterfell_tpu/ops/ntt.py: an iterative radix-2
-DIT transform expressed as log2(n) full-array stages, natural-order
-evaluations in, natural-order coefficients out.  Used for the small
-transforms of the big-trace path (periodic columns, the FRI fold's N-point
-iNTT, the FRI remainder) and as the oracle for the tile kernel of
-ops/ntt4.py.
+Counterpart of starkpack_winterfell_tpu/ops/ntt.py: natural-order
+evaluations in, natural-order coefficients out.  Every transform of the
+small-trace path and the small transforms of the big-trace path (periodic
+columns, the FRI fold's N-point iNTT) go through ``ntt_components``: on a
+CUDA tensor it runs the DIT kernels of ops/ntt_kernel.py (one call up to
+4096 points, the four-step split above); on a CPU tensor an iterative
+radix-2 DIT transform expressed as log2(n) full-array stages, which is also
+the oracle of the kernels' tests.  Tables are cached per size and device.
 
 Element arrays are tuples of component tensors (one per extension degree).
 """
@@ -45,6 +47,15 @@ def power_series(base: int, n: int, device="cpu") -> torch.Tensor:
     return out[:n]
 
 
+def _offset_powers(base: int, n: int, device) -> torch.Tensor:
+    """``power_series`` of a coset offset, cached per size and device (the
+    offsets of a config are static)."""
+    key = ("offs", base % gl.P, n, str(device))
+    if key not in _TW_CACHE:
+        _TW_CACHE[key] = power_series(base, n, device)
+    return _TW_CACHE[key]
+
+
 def _stage_twiddles(n: int, inverse: bool, device):
     """Per-stage twiddle tables w_m^j (j < m/2) for m = 2, 4, ..., n."""
     key = (n, inverse, str(device))
@@ -74,6 +85,12 @@ def ntt_components(comps, inverse: bool = False, scale: bool = True):
     assert n & (n - 1) == 0, "size must be a power of two"
     bits = n.bit_length() - 1
     device = comps[0].device
+    if device.type == "cuda":
+        from . import ntt_kernel
+
+        if n <= ntt_kernel.MAX_TILE_N:
+            return ntt_kernel.ntt_batched(comps, inverse, scale)
+        return ntt_kernel.four_step_ntt(comps, inverse, scale)
     rev = torch.from_numpy(_bit_rev_perm(n)).to(device)
     tables = _stage_twiddles(n, inverse, device)
     comps = tuple(c.index_select(-1, rev) for c in comps)
@@ -107,7 +124,7 @@ def evaluate_poly_with_offset(comps, domain_offset: int, blowup_factor: int):
     zero-pad, full-size transform."""
     n = comps[0].shape[-1]
     big_n = n * blowup_factor
-    offs = power_series(domain_offset, n, comps[0].device)
+    offs = _offset_powers(domain_offset, n, comps[0].device)
     scaled = []
     for c in comps:
         sc = gl.mul(c, offs)
@@ -127,5 +144,5 @@ def interpolate_poly_with_offset(comps, domain_offset: int):
     n = comps[0].shape[-1]
     coeffs = ntt_components(comps, inverse=True, scale=True)
     inv_off = pow(domain_offset, gl.P - 2, gl.P)
-    inv_offs = power_series(inv_off, n, comps[0].device)
+    inv_offs = _offset_powers(inv_off, n, comps[0].device)
     return tuple(gl.mul(c, inv_offs) for c in coeffs)

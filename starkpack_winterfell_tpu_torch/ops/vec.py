@@ -79,6 +79,12 @@ def vones(shape, d: int = 1, device="cpu"):
     )
 
 
+def vwhere(cond, a, b):
+    d = max(len(a), len(b))
+    a, b = promote(a, d), promote(b, d)
+    return tuple(torch.where(cond, x, y) for x, y in zip(a, b))
+
+
 def vbroadcast(a, shape):
     return tuple(c.broadcast_to(shape) for c in a)
 
@@ -115,6 +121,56 @@ def horner(coeffs, x, axis=-1):
     for j in range(n - 2, -1, -1):
         acc = vadd(vmul(acc, x), take(j))
     return acc
+
+
+def suffix_sums(a, axis=-1):
+    """Inclusive suffix sums along ``axis`` via Hillis-Steele doubling —
+    log2(n) full-width modular adds."""
+    n = a[0].shape[axis]
+    axis = axis % a[0].ndim
+    comps = a
+    shift = 1
+    while shift < n:
+        # c + shift_left(c), where shifted-out positions add zero
+        comps = tuple(
+            gl.add(c, torch.cat([c.narrow(axis, shift, n - shift),
+                                 torch.zeros_like(c.narrow(axis, 0, shift))], dim=axis))
+            for c in comps
+        )
+        shift *= 2
+    return comps
+
+
+def syn_div_tables(z, nn: int):
+    """The two series ``syn_div_binomial`` needs for the point z and length
+    nn: (z^j, z^{-(j+1)}), each shaped (nn,).  One pair serves every
+    polynomial divided by (x - z)."""
+    z_inv = vinv(z)
+    zi = vmul(power_series_elem(z_inv, nn), vbroadcast(z_inv, (nn,)))
+    return power_series_elem(z, nn), zi
+
+
+def syn_div_binomial(p, z, tables=None):
+    """Divide polynomial p (coefficient component tuple, shape (..., n)) by
+    (x - z) where z is a nonzero element (shape-(1,) component tuple) and
+    p(z) == 0.
+
+    Uses q_i = z^{-(i+1)} * sum_{j>i} p_j z^j — exact in field arithmetic and
+    fully parallel (one power series + suffix scan + two multiplies), in
+    place of the reference's sequential synthetic division
+    (polynom/mod.rs:524).  Returns the quotient's coefficients, padded with a
+    zero in the top slot (same length as p).  ``tables``: the point's
+    ``syn_div_tables``, when the caller divides several polynomials by the
+    same binomial."""
+    nn = p[0].shape[-1]
+    d = max(len(p), len(z))
+    zp, zi = tables if tables is not None else syn_div_tables(z, nn)
+    suf = suffix_sums(vmul(promote(p, d), zp), axis=-1)  # S_i = sum_{j>=i} p_j z^j
+    # exclusive suffix: S_{i+1} = shift left by one, zero-fill at the top
+    excl = tuple(
+        torch.cat([c[..., 1:], torch.zeros_like(c[..., :1])], dim=-1) for c in suf
+    )
+    return vmul(excl, zi)
 
 
 def power_series_elem(x, n: int):

@@ -117,7 +117,8 @@ class ProverChannel:
     def _find_nonce(self, grinding_factor: int) -> int:
         if grinding_factor == 0:
             return 1  # (1..).find(|_| trailing_zeros >= 0) == 1
-        # the coin seed is exactly one 32-byte digest
+        # the coin seed is exactly one digest (24 bytes for blake3_192, 32
+        # for blake3_256); digest_from_bytes zero-pads the words
         seed_words = torch.from_numpy(
             np.asarray(self.hasher.digest_from_bytes(self.public_coin.seed))
             .astype(np.int64)
@@ -128,7 +129,7 @@ class ProverChannel:
         while True:
             nonces = torch.arange(start, start + batch, dtype=torch.int64,
                                   device=self.device)
-            digests = _merge_with_int_batch(seeds, nonces)
+            digests = _merge_with_int_batch(seeds, nonces, self.hasher.DIGEST_BYTES)
             # trailing zeros of the first 8 digest bytes read little-endian
             head = digests[:, 0] | (digests[:, 1] << 32)
             ok = torch.nonzero((head & ((1 << grinding_factor) - 1)) == 0)
@@ -150,10 +151,18 @@ class ProverChannel:
         )
 
 
-def _merge_with_int_batch(seed_words, nonces):
+def _merge_with_int_batch(seed_words, nonces, digest_bytes: int = 32):
     """Vectorized hash(seed_digest_bytes || nonce_le) over a batch of
-    nonces — one BLAKE3 compress per row.  seed_words: (batch, 8) word
-    tensor; nonces: (batch,) int64 tensor of values below 2^63."""
+    nonces — one BLAKE3 compress per row, for the 32-byte and the truncated
+    24-byte digests.  seed_words: (batch, 8) word tensor; nonces: (batch,)
+    int64 tensor of values below 2^63."""
     lo = nonces & 0xFFFFFFFF
     hi = (nonces >> 32) & 0xFFFFFFFF
-    return b3.merge_with_int(seed_words, (lo, hi))
+    if digest_bytes == 32:
+        return b3.merge_with_int(seed_words, (lo, hi))
+    sw = digest_bytes // 4  # seed words actually hashed
+    z = torch.zeros_like(lo)
+    blk = [seed_words[:, i] for i in range(sw)] + [lo, hi] + [z] * (16 - sw - 2)
+    out = b3.compress([z + v for v in b3.IV], blk, 0, digest_bytes + 8,
+                      b3.CHUNK_START | b3.CHUNK_END | b3.ROOT)
+    return torch.stack(out, dim=-1)

@@ -1,25 +1,280 @@
-"""Device proving: routing and the phases shared by the device pipelines.
+"""Device proving: routing, the small-trace pipeline, and the phases shared
+by the device pipelines.
 
-Counterpart of starkpack_winterfell_tpu/prover/device.py cut to what the
-big-trace pipeline (prover/device_big.py) borrows: the FRI layer hash and
-fold (``fri_hash_kernel`` :353, ``fri_fold_kernel`` :376), ``run_fri_phase``
-:562, ``assemble_proof`` :600, the scalar stacking helpers, and the routing
-of ``prove_device`` :400: a field other than f64 goes to the limb pipeline
+Counterpart of starkpack_winterfell_tpu/prover/device.py.  ``prove_device``
+(:400) routes a prove: a field other than f64 goes to the limb pipeline
 (parallel/full_pipeline.py ``prove_mesh``), an f64 config the big-trace
-pipeline supports goes to ``prove_big``, anything else raises.
-The small-trace pipeline ``_generate_proof_device`` is not ported, and there
-is no jit cache: the functions below are plain eager tensor code.
+pipeline supports goes to ``prove_big`` (prover/device_big.py), every other
+f64 config — traces shorter than 2^14 rows, sequence assertions — to the
+small-trace pipeline ``_generate_proof_device`` (:437) below; what is not
+ported raises.
+
+The small-trace pipeline keeps all instances stacked on a leading axis and
+every bulk array on the device; the Fiat-Shamir channel stays on the host,
+so device and host meet only where the transcript does (roots, OOD values,
+FRI layer roots).  Its phases — ``trace_commit_kernel`` (:52),
+``build_constraint_kernel`` (:99), ``ood_eval_kernel`` (:266),
+``deep_kernel`` (:285), then ``run_fri_phase`` (:562) and ``assemble_proof``
+(:600), which the big-trace pipeline borrows — are plain functions on
+tensors: there is no jit cache, static tables are cached per device, and
+every transform is an ``ops/ntt.py:ntt_components`` call, which on the card
+runs the DIT kernels of ops/ntt_kernel.py.
 """
 
 from __future__ import annotations
 
+import logging
+import time
+
 import numpy as np
 import torch
 
+from ..air.divisors import ConstraintDivisor
+from ..air.transition import EvaluationFrame
 from ..math import scalar as fs
-from ..ops import gl64 as gl, ntt
+from ..ops import gl64 as gl, ntt, vec
+from ..ops.felt import Felt
 from ..utils.convert import limbs_to_elems, rows_to_words, scalar_to_limbs
 from ..utils.device import resolve_device
+from .constraints import (
+    PeriodicValueTable,
+    _exemptions_eval,
+    _inv_divisor_numerator,
+    tile_period,
+)
+
+PORTED_HASHERS = ("blake3_256", "blake3_192")
+HOST_DIV_TABLE = 4096  # divisor periods up to this are inverted on the host
+
+_logger = logging.getLogger("starkpack_winterfell_tpu_torch.prover.device")
+_DIV_CACHE: dict = {}
+
+
+def phase_marker():
+    """Returns ``phase(name)``: logs, at DEBUG level, the wall time since the
+    previous mark with ``(phase name, milliseconds)`` as the record's
+    arguments.  Each phase of a device prove ends at a channel interaction
+    that brings bytes to the host (a root, OOD values, the nonce), which
+    waits for the device, so the walls are real phase costs."""
+    t0 = time.perf_counter()
+
+    def phase(name):
+        nonlocal t0
+        now = time.perf_counter()
+        _logger.debug("%s in %.0f ms", name, (now - t0) * 1e3)
+        t0 = now
+
+    return phase
+
+
+def merkle_levels(rows, hasher, row_elems: int, ext_deg: int):
+    """rows: ext tuple of tensors shaped (L, row_elems) -> list of digest
+    levels, leaves first."""
+    words = rows_to_words(rows, ext_deg)
+    leaves = hasher.hash_words(words, row_elems * ext_deg * 8)
+    del words
+    levels = [leaves]
+    cur = leaves
+    while cur.shape[0] > 1:
+        cur = hasher.merge_words(cur[0::2], cur[1::2])
+        levels.append(cur)
+    return levels
+
+
+# ---------------------------------------------------------------------------
+# Phase 1: batched trace interpolation + LDE + combined-row commitment
+# ---------------------------------------------------------------------------
+
+
+def trace_commit_kernel(seg, blowup: int, offset: int, hasher):
+    """seg: base tuple of one (n, w, length) tensor.  Returns (polys, lde,
+    levels): the trace polynomials (n, w, length), the LDE (n, w, L) and the
+    Merkle levels over its rows, laid out (L, n*w) instance-major."""
+    n, w, length = seg[0].shape
+    L = length * blowup
+    polys = ntt.interpolate_poly(seg)
+    lde = ntt.evaluate_poly_with_offset(polys, offset, blowup)
+    rows = tuple(c.permute(2, 0, 1).reshape(L, n * w) for c in lde)
+    return polys, lde, merkle_levels(rows, hasher, n * w, 1)
+
+
+# ---------------------------------------------------------------------------
+# Phase 2+3: constraint evaluation -> combined composition poly -> commitment
+# ---------------------------------------------------------------------------
+
+
+def _divisor_table(d, domain, device):
+    """(ce,) tensor 1/(x^a - b) * prod (x - e_j) over the ce domain for the
+    divisor (x^a - b) / prod (x - e_j): the inverted numerator over its
+    period (python ints on the host for short periods, one Fermat inversion
+    on the device for long ones), repeated, times the exemptions.  Static per
+    config: cached per device."""
+    ce = domain.ce_size
+    key = (tuple(d.numerator), tuple(d.exemptions), ce, domain.domain_offset,
+           str(device))
+    if key not in _DIV_CACHE:
+        a, b = d.numerator[0]
+        m = ce // a
+        if m <= HOST_DIV_TABLE:
+            z = gl.from_u64(_inv_divisor_numerator(d, domain), device)
+        else:
+            # x^a over the ce domain has period m: offset^a * g^(i*a)
+            g_a = pow(domain.ce_domain_generator(), a, gl.P)
+            xs = gl.mul(ntt.power_series(g_a, m, device),
+                        gl.from_int(pow(domain.domain_offset, a, gl.P), (), device))
+            z = gl.inv(gl.sub(xs, gl.from_int(b, (), device)))
+        zfull = tile_period(z, ce)
+        if d.exemptions:
+            zfull = gl.mul(zfull, _exemptions_eval(d, domain, device))
+        _DIV_CACHE[key] = zfull
+    return _DIV_CACHE[key]
+
+
+def build_constraint_kernel(air0, domain, ext_deg, hasher, boundary_template,
+                            main_lde, t_coeffs, b_single_vals, b_seq_vals,
+                            b_coeffs, final_powers):
+    """Evaluate every instance's constraints over the ce domain, combine,
+    divide, interpolate, weight by final_coeff^i, sum over instances, split
+    into composition columns and commit.
+
+    main_lde: base tuple of (n, w, L); t_coeffs / b_coeffs: ext tuples of
+    (n, K) / (n, A) composition coefficients; b_single_vals: list of (n, 1)
+    single assertion values; b_seq_vals: list of (n, ce) sequence assertion
+    values over the ce domain; final_powers: ext tuple of (n,).  Returns
+    (composition column coefficients (num_cols, trace_length), composition
+    LDE (num_cols, L), Merkle levels)."""
+    ce = domain.ce_size
+    L = domain.lde_size
+    shift = domain.ce_to_lde_blowup
+    blowup = domain.trace_to_lde_blowup
+    trace_length = domain.trace_length
+    num_cols = air0.context.num_constraint_composition_columns()
+    K = air0.context.num_transition_constraints()
+    lde0 = main_lde[0]
+    n, w, _ = lde0.shape
+    device = lde0.device
+
+    divisors = [
+        ConstraintDivisor.from_transition(
+            trace_length, air0.context.num_transition_exemptions
+        )
+    ] + [g.divisor for g in boundary_template.main_constraints]
+    div_tables = [_divisor_table(d, domain, device) for d in divisors]
+
+    # frames over the instance axis, Felt arrays shaped (n, ce): ce step i
+    # reads LDE position i*shift, the next row ``blowup`` positions further
+    # on, wrapping at the end of the domain
+    nxt_lde = torch.roll(lde0, -blowup, dims=2)
+    cur = [Felt((lde0[:, j, ::shift],)) for j in range(w)]
+    nxt = [Felt((nxt_lde[:, j, ::shift],)) for j in range(w)]
+    pv = [Felt((c.unsqueeze(0).expand(n, ce),))
+          for c in PeriodicValueTable(air0, device).columns]
+
+    t_result = [None] * K
+    air0.evaluate_transition(EvaluationFrame(cur, nxt), pv, t_result)
+    combined = vec.vzeros((n, ce), ext_deg, device)
+    for k_i, ev in enumerate(t_result):
+        coef = tuple(c[:, k_i : k_i + 1] for c in t_coeffs)
+        combined = vec.vadd(combined, vec.vmul(coef, ev.c))
+    del t_result, nxt, nxt_lde, pv
+
+    columns = [combined]
+    sv_idx = sq_idx = a_idx = 0
+    for g in boundary_template.main_constraints:
+        acc = vec.vzeros((n, ce), ext_deg, device)
+        for c in g.constraints:
+            if len(c.poly) == 1:
+                val = b_single_vals[sv_idx]  # (n, 1)
+                sv_idx += 1
+            else:
+                val = b_seq_vals[sq_idx]  # (n, ce)
+                sq_idx += 1
+            diff = vec.vsub(cur[c.column].c, (val,))
+            cc = tuple(x[:, a_idx : a_idx + 1] for x in b_coeffs)
+            a_idx += 1
+            acc = vec.vadd(acc, vec.vmul(cc, diff))
+        columns.append(acc)
+    del cur
+
+    # divide by the divisors, sum the columns
+    acc = vec.vzeros((n, ce), ext_deg, device)
+    for col, zt in zip(columns, div_tables):
+        acc = vec.vadd(acc, vec.vmul(vec.promote(col, ext_deg), (zt,)))
+    del columns
+
+    # interpolate each instance's combined evaluations, weight by the final
+    # coefficient's powers, sum over the instances
+    coeffs = ntt.interpolate_poly_with_offset(acc, domain.domain_offset)
+    del acc
+    fp = tuple(c[:, None] for c in final_powers)
+    final_comb = vec.vsum(vec.vmul(coeffs, fp), axis=0)  # (ce,)
+    del coeffs
+
+    comp_columns = tuple(
+        c.reshape(ce // trace_length, trace_length)[:num_cols]
+        for c in vec.promote(final_comb, ext_deg)
+    )
+    comp_lde = ntt.evaluate_poly_with_offset(
+        comp_columns, domain.domain_offset, L // trace_length
+    )
+    rows = tuple(c.T for c in comp_lde)
+    return comp_columns, comp_lde, merkle_levels(rows, hasher, num_cols, ext_deg)
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: OOD evaluation + DEEP composition + LDE
+# ---------------------------------------------------------------------------
+
+
+def ood_eval_kernel(polys, comp_columns, z, zg):
+    """Evaluate all trace polys (n, w, length) at z and z*g and the
+    composition columns (num_cols, length) at z.  Returns T(z), T(z*g) as
+    ext tuples of (n, w) and H_k(z) as an ext tuple of (num_cols,)."""
+    length = polys[0].shape[-1]
+    powz = vec.power_series_elem(z, length)
+    powzg = vec.power_series_elem(zg, length)
+    tz = vec.vsum(vec.vmul(powz, polys), axis=-1)
+    tzg = vec.vsum(vec.vmul(powzg, polys), axis=-1)
+    hz = vec.vsum(vec.vmul(powz, vec.promote(comp_columns, len(z))), axis=-1)
+    return tz, tzg, hz
+
+
+def deep_kernel(polys, comp_columns, z, zg, tz, tzg, hz, cc_traces,
+                cc_constraints, blowup: int, offset: int, ext_deg: int):
+    """DEEP composition polynomial in coefficient form, then its LDE -> ext
+    tuple of (L,)."""
+    num_cols = comp_columns[0].shape[0]
+    # T1 = sum_{i,j} k_ij P_ij(x): weight polys (n, w, len) by k (n, w)
+    k = tuple(c[..., None] for c in cc_traces)
+    weighted = vec.vmul(k, vec.promote(polys, ext_deg))
+    t_poly = vec.vsum(vec.vsum(weighted, axis=0), axis=0)  # (len,)
+    del weighted
+    # constants: sum_{i,j} k_ij * T_ij(z) (resp. z*g)
+    c1 = vec.vsum(vec.vsum(vec.vmul(cc_traces, tz), axis=-1), axis=-1)
+    c2 = vec.vsum(vec.vsum(vec.vmul(cc_traces, tzg), axis=-1), axis=-1)
+    length = t_poly[0].shape[-1]
+    z_tables = vec.syn_div_tables(z, length)  # shared by every division by (x - z)
+    q1 = vec.syn_div_binomial(_sub_const_dev(t_poly, c1), z, z_tables)
+    q2 = vec.syn_div_binomial(_sub_const_dev(t_poly, c2), zg)
+    total = vec.vadd(q1, q2)
+    for i in range(num_cols):
+        col = vec.promote(tuple(c[i] for c in comp_columns), ext_deg)
+        col = _sub_const_dev(col, tuple(c[i : i + 1] for c in hz))
+        q = vec.syn_div_binomial(col, z, z_tables)
+        kc = tuple(c[i : i + 1] for c in cc_constraints)
+        total = vec.vadd(total, vec.vmul(q, kc))
+    return ntt.evaluate_poly_with_offset(total, offset, blowup)
+
+
+def _sub_const_dev(poly, value):
+    """Subtract a one-element value from coefficient 0."""
+    d = max(len(poly), len(value))
+    poly = vec.promote(poly, d)
+    value = vec.promote(value, d)
+    return tuple(
+        torch.cat([gl.sub(c[:1], v.reshape(1)), c[1:]])
+        for c, v in zip(poly, value)
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -34,14 +289,7 @@ def fri_hash_kernel(evals, N: int, ext_deg: int, hasher):
     L = evals[0].shape[-1]
     m = L // N
     transposed = tuple(c.reshape(N, m).T for c in evals)
-    words = rows_to_words(transposed, ext_deg)
-    leaves = hasher.hash_words(words, N * ext_deg * 8)
-    levels = [leaves]
-    cur = leaves
-    while cur.shape[0] > 1:
-        cur = hasher.merge_words(cur[0::2], cur[1::2])
-        levels.append(cur)
-    return transposed, levels
+    return transposed, merkle_levels(transposed, hasher, N, ext_deg)
 
 
 def fri_fold_kernel(transposed, alpha_l, offset: int, ext_deg: int):
@@ -57,9 +305,10 @@ def fri_fold_kernel(transposed, alpha_l, offset: int, ext_deg: int):
 
 def prove_device(prover, n: int, traces, device="cuda"):
     """Route a prove to the pipeline that supports its config: limb fields
-    to ``prove_mesh``, f64 to the big-trace pipeline.  Anything they do not
-    cover raises NotImplementedError naming the config (there is no host
-    pipeline to fall back to)."""
+    to ``prove_mesh``, f64 to the big-trace pipeline where it applies and to
+    the small-trace pipeline otherwise.  A config none of them covers raises
+    NotImplementedError naming it (there is no host pipeline to fall back
+    to)."""
     from . import device_big
 
     dev = resolve_device(device)
@@ -69,36 +318,151 @@ def prove_device(prover, n: int, traces, device="cuda"):
     pub0 = prover.get_pub_inputs(traces[0])
     air0 = prover.air_class(traces[0].get_info(), pub0, options)
     length = traces[0].length
+    field = air0.field_spec().name
+    hname = getattr(hasher, "NAME", None)
 
     def refuse(why):
         raise NotImplementedError(
             f"config not ported yet ({why}): air={type(air0).__name__}, "
-            f"field={air0.field_spec().name}, extension degree={ext_deg}, "
-            f"hasher={getattr(hasher, 'NAME', hasher)}, trace length={length}, "
+            f"field={field}, extension degree={ext_deg}, "
+            f"hasher={hname or hasher}, trace length={length}, "
             f"aux segments={traces[0].num_aux_segments()}"
         )
 
-    if getattr(hasher, "NAME", None) != "blake3_256":
-        refuse("only the blake3_256 hasher is ported")
+    if hname not in PORTED_HASHERS:
+        refuse(f"ported hashers: {', '.join(PORTED_HASHERS)}")
     if traces[0].num_aux_segments() > 0:
         refuse("auxiliary trace segments are not ported")
     if ext_deg != 1:
         refuse("only extension degree 1 is ported")
-    if air0.field_spec().name != "f64":
-        if air0.field_spec().name not in ("f128", "f62"):
+    if field != "f64":
+        if field not in ("f128", "f62"):
             refuse("no backend for this field")
+        if hname != "blake3_256":
+            refuse("the limb pipeline is ported with blake3_256 only")
         from ..parallel.full_pipeline import prove_mesh
 
         return prove_mesh(prover, n, traces, dev)
-    if length < device_big.MIN_TRACE_LENGTH:
-        refuse(f"trace lengths below {device_big.MIN_TRACE_LENGTH} need the "
-               "small-trace pipeline")
-    dummy_ccs = [0] * air0.context.num_assertions()
-    bt = air0.get_boundary_constraints(None, dummy_ccs)
-    if not device_big.supported(air0, bt, length, ext_deg):
-        refuse("outside the big-trace pipeline (tile factorization or "
-               "sequence assertions)")
-    return device_big.prove_big(prover, n, traces, dev)
+    if length >= device_big.MIN_TRACE_LENGTH:
+        dummy_ccs = [0] * air0.context.num_assertions()
+        bt = air0.get_boundary_constraints(None, dummy_ccs)
+        if device_big.supported(air0, bt, length, ext_deg):
+            return device_big.prove_big(prover, n, traces, dev)
+    return _generate_proof_device(prover, n, traces, dev)
+
+
+def _generate_proof_device(prover, n, traces, device):
+    """Small-trace device prove — same transcript and bytes as the JAX
+    package's host pipeline.  Phase walls are logged as ``phase_marker``
+    describes."""
+    from ..crypto.merkle import MerkleTree
+    from .channel import ProverChannel
+    from .domain import StarkDomain
+
+    phase = phase_marker()
+    options = prover.options()
+    ext_deg = options.field_extension
+    hasher = prover.hasher
+
+    pub_inputs_vec = [prover.get_pub_inputs(t) for t in traces]
+    pub_elements_vec = [p.to_elements() for p in pub_inputs_vec]
+    airs = [
+        prover.air_class(t.get_info(), p, options)
+        for t, p in zip(traces, pub_inputs_vec)
+    ]
+    channel = ProverChannel(n, airs, pub_elements_vec, hasher, ext_deg, device=device)
+    domain = StarkDomain(airs[0])
+    w = traces[0].width
+    length = traces[0].length
+    blowup = domain.trace_to_lde_blowup
+    offset = domain.domain_offset
+
+    # ---- Phase 1: batched trace commitment ----
+    stacked = np.stack([t.main_columns_u64() for t in traces])  # (n, w, len)
+    seg = (gl.from_u64(stacked, device),)
+    polys, lde, levels = trace_commit_kernel(seg, blowup, offset, hasher)
+    del seg
+    main_tree = MerkleTree(levels, hasher)
+    channel.commit_trace(main_tree.root())
+    phase("P1 trace interpolate+LDE+commit")
+
+    # ---- Phase 2+3: constraints -> composition commitment ----
+    t_coeffs_list, b_coeffs_list = [], []
+    for _ in range(n):
+        cc = channel.get_constraint_composition_coeffs()
+        t_coeffs_list.append(cc.transition)
+        b_coeffs_list.append(cc.boundary)
+    final_coeff = channel.get_final_polynomial_coeffs()
+    final_powers = [fs.fexp(final_coeff, i) for i in range(n)]
+
+    # boundary structure + per-instance values
+    dummy_ccs = [0] * airs[0].context.num_assertions()
+    boundary_template = airs[0].get_boundary_constraints(None, dummy_ccs)
+    per_instance = [air.get_boundary_constraints(None, dummy_ccs) for air in airs]
+    b_single_vals, b_seq_vals = _stack_boundary_values(
+        boundary_template, per_instance, domain, airs[0], device
+    )
+
+    comp_columns, comp_lde, clevels = build_constraint_kernel(
+        airs[0], domain, ext_deg, hasher, boundary_template,
+        lde,
+        _stack_scalars(t_coeffs_list, ext_deg, device=device),
+        b_single_vals, b_seq_vals,
+        _stack_scalars(b_coeffs_list, ext_deg, device=device),
+        _stack_scalars([[p] for p in final_powers], ext_deg, squeeze=True,
+                       device=device),
+    )
+    constraint_tree = MerkleTree(clevels, hasher)
+    channel.commit_constraints(constraint_tree.root())
+    phase("P2+3 constraint eval+composition+commit")
+
+    # ---- Phase 4: OOD + DEEP ----
+    num_cols = airs[0].context.num_constraint_composition_columns()
+    z = channel.get_ood_point()
+    g_trace = fs.get_root_of_unity(length.bit_length() - 1)
+    zg = fs.fmul(z, g_trace)
+    z_l = scalar_to_limbs(z, ext_deg, device=device)
+    zg_l = scalar_to_limbs(zg, ext_deg, device=device)
+    tz, tzg, hz = ood_eval_kernel(polys, comp_columns, z_l, zg_l)
+    tz_h = np.stack([gl.to_u64(c) for c in tz])  # (deg, n, w)
+    tzg_h = np.stack([gl.to_u64(c) for c in tzg])
+    hz_h = np.stack([gl.to_u64(c) for c in hz])
+    ood_traces_states = []
+    for i in range(n):
+        at_z = [_elem_from(tz_h[:, i, j], ext_deg) for j in range(w)]
+        at_zg = [_elem_from(tzg_h[:, i, j], ext_deg) for j in range(w)]
+        ood_traces_states.append([at_z, at_zg])
+    channel.send_ood_trace_states(ood_traces_states)
+    ood_evaluations = [_elem_from(hz_h[:, j], ext_deg) for j in range(num_cols)]
+    channel.send_ood_constraint_evaluations(ood_evaluations)
+    phase("P4 OOD")
+
+    cc = channel.get_deep_composition_coeffs()
+    cc_traces = _stack_scalars(cc.traces, ext_deg, device=device)  # (n, w)
+    cc_constraints = _stack_scalars([cc.constraints], ext_deg, squeeze=False,
+                                    device=device)
+    cc_constraints = tuple(c[0] for c in cc_constraints)  # (num_cols,)
+    deep_evals = deep_kernel(polys, comp_columns, z_l, zg_l, tz, tzg, hz,
+                             cc_traces, cc_constraints, blowup, offset, ext_deg)
+    del polys
+
+    # ---- Phase 5-6: FRI ----
+    fri_layers, remainder_elements = run_fri_phase(
+        channel, deep_evals, options, domain, ext_deg, hasher
+    )
+    del deep_evals
+    phase("P5+6 DEEP+FRI")
+
+    # ---- Phase 7-8: PoW + queries + assembly ----
+    channel.grind_query_seed()
+    positions = channel.get_query_positions()
+    phase("P7 PoW+positions")
+    out = assemble_proof(
+        channel, positions, lde, comp_lde, main_tree, constraint_tree,
+        fri_layers, remainder_elements, options, domain, n, ext_deg
+    )
+    phase("P8 queries+assembly")
+    return out
 
 
 def run_fri_phase(channel, deep_evals, options, domain, ext_deg, hasher):
@@ -230,25 +594,33 @@ def _stack_scalars(rows, ext_deg, squeeze=False, device="cpu"):
     return tuple(gl.from_u64(arr[c], device) for c in range(ext_deg))
 
 
-def _stack_boundary_values(template, per_instance, device="cpu"):
-    """Stack per-instance single-value boundary constraint values: a list,
-    in group/constraint order, of (n, 1) tensors.  Sequence and periodic
-    assertions are outside the ported slice."""
+def _stack_boundary_values(template, per_instance, domain, air0, device="cpu"):
+    """Stack per-instance boundary constraint values.
+
+    Returns (b_single_vals, b_seq_vals): lists in group/constraint order —
+    single values as (n, 1) tensors, sequence/periodic polys as (n, ce)
+    tensors of their ce-domain evaluations."""
     n = len(per_instance)
-    singles = []
+    ce = domain.ce_size
+    singles, seqs = [], []
     for gi, g in enumerate(template.main_constraints):
         for ci, c in enumerate(g.constraints):
-            if len(c.poly) != 1:
-                raise NotImplementedError(
-                    "sequence/periodic boundary assertions are not ported yet"
-                )
-            vals = np.array(
-                [per_instance[i].main_constraints[gi].constraints[ci].poly[0]
-                 for i in range(n)],
-                dtype=np.uint64,
-            ).reshape(n, 1)
-            singles.append(gl.from_u64(vals, device))
-    return singles
+            polys = [per_instance[i].main_constraints[gi].constraints[ci].poly
+                     for i in range(n)]
+            if len(c.poly) == 1:
+                vals = np.array([p[0] for p in polys], dtype=np.uint64).reshape(n, 1)
+                singles.append(gl.from_u64(vals, device))
+                continue
+            coeffs = (gl.from_u64(np.array(polys, dtype=np.uint64), device),)
+            m = len(c.poly)
+            if m < ce:
+                evals = ntt.evaluate_poly_with_offset(
+                    coeffs, air0.domain_offset(), ce // m)[0]
+            else:
+                evals = ntt.evaluate_poly(coeffs)[0]
+            step_offset = c.poly_offset[0] * air0.ce_blowup_factor()
+            seqs.append(torch.roll(evals, step_offset, dims=-1))
+    return singles, seqs
 
 
 def _elem_from(comps_u64, ext_deg):

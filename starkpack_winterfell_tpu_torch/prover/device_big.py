@@ -22,17 +22,14 @@ is permutation-free.
 * Phases 5-6 reuse the FRI/assembly helpers of device.py.
 
 Ported: f64 AIRs, extension degree 1, main segment only, single-value
-boundary assertions, BLAKE3-256.  Everything else raises
-NotImplementedError in ``device.prove_device``.
+boundary assertions, BLAKE3-256 or BLAKE3-192.  ``device.prove_device``
+sends every other f64 config to the small-trace pipeline or refuses it.
 
 Apart from the tile transform (a CUDA kernel on the card) everything here is
 plain eager tensor code, and runs unchanged on CPU tensors.
 """
 
 from __future__ import annotations
-
-import logging
-import time
 
 import numpy as np
 import torch
@@ -43,23 +40,23 @@ from ..crypto.merkle import MerkleTree
 from ..math import scalar as fs
 from ..ops import gl64 as gl, ntt, ntt4, vec
 from ..ops.felt import Felt
-from ..utils.convert import rows_to_words, scalar_to_limbs
+from ..utils.convert import scalar_to_limbs
 from .channel import ProverChannel
-from .constraints import _inv_divisor_numerator
+from .constraints import _inv_divisor_numerator, tile_period as _tile
 from .device import (
     _elem_from,
     _stack_boundary_values,
     _stack_scalars,
     assemble_proof,
+    merkle_levels as _merkle_levels,
+    phase_marker,
     run_fri_phase,
 )
 from .domain import StarkDomain
 
 SMALL_DIV_TABLE = 4096  # divisor periods up to this are host tables
 CHUNK_SIZE = 1 << 20  # ce-domain chunk for the constraint loop (memory bound)
-MIN_TRACE_LENGTH = 1 << 14  # shorter traces need the small-trace pipeline
-
-_logger = logging.getLogger("starkpack_winterfell_tpu_torch.prover.device")
+MIN_TRACE_LENGTH = 1 << 14  # shorter traces take the small-trace pipeline
 
 
 def supported(air0, boundary_template, length, ext_deg) -> bool:
@@ -82,20 +79,6 @@ def supported(air0, boundary_template, length, ext_deg) -> bool:
             if len(c.poly) != 1:
                 return False
     return True
-
-
-def _merkle_levels(rows, hasher, row_elems: int, ext_deg: int):
-    """rows: ext tuple of tensors shaped (L, row_elems) -> list of digest
-    levels, leaves first."""
-    words = rows_to_words(rows, ext_deg)
-    leaves = hasher.hash_words(words, row_elems * ext_deg * 8)
-    del words
-    levels = [leaves]
-    cur = leaves
-    while cur.shape[0] > 1:
-        cur = hasher.merge_words(cur[0::2], cur[1::2])
-        levels.append(cur)
-    return levels
 
 
 # ---------------------------------------------------------------------------
@@ -133,12 +116,6 @@ def _small_periodic_columns(air, device):
             ntt.evaluate_poly_with_offset((coeffs,), offset, air.ce_blowup_factor())[0]
         )
     return cols
-
-
-def _tile(x, length: int):
-    """(m,) table -> (length,) by repetition (m divides length)."""
-    m = x.shape[0]
-    return x.unsqueeze(0).expand(length // m, m).reshape(length)
 
 
 def _batch_inverse(dens):
@@ -374,15 +351,9 @@ def prove_big(prover, n, traces, device):
 
     Each phase ends at a Fiat-Shamir channel interaction that brings bytes
     to the host (a root, OOD values, the nonce), which waits for the device,
-    so the phase walls logged at DEBUG level are real phase costs.  Each
-    record carries ``(phase name, milliseconds)`` as its arguments."""
-    t0 = time.perf_counter()
-
-    def phase(name):
-        nonlocal t0
-        now = time.perf_counter()
-        _logger.debug("%s in %.0f ms", name, (now - t0) * 1e3)
-        t0 = now
+    so the phase walls logged at DEBUG level (``phase_marker``) are real
+    phase costs."""
+    phase = phase_marker()
 
     options = prover.options()
     ext_deg = options.field_extension
@@ -423,7 +394,8 @@ def prove_big(prover, n, traces, device):
     dummy_ccs = [0] * airs[0].context.num_assertions()
     boundary_template = airs[0].get_boundary_constraints(None, dummy_ccs)
     per_instance = [air.get_boundary_constraints(None, dummy_ccs) for air in airs]
-    b_single_vals = _stack_boundary_values(boundary_template, per_instance, device)
+    b_single_vals, _ = _stack_boundary_values(
+        boundary_template, per_instance, domain, airs[0], device)
 
     pc_cols, comp_lde, clevels = constraint_kernel_big(
         airs[0], domain, ext_deg, hasher, boundary_template,

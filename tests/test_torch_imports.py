@@ -48,7 +48,17 @@ def _run(code, env_extra=None):
     "starkpack_winterfell_tpu_torch.prover.commitment, "
     "starkpack_winterfell_tpu_torch.models.rescue128_chain, "
     "starkpack_winterfell_tpu_torch.models.fib_multifield",
+    # the DIT kernels and the small-trace slice
+    "starkpack_winterfell_tpu_torch.ops.ntt_kernel, "
+    "starkpack_winterfell_tpu_torch.ops.ntt, "
+    "starkpack_winterfell_tpu_torch.ops.vec, "
+    "starkpack_winterfell_tpu_torch.prover.device, "
+    "starkpack_winterfell_tpu_torch.prover.constraints, "
+    "starkpack_winterfell_tpu_torch.crypto.hashers, "
+    "starkpack_winterfell_tpu_torch.models.do_work, "
+    "starkpack_winterfell_tpu_torch.models.fibonacci",
     "chip_smoke",
+    "profile_prove",
 ])
 def test_import_leaves_jax_and_the_jax_package_out(module):
     code = (
@@ -90,10 +100,26 @@ def test_cli_runs_on_the_cpu_and_refuses_the_default_device():
     r = subprocess.run(base, cwd=ROOT, env=env, capture_output=True, text=True,
                        timeout=300)
     assert r.returncode != 0 and "cuda" in r.stderr.lower()
-    # 1024 rows is below the big-trace path: the CPU run names the config
+    # 1024 rows is below the big-trace path: the small-trace path proves it
     r = subprocess.run(base + ["--device", "cpu"], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and "Proof verified" in r.stdout, r.stderr
+    # an unported config is named, not carried on with
+    r = subprocess.run(base + ["--device", "cpu", "-e", "2"], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
     assert r.returncode != 0 and "NotImplementedError" in r.stderr
+
+
+@pytest.mark.parametrize("args", [
+    ["do-work", "-n", "4", "-l", "256"],
+    ["fib", "-n", "2", "-l", "1024", "--hash", "blake3_192"],
+])
+def test_small_trace_cli_runs_on_the_cpu(args):
+    base = [sys.executable, "-m", "starkpack_winterfell_tpu_torch.models.cli"] + args
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run(base + ["--device", "cpu"], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and "Proof verified" in r.stdout, r.stderr
 
 
 def test_limb_cli_runs_on_the_cpu_and_refuses_the_default_device():

@@ -111,7 +111,8 @@ def test_unsupported_configs_raise(case):
     if case == "quadratic":
         options, perms, n = T.ProofOptions(8, 8, 0, T.FieldExtension.QUADRATIC, 4, 31), ROWS // 8, 1
     elif case == "short":
-        options, perms, n = T.ProofOptions(*CHEAP), (1 << 10) // 8, 1
+        # short traces take the small-trace path, which is degree 1 only too
+        options, perms, n = T.ProofOptions(8, 8, 0, T.FieldExtension.CUBIC, 4, 31), (1 << 10) // 8, 1
     else:
         options, perms, n = T.ProofOptions(*CHEAP), (1 << 10) // 8, 2
     prover = trc.RescueChainProver(options, T.Blake3_256)
