@@ -42,7 +42,6 @@ import collections
 import concurrent.futures
 import hashlib
 import json
-import logging
 import os
 import statistics
 import subprocess
@@ -86,6 +85,8 @@ from starkpack_winterfell_tpu_torch.ops import ntt4
 from starkpack_winterfell_tpu_torch.ops import ntt_kernel
 from starkpack_winterfell_tpu_torch.ops.backend import get_backend
 from starkpack_winterfell_tpu_torch.parallel.full_pipeline import plan_groups
+
+from kernel_times import device_kernel_ms, timed_prove
 
 BENCH_OPTIONS = (28, 8, 16, FieldExtension.NONE, 4, 31)
 BLOWUP = 8
@@ -153,11 +154,13 @@ def nvidia_smi_line() -> str:
 
 
 def path_shapes(log2_rows: int, n_inst: int):
-    """(label, (dif, B, n, lanes, epilogue)) of every tile transform one
-    prove of ``n_inst`` traces of 2^log2_rows rows launches: the trace
-    interpolate+LDE (batch = 12 columns per instance), the composition
-    interpolate (one per instance) and the composition column LDE (the 7
-    columns of the instances' sum).  Two steps may share a shape."""
+    """(label, (dif, B, n, lanes, epilogue, interleave, pre, transposed)) of
+    every tile transform one prove of ``n_inst`` traces of 2^log2_rows rows
+    launches: the trace interpolate+LDE (batch = 12 columns per instance),
+    the composition interpolate (one per instance) and the composition
+    column LDE (the 7 columns of the instances' sum, each 1/ce_over_length
+    of the permuted rows, zero-interleaved back to the LDE's rows).  Two
+    steps may share a shape."""
     length = 1 << log2_rows
     L = length * BLOWUP
     a, b, Bf = ntt4._pick_factors(length, L)
@@ -165,15 +168,16 @@ def path_shapes(log2_rows: int, n_inst: int):
     ce = L  # degree-7 cycle-8 constraints: the ce domain is the LDE domain
     a2, b2, Bf2 = ntt4._pick_factors(ce, L)
     nc = COMPOSITION_COLUMNS
+    rows_col = b2 // (ce // length)
     return [
-        ("trace K1", (True, w, a, b, True)),
-        ("trace K2", (True, w, b, a, True)),
-        ("trace K3", (False, w, Bf, a, True)),
-        ("trace K4", (False, w, a, Bf, False)),
-        ("composition K1", (True, n_inst, a2, b2, True)),
-        ("composition K2", (True, n_inst, b2, a2, True)),
-        ("composition K3", (False, nc, Bf2, a2, True)),
-        ("composition K4", (False, nc, a2, Bf2, False)),
+        ("trace K1", (True, w, a, b, True, 1, False, True)),
+        ("trace K2", (True, w, b, a, True, 1, False, False)),
+        ("trace K3", (False, w, Bf, a, True, Bf // b, False, True)),
+        ("trace K4", (False, w, a, Bf, False, 1, False, False)),
+        ("composition K1", (True, n_inst, a2, b2, True, 1, False, True)),
+        ("composition K2", (True, n_inst, b2, a2, True, 1, False, False)),
+        ("composition K3", (False, nc, Bf2, a2, True, Bf2 // rows_col, True, True)),
+        ("composition K4", (False, nc, a2, Bf2, False, 1, False, False)),
     ]
 
 
@@ -188,7 +192,9 @@ def random_words(shape, rng, device):
 
 
 def time_cuda(fn, reps: int):
-    """Median milliseconds of ``fn`` over ``reps`` runs, CUDA events."""
+    """Median milliseconds of ``fn`` over ``reps`` runs, CUDA events around
+    each call: the call's time, host work of the wrapper included (the
+    kernel's own time is ``device_kernel_ms``, from the profiler)."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -203,85 +209,112 @@ def time_cuda(fn, reps: int):
     return statistics.median(times)
 
 
-def tile_bound(dif: bool, B: int, n: int, lanes: int, epilogue: bool):
+def tile_bound(dif: bool, B: int, n: int, lanes: int, epilogue: bool,
+               interleave: int = 1, pre: bool = False, transposed: bool = False):
     """Least time (ms) the card could take for one tile transform: every
     input read once and the output written once against the memory rate, or
-    its field operations against the integer rate, whichever is larger."""
+    its field operations against the integer rate, whichever is larger.  A
+    zero-interleaved input counts the rows read (n / interleave) and the
+    stages after the log2(interleave) that only copy; each table multiply 28
+    instructions per word it multiplies.  The store's layout costs nothing."""
     words = B * n * lanes
-    nbytes = 8 * (2 * words + n // 2 + (n * lanes if epilogue else 0))
-    stages = n.bit_length() - 1
+    words_in = words // interleave
+    nbytes = 8 * (words_in + words + n // 2 + (n * lanes if epilogue else 0)
+                  + (n // interleave * lanes if pre else 0))
+    stages = n.bit_length() - interleave.bit_length()
     butterfly = OPS_FIELD_MUL + OPS_FIELD_ADD + OPS_FIELD_SUB  # per two words
     ops = words * stages * butterfly // 2
     if epilogue:
         ops += words * OPS_FIELD_MUL
+    if pre:
+        ops += words_in * OPS_FIELD_MUL
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def tile_name(key):
+    dif, B, n, lanes, epilogue, interleave, pre, transposed = key
+    opts = "".join([" +epilogue" if epilogue else "", f" +interleave={interleave}" if interleave > 1 else "",
+                    " +pre" if pre else "", " +transposed" if transposed else ""])
+    return f"ntt_tile[{'DIF' if dif else 'DIT'} B={B} n={n} lanes={lanes}{opts}]"
+
+
+def tile_args(key, rng, device):
+    """Random inputs of one tile shape: (x, tw, dif, epilogue, interleave,
+    pre, transposed) as ``ntt_tile`` takes them."""
+    dif, B, n, lanes, epilogue, interleave, pre, transposed = key
+    rows_in = n // interleave
+    return (random_words((B, rows_in, lanes), rng, device), ntt4.tile_twiddles(n, dif, device),
+            dif, random_words((n, lanes), rng, device) if epilogue else None, interleave,
+            random_words((rows_in, lanes), rng, device) if pre else None, transposed)
+
+
+# every option of the tile kernel at small shapes, ragged lane groups and the
+# smallest length; the shapes the proves launch come on top
+TILE_OPTION_KEYS = [
+    (dif, B, n, lanes, ep, f, pre, tr)
+    for (B, n, lanes) in ((3, 2, 4096), (5, 2, 3), (2, 16, 33), (1, 256, 130), (2, 4096, 5))
+    for dif in (True, False) for ep in (True, False) for pre in (False, True)
+    for tr in (False, True) for f in ((1,) if dif else (1, 2, 8)) if f < n
+]
+
+
 def phase_kernels(rng, device):
-    """Holds the kernel against its plain version on the card at every
-    (B, n, lanes) that any of the driven paths launches, and at n = 2, in
-    all four DIF/DIT x epilogue variants (0 mismatching words required),
-    and times the variants the paths launch.  Returns the table rows keyed
-    by (dif, B, n, lanes, epilogue)."""
+    """Holds the kernel against its plain version on the card, 0 mismatching
+    words required: at every shape and option set any of the driven paths
+    launches, and at every option combination (DIF/DIT, epilogue,
+    pre-multiply, transposed store, zero-interleaved input) at small shapes;
+    times the shapes the paths launch.  Returns the table rows keyed by
+    (dif, B, n, lanes, epilogue, interleave, pre, transposed)."""
     used = {}
     for path, args in PATHS.items():
         for label, key in path_shapes(*args):
             used.setdefault(key, []).append(f"{path} {label}")
-    sizes = sorted({key[1:4] for key in used}) + [(3, 2, 4096), (5, 2, 3)]
     rows, compared, mismatching = {}, 0, 0
-    for B, n, lanes in sizes:
-        x = random_words((B, n, lanes), rng, device)
-        table = random_words((n, lanes), rng, device)
-        for dif in (True, False):
-            tw = ntt4.tile_twiddles(n, dif, device)
-            for epilogue in (True, False):
-                ep = table if epilogue else None
-                got = ntt4.ntt_tile(x, tw, dif, ep)
-                want = ntt4.ntt_tile_plain(x, tw, dif, ep)
-                bad = got != want
-                mism = int(bad.sum())
-                compared += 1
-                mismatching += mism
-                if mism:
-                    raise RuntimeError(
-                        f"ntt_tile disagrees with its plain version in {mism} words "
-                        f"at dif={dif} B={B} n={n} lanes={lanes} epilogue={epilogue}"
-                    )
-                key = (dif, B, n, lanes, epilogue)
-                if key not in used:
-                    continue
-                err = float((got - want).abs().max())
-                del got, want, bad
-                ms = time_cuda(lambda: ntt4.ntt_tile(x, tw, dif, ep), 7)
-                plain_ms = time_cuda(lambda: ntt4.ntt_tile_plain(x, tw, dif, ep), 2)
-                bound_ms, bound_by = tile_bound(*key)
-                rows[key] = {
-                    "name": f"ntt_tile[{'DIF' if dif else 'DIT'} B={B} n={n} "
-                            f"lanes={lanes}{' +epilogue' if epilogue else ''}]",
-                    "route": "cuda",
-                    "source": "starkpack_winterfell_tpu_torch/csrc/ntt_tile.cu",
-                    "replaces": "starkpack_winterfell_tpu/ops/pallas/ntt4.py:112",
-                    "used_by": used[key],
-                    "launches": 0,
-                    "launches_by_path": {},
-                    "max_abs_err": err,
-                    "ms": ms,
-                    "plain_ms": plain_ms,
-                    "bound_ms": bound_ms,
-                    "bound_by": bound_by,
-                    "library_ms": None,
-                }
-        del x, table
+    for key in list(used) + [k for k in TILE_OPTION_KEYS if k not in used]:
+        args = tile_args(key, rng, device)
+        got = ntt4.ntt_tile(*args)
+        want = ntt4.ntt_tile_plain(*args)
+        torch.cuda.synchronize()
+        mism = int((got != want).sum())
+        compared += 1
+        mismatching += mism
+        if mism:
+            raise RuntimeError(f"ntt_tile disagrees with its plain version in {mism} "
+                               f"words at {tile_name(key)}")
+        if key in used:
+            err = float((got - want).abs().max())
+            del got, want
+            device_ms = device_kernel_ms(lambda: ntt4.ntt_tile(*args), "ntt_tile_kernel")
+            call_ms = time_cuda(lambda: ntt4.ntt_tile(*args), 7)
+            plain_ms = time_cuda(lambda: ntt4.ntt_tile_plain(*args), 2)
+            bound_ms, bound_by = tile_bound(*key)
+            rows[key] = {
+                "name": tile_name(key),
+                "route": "cuda",
+                "source": "starkpack_winterfell_tpu_torch/csrc/ntt_tile.cu",
+                "replaces": "starkpack_winterfell_tpu/ops/pallas/ntt4.py:112",
+                "used_by": used[key],
+                "launches": 0,
+                "launches_by_path": {},
+                "max_abs_err": err,
+                "ms": device_ms,
+                "device_ms": device_ms,
+                "call_ms": call_ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "bound_share": bound_ms / device_ms,
+                "library_ms": None,
+            }
+        del args
         torch.cuda.empty_cache()
-    if set(rows) != set(used):
-        raise RuntimeError(f"shapes not compared: {sorted(set(used) - set(rows))}")
-    emit("kernels", names=["ntt_tile<DIF>", "ntt_tile<DIT>"],
+    emit("kernels", names=["ntt_tile_kernel<DIF, K>", "ntt_tile_kernel<DIT, K>"],
          tolerance="exact (modular integer arithmetic)",
          compared=compared, mismatching_words=mismatching,
-         shapes=[{k: r[k] for k in ("name", "used_by", "ms", "plain_ms",
-                                    "bound_ms", "bound_by")}
+         shapes=[{k: r[k] for k in ("name", "used_by", "device_ms", "call_ms", "plain_ms",
+                                    "bound_ms", "bound_by", "bound_share")}
                  for r in rows.values()])
     return rows
 
@@ -291,14 +324,19 @@ def phase_kernels(rng, device):
 # ---------------------------------------------------------------------------
 
 
-def dit_inputs(key, rng, device):
+def dit_inputs(key, rng, device, inverse=False):
     """(function, plain version, arguments) of one DIT kernel shape:
-    ("axis0", n, lanes) or ("axis1", B, n, lanes, has pre)."""
-    if key[0] == "axis0":
-        _, n, lanes = key
-        args = (random_words((n, lanes), rng, device),
-                ntt4.tile_twiddles(n, False, device))
-        return ntt_kernel.dit_axis0, ntt_kernel.dit_axis0_plain, args
+    ("last", rows, n, n_in, strides of x, has pre, has scale) or ("axis1",
+    B, n, lanes, has pre).  x of ``ntt_last`` is laid out with the key's
+    strides (a transposed view where the prove passes one)."""
+    if key[0] == "last":
+        _, rows, n, n_in, strides, has_pre, has_scale = key
+        size = 1 + (rows - 1) * strides[0] + (n_in - 1) * strides[1]
+        x = torch.as_strided(random_words((size,), rng, device), (rows, n_in), strides)
+        args = (x, ntt4.tile_twiddles(n, inverse, device), n,
+                random_words((n_in,), rng, device) if has_pre else None,
+                int(rng.integers(0, gl.P, dtype=np.uint64)) if has_scale else None)
+        return ntt_kernel.ntt_last, ntt_kernel.ntt_last_plain, args
     _, B, n, lanes, has_pre = key
     args = (random_words((B, n, lanes), rng, device),
             ntt4.tile_twiddles(n, False, device),
@@ -306,8 +344,8 @@ def dit_inputs(key, rng, device):
     return ntt_kernel.dit_axis1, ntt_kernel.dit_axis1_plain, args
 
 
-def dit_mismatches(key, rng, device):
-    fn, plain, args = dit_inputs(key, rng, device)
+def dit_mismatches(key, rng, device, inverse=False):
+    fn, plain, args = dit_inputs(key, rng, device, inverse)
     got, want = fn(*args), plain(*args)
     torch.cuda.synchronize()
     mism = int((got != want).sum())
@@ -317,21 +355,40 @@ def dit_mismatches(key, rng, device):
     return fn, plain, args, float((got - want).abs().max())
 
 
+def last_bound(rows: int, n: int, n_in: int, pre: bool, scale: bool):
+    """Least time (ms) of one ``ntt_last`` launch: the input rows read once,
+    the output written once; the stages after the log2(n / n_in) that a
+    zero-padded row only copies, 28 instructions a word and table multiply."""
+    nbytes = 8 * (rows * n_in + rows * n + n // 2 + (n_in if pre else 0))
+    stages = n.bit_length() - (n // n_in).bit_length()
+    ops = rows * n * stages * (OPS_FIELD_MUL + OPS_FIELD_ADD + OPS_FIELD_SUB) // 2
+    ops += OPS_FIELD_MUL * ((rows * n_in if pre else 0) + (rows * n if scale else 0))
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def compare_dit(key, rng, device, used_by):
     """Kernel 2 or 3 at one launched shape: the wrapper against its plain
-    version (0 mismatching words required), then its time and bound."""
+    version (0 mismatching words required), then its times and bound."""
     fn, plain, args, err = dit_mismatches(key, rng, device)
-    ms = time_cuda(lambda: fn(*args), 7)
-    plain_ms = time_cuda(lambda: plain(*args), 1)
-    if key[0] == "axis0":
-        B, (n, lanes), has_pre = 1, key[1:], False
-        name = f"ntt_dit_axis0[n={n} lanes={lanes}]"
+    if key[0] == "last":
+        _, rows, n, n_in, strides, has_pre, has_scale = key
+        name = (f"ntt_last[rows={rows} n={n}{f' n_in={n_in}' if n_in < n else ''}"
+                f"{f' strides={strides}' if strides != (n_in, 1) else ''}"
+                f"{' +pre' if has_pre else ''}{' +scale' if has_scale else ''}]")
         replaces = "starkpack_winterfell_tpu/ops/pallas/ntt_kernel.py:91"
+        match = "ntt_last"
+        bound_ms, bound_by = last_bound(rows, n, n_in, has_pre, has_scale)
     else:
         B, n, lanes, has_pre = key[1:]
         name = f"ntt_dit_axis1[B={B} n={n} lanes={lanes}{' +pre' if has_pre else ''}]"
         replaces = "starkpack_winterfell_tpu/ops/pallas/ntt_kernel.py:224"
-    bound_ms, bound_by = tile_bound(False, B, n, lanes, has_pre)
+        match = "ntt_dit_axis1_kernel"
+        bound_ms, bound_by = tile_bound(False, B, n, lanes, has_pre)
+    device_ms = device_kernel_ms(lambda: fn(*args), match)
+    call_ms = time_cuda(lambda: fn(*args), 7)
+    plain_ms = time_cuda(lambda: plain(*args), 1)
     del args
     torch.cuda.empty_cache()
     return {
@@ -339,60 +396,43 @@ def compare_dit(key, rng, device, used_by):
         "source": "starkpack_winterfell_tpu_torch/csrc/ntt_dit.cu",
         "replaces": replaces,
         "used_by": [used_by], "launches": 0, "launches_by_path": {},
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "max_abs_err": err, "ms": device_ms, "device_ms": device_ms, "call_ms": call_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_share": bound_ms / device_ms, "library_ms": None,
     }
 
 
 def phase_dit_kernels(rng, device):
     """Both DIT kernels against their plain versions at fixed shapes before
-    any prove runs: the smallest and the largest length, one lane, ragged
-    lane groups, with and without the pre-multiply.  The shapes the proves
-    launch are compared, and timed, in the proves' own phases."""
-    keys = [("axis0", 2, 1), ("axis0", 4, 5000), ("axis0", 64, 1), ("axis0", 1024, 24),
-            ("axis0", 4096, 7), ("axis1", 3, 2, 3, True), ("axis1", 2, 64, 130, False),
-            ("axis1", 2, 64, 130, True), ("axis1", 5, 256, 768, True),
-            ("axis1", 2, 4096, 9, True), ("axis1", 1, 4096, 4, False)]
+    any prove runs: ``ntt_last`` at every length 2 ... 4096, forward and
+    inverse, with and without the pre-multiply and the scale, zero-padded
+    rows, transposed views, one row and ragged row blocks; ``dit_axis1`` at
+    the smallest and the largest length, one lane, ragged lane groups, with
+    and without the pre-multiply.  The shapes the proves launch are compared,
+    and timed, in the proves' own phases."""
+    keys = [("last", rows, 1 << bits, 1 << bits, (1 << bits, 1), pre, sc)
+            for bits, rows in zip(range(1, 13), (5000, 257, 3, 1000, 33, 25, 7, 300, 2, 9, 1, 3))
+            for pre in (False, True) for sc in (False, True)]
+    keys += [("last", 25, 64, 8, (8, 1), True, False), ("last", 3, 4096, 512, (512, 1), True, True),
+             ("last", 70000, 4, 4, (1, 70000), False, True), ("last", 5, 32, 4, (4, 1), True, False),
+             ("last", 33, 128, 128, (1, 33), True, True)]
+    keys += [("axis1", 3, 2, 3, True), ("axis1", 2, 64, 130, False),
+             ("axis1", 2, 64, 130, True), ("axis1", 5, 256, 768, True),
+             ("axis1", 2, 4096, 9, True), ("axis1", 1, 4096, 4, False)]
+    compared = 0
     for key in keys:
-        dit_mismatches(key, rng, device)
-    emit("dit_kernels", names=["ntt_dit_axis0", "ntt_dit_axis1<PRE>", "ntt_dit_axis1"],
+        for inverse in ((False, True) if key[0] == "last" else (False,)):
+            dit_mismatches(key, rng, device, inverse)
+            compared += 1
+    emit("dit_kernels", names=["ntt_last_reg_kernel<LOGN>", "ntt_last_kernel",
+                               "ntt_dit_axis1<PRE>", "ntt_dit_axis1"],
          tolerance="exact (modular integer arithmetic)",
-         compared=len(keys), mismatching_words=0, shapes=[list(k) for k in keys])
+         compared=compared, mismatching_words=0, shapes=[list(k) for k in keys])
 
 
 # ---------------------------------------------------------------------------
 # proofs
 # ---------------------------------------------------------------------------
-
-
-class PhaseLog(logging.Handler):
-    """Collects the (phase name, milliseconds) records prove_big logs."""
-
-    def __init__(self):
-        super().__init__(level=logging.DEBUG)
-        self.phases = []
-
-    def emit(self, record):
-        if isinstance(record.args, tuple) and len(record.args) == 2:
-            self.phases.append((str(record.args[0]), float(record.args[1])))
-
-
-def timed_prove(prover, traces):
-    log = PhaseLog()
-    logger = logging.getLogger("starkpack_winterfell_tpu_torch.prover.device")
-    old_level = logger.level
-    logger.addHandler(log)
-    logger.setLevel(logging.DEBUG)
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        proof = prover.prove(len(traces), traces)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-    finally:
-        logger.removeHandler(log)
-        logger.setLevel(old_level)
-    return proof, seconds, log.phases
 
 
 def first_prove(path, prover, traces, kernel_rows, rng, device, airs=None):
@@ -611,7 +651,9 @@ def compare_limb_tile(key, rng, device, used_by):
     x = random_limb(field, (B, n, lanes), rng, device)
     pt = random_limb(field, (n, lanes), rng, device) if has_pre else None
     tw = limb_ntt.tile_twiddles(F, n, inverse, device)
-    ms = time_cuda(lambda: limb_ntt._tile_launch(F, x, tw, pt, inverse), 7)
+    device_ms = device_kernel_ms(lambda: limb_ntt._tile_launch(F, x, tw, pt, inverse),
+                                 "limb_ntt_tile_kernel")
+    call_ms = time_cuda(lambda: limb_ntt._tile_launch(F, x, tw, pt, inverse), 7)
     plain_ms = time_cuda(lambda: limb_ntt.tile_plain(F, x, tw, pt), 1)
     bound_ms, bound_by = limb_tile_bound(field, n, B, lanes, has_pre)
     torch.cuda.empty_cache()
@@ -622,8 +664,9 @@ def compare_limb_tile(key, rng, device, used_by):
         "source": "starkpack_winterfell_tpu_torch/csrc/limb_ntt_tile.cu",
         "replaces": "starkpack_winterfell_tpu/ops/pallas/limb_kernel.py:151",
         "used_by": [used_by], "launches": 0, "launches_by_path": {},
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "max_abs_err": err, "ms": device_ms, "device_ms": device_ms, "call_ms": call_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_share": bound_ms / device_ms, "library_ms": None,
     }
 
 
@@ -654,7 +697,8 @@ def compare_cons(key, air0, rng, device, used_by):
                            f"version in {mism} words at {key}")
     err = max(float((g - x).abs().max()) for g, x in zip(got, want))
     del got, want
-    ms = time_cuda(lambda: cons_kernel.constraint_eval(*args), 7)
+    device_ms = device_kernel_ms(lambda: cons_kernel.constraint_eval(*args), "cons_eval_kernel")
+    call_ms = time_cuda(lambda: cons_kernel.constraint_eval(*args), 7)
     plain_ms = time_cuda(lambda: cons_kernel.constraint_eval_plain(*args), 1)
     # bound: every input read once, the output written once; the recorded
     # transition plus the frame's operations per point and instance
@@ -682,8 +726,9 @@ def compare_cons(key, air0, rng, device, used_by):
         "field_ops_per_point": {"mul": mul, "sqr": counts["sqr"], "add": add, "sub": sub},
         "replaces": "starkpack_winterfell_tpu/ops/pallas/cons_kernel.py:137",
         "used_by": [used_by], "launches": 0, "launches_by_path": {},
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "max_abs_err": err, "ms": device_ms, "device_ms": device_ms, "call_ms": call_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_share": bound_ms / device_ms, "library_ms": None,
     }
 
 

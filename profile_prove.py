@@ -8,7 +8,8 @@ under ``torch.profiler`` with only the CUDA activity recorded, and prints
 one JSON line: the prove's wall seconds under the profiler and without it,
 the number of device kernels it launched, their summed device time, the
 device's idle share (1 - device time / wall, against the profiled wall and
-against the wall without the profiler) and the kernels that take the most
+against the wall without the profiler), the device time and launch count of
+each of the port's own kernels by name, and the kernels that take the most
 device time.  The proof of the profiled run is verified.
 
 Configs (BLAKE3-256, ProofOptions(28, 8, 16, NONE, 4, 31)): ``do-work`` 32 x
@@ -44,6 +45,9 @@ from starkpack_winterfell_tpu_torch.ops import gl64 as gl
 
 OPTIONS = (28, 8, 16, FieldExtension.NONE, 4, 31)
 TOP = 12
+# the port's hand-written kernels, by the names nvcc gives them
+PORT_KERNELS = ("ntt_tile_kernel", "ntt_last", "ntt_dit_axis1_kernel",
+                "limb_ntt_tile_kernel", "cons_eval_kernel")
 
 
 def build(config: str, rng):
@@ -93,6 +97,7 @@ def main(argv=None):
     device_s = sum(e.device_time_total for e in events) / 1e6
     launches = sum(e.count for e in events)
     events.sort(key=lambda e: -e.device_time_total)
+    port = [e for e in events if any(k in e.key for k in PORT_KERNELS)]
     print(json.dumps({
         "config": args.config, "n": len(traces), "rows": traces[0].length,
         "nvidia_smi": smi, "torch": torch.__version__,
@@ -101,6 +106,11 @@ def main(argv=None):
         "device_idle_share": 1.0 - device_s / profiled_s,
         "device_idle_share_of_steady": 1.0 - device_s / plain_s,
         "host_us_per_kernel": profiled_s / launches * 1e6,
+        "port_kernels": [
+            {"name": e.key, "count": e.count, "device_ms": e.device_time_total / 1e3,
+             "device_ms_per_launch": e.device_time_total / 1e3 / e.count}
+            for e in port
+        ],
         "top_kernels": [
             {"name": e.key[:80], "count": e.count,
              "device_ms": e.device_time_total / 1e3,

@@ -101,6 +101,10 @@ limb_ntt_tile_kernel(const uint64_t* __restrict__ x_lo,
   }
 }
 
+// most dynamic shared memory a launch asks for: a 16384-word tile (the
+// wrapper's TILE_WORDS)
+constexpr int MAX_SMEM_BYTES = 16384 * 8;
+
 template <class FE>
 int limb_ntt_tile_launch(const void* x_lo, const void* x_hi, void* o_lo,
                          void* o_hi, const void* tw_lo, const void* tw_hi,
@@ -113,10 +117,8 @@ int limb_ntt_tile_launch(const void* x_lo, const void* x_hi, void* o_lo,
   const int lg = 1 << log_lg;
   const int groups = (lanes + lg - 1) / lg;
   const size_t smem = (size_t)n * lg * FE::WORDS * sizeof(uint64_t);
+  if (smem > (size_t)MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
   auto kern = limb_ntt_tile_kernel<FE>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
   const long long grid = (long long)B * groups;
   if (grid <= 0 || grid > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
   kern<<<(unsigned)grid, threads, smem, (cudaStream_t)stream>>>(
@@ -129,11 +131,25 @@ int limb_ntt_tile_launch(const void* x_lo, const void* x_hi, void* o_lo,
 
 }  // namespace
 
+// Raises both instantiations' dynamic shared-memory limit to the most a
+// launch asks for; called once when the library is loaded, so no launch pays
+// for the attribute call.  Returns the first cudaError_t (0 = success).
+extern "C" int limb_ntt_tile_init() {
+  cudaError_t e = cudaFuncSetAttribute(limb_ntt_tile_kernel<F128>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       MAX_SMEM_BYTES);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(limb_ntt_tile_kernel<F62>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             MAX_SMEM_BYTES);
+  return (int)e;
+}
+
 // Plain C interface (loaded with ctypes), one entry per field.  x/out:
 // (B, n, lanes) u64 planes, contiguous (the high planes NULL for f62); tw:
 // (n/2,) powers of the size-n root; pre: (n, lanes) or NULL.  Launches on
 // `stream`, does not synchronise, allocates nothing.  Returns the
-// cudaError_t of the attribute call or of the launch (0 = success).
+// cudaError_t of the launch (0 = success).
 extern "C" int limb_ntt_tile_f128_launch(
     const void* x_lo, const void* x_hi, void* o_lo, void* o_hi,
     const void* tw_lo, const void* tw_hi, const void* pre_lo,

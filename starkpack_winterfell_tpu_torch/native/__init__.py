@@ -19,6 +19,8 @@ import os
 import shutil
 import subprocess
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "build")
 _CACHE: dict = {}
@@ -80,6 +82,50 @@ def build_cuda(name: str, sources) -> ctypes.CDLL:
                  f"nvcc build of {name}")
         _CACHE[name] = ctypes.CDLL(so)
     return _CACHE[name]
+
+
+def load_kernels(name: str, sources, init: str, signatures: dict):
+    """``build_cuda`` + the library's ``init`` entry (which raises each
+    kernel's dynamic shared-memory limit once, so no launch pays for it) +
+    the ctypes signatures of its launchers: {function name: argtypes}, each
+    returning a cudaError_t as int.  Returns {function name: ctypes
+    function}, resolved once so a launch does no attribute lookup.
+
+    The limit is a setting of the current device's context, so the port's
+    kernels run on the device that is current when their library loads
+    (``launch`` refuses any other)."""
+    lib = build_cuda(name, sources)
+    rc = getattr(lib, init)()
+    if rc != 0:
+        raise RuntimeError(f"{name}: {init} failed with cudaError {rc}")
+    fns = {}
+    for fn_name, argtypes in signatures.items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        fns[fn_name] = fn
+    return fns
+
+
+def _stream_of(index: int) -> int:
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+# the current stream's handle of a device, without building a Stream object
+# where this build of torch offers that
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", _stream_of)
+
+
+def launch(fn, device, *args) -> int:
+    """Calls the kernel launcher ``fn(*args, stream)`` with the current
+    stream of ``device``, which must be the current CUDA device (the one
+    ``load_kernels`` set the shared-memory limits on; the port runs on one
+    device).  Returns the launcher's cudaError_t."""
+    current = torch.cuda.current_device()
+    if device.index is not None and device.index != current:
+        raise ValueError(f"the port's kernels run on the current CUDA device "
+                         f"(cuda:{current}); the tensor lies on {device}")
+    return fn(*args, _raw_stream(current))
 
 
 def _build_host(name: str, source: str, compilers) -> ctypes.CDLL:

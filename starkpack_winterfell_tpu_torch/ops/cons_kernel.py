@@ -36,6 +36,7 @@ import os
 import torch
 
 from ..air.transition import EvaluationFrame
+from ..native import launch
 from .felt import Felt
 
 THREADS = 128
@@ -447,12 +448,9 @@ def constraint_eval(B, air0, plan_groups, K, shift: int, blowup: int,
         # (low plane, high plane); a one-word field has no high plane
         return [l.data_ptr() for l in planes] + [None] * (2 - k)
 
-    with torch.cuda.device(lo.device):
-        rc = lib.cons_eval_launch(
-            *ptrs(rows), *ptrs(per), *ptrs(div), scal.data_ptr(), *ptrs(out),
-            n, L, ce, shift, blowup, per_len, THREADS,
-            torch.cuda.current_stream().cuda_stream,
-        )
+    rc = launch(lib.cons_eval_launch, lo.device,
+                *ptrs(rows), *ptrs(per), *ptrs(div), scal.data_ptr(), *ptrs(out),
+                n, L, ce, shift, blowup, per_len, THREADS)
     if rc != 0:
         raise RuntimeError(
             f"constraint kernel launch failed: cudaError {rc} "

@@ -35,6 +35,7 @@ import os
 import torch
 
 from . import ntt as ntt_mod
+from ..native import launch
 
 TILE_WORDS = 16384  # u64 words of shared memory per block (128 KB)
 MAX_THREADS = 512
@@ -67,17 +68,17 @@ def kernel_sources():
 
 
 def _lib():
-    """Build (first use) and load the kernel library; raises on failure."""
+    """Build (first use) and load the kernel library, set its kernels'
+    shared-memory limits once; raises on failure.  Returns the launchers."""
     global _LIB
     if _LIB is None:
-        from ..native import build_cuda
+        from ..native import load_kernels
 
-        lib = build_cuda("starklimbntt", kernel_sources())
         p, i = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.limb_ntt_tile_f128_launch, lib.limb_ntt_tile_f62_launch):
-            fn.argtypes = [p] * 8 + [i] * 5 + [p]
-            fn.restype = ctypes.c_int
-        _LIB = lib
+        sig = [p] * 8 + [i] * 5 + [p]
+        _LIB = load_kernels("starklimbntt", kernel_sources(), "limb_ntt_tile_init", {
+            "limb_ntt_tile_f128_launch": sig, "limb_ntt_tile_f62_launch": sig,
+        })
     return _LIB
 
 
@@ -149,7 +150,7 @@ def _tile_launch(field, x, tw, pre, inverse: bool):
     out = tuple(torch.empty_like(l) for l in x)
     if B == 0 or lanes == 0:
         return out
-    launch = getattr(_lib(), f"limb_ntt_tile_{field.NAME}_launch")
+    fn = _lib()[f"limb_ntt_tile_{field.NAME}_launch"]
     log_lg = _lanes_per_block(field, n, lanes)
     threads = min(MAX_THREADS, max(32, (n // 2) << log_lg))
 
@@ -158,12 +159,8 @@ def _tile_launch(field, x, tw, pre, inverse: bool):
         got = [l.data_ptr() for l in planes] if planes is not None else []
         return got + [None] * (2 - len(got))
 
-    with torch.cuda.device(x[0].device):
-        rc = launch(
-            *ptrs(x), *ptrs(out), *ptrs(tw), *ptrs(pre),
-            B, n, lanes, log_lg, threads,
-            torch.cuda.current_stream().cuda_stream,
-        )
+    rc = launch(fn, x[0].device, *ptrs(x), *ptrs(out), *ptrs(tw), *ptrs(pre),
+                B, n, lanes, log_lg, threads)
     if rc != 0:
         raise RuntimeError(
             f"limb_ntt_tile kernel launch failed: cudaError {rc} "

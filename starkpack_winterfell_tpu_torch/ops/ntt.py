@@ -4,8 +4,10 @@ Counterpart of starkpack_winterfell_tpu/ops/ntt.py: natural-order
 evaluations in, natural-order coefficients out.  Every transform of the
 small-trace path and the small transforms of the big-trace path (periodic
 columns, the FRI fold's N-point iNTT) go through ``ntt_components``: on a
-CUDA tensor it runs the DIT kernels of ops/ntt_kernel.py (one call up to
-4096 points, the four-step split above); on a CPU tensor an iterative
+CUDA tensor it runs the DIT kernels of ops/ntt_kernel.py (one launch per
+component up to 4096 points, the four-step split above;
+``evaluate_poly_with_offset`` up to 4096 points is one launch with its offset
+multiply and zero padding); on a CPU tensor an iterative
 radix-2 DIT transform expressed as log2(n) full-array stages, which is also
 the oracle of the kernels' tests.  Tables are cached per size and device.
 
@@ -124,7 +126,14 @@ def evaluate_poly_with_offset(comps, domain_offset: int, blowup_factor: int):
     zero-pad, full-size transform."""
     n = comps[0].shape[-1]
     big_n = n * blowup_factor
-    offs = _offset_powers(domain_offset, n, comps[0].device)
+    device = comps[0].device
+    offs = _offset_powers(domain_offset, n, device)
+    if device.type == "cuda" and 1 < big_n:
+        from . import ntt_kernel
+
+        if big_n <= ntt_kernel.MAX_TILE_N:
+            # the offset multiply and the zero padding ride in the launch
+            return ntt_kernel.ntt_batched(comps, n=big_n, pre=offs)
     scaled = []
     for c in comps:
         sc = gl.mul(c, offs)

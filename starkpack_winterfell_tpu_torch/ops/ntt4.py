@@ -4,16 +4,20 @@ Counterpart of starkpack_winterfell_tpu/ops/pallas/ntt4.py.  The tile
 transform — every radix-2 stage of a batched length-n Goldilocks NTT along
 axis 1 of a (B, n, lanes) array, DIF or DIT, with an optional fused epilogue
 table multiply — is the CUDA kernel of ``csrc/ntt_tile.cu`` (it replaces the
-Pallas kernel ``_make_body`` / ``_build_call`` there).  ``ntt_tile_plain`` is
-the same function in plain PyTorch; the wrapper ``ntt_tile`` takes it only
-for tensors that lie on the CPU and launches the kernel for CUDA tensors.
+Pallas kernel ``_make_body`` / ``_build_call`` there).  The kernel also
+takes the layout moves of the pipelines below as options: a transposed
+store, a zero-interleaved input and a pre-multiply table.
+``ntt_tile_plain`` is the same function in plain PyTorch; the wrapper
+``ntt_tile`` takes it only for tensors that lie on the CPU and launches the
+kernel for CUDA tensors.
 
-Bound on an H100: one call reads the array once and writes it once
-(2 * B*n*lanes*8 bytes against 3.35 TB/s) and does log2(n)/2 butterflies per
-word, 46 32-bit integer instructions each (csrc/gl64_sass_count.py), against
-the card's INT32 rate; from n = 16 up the operations are the larger bound.
-The kernel keeps all stages of a tile in shared memory so no stage touches
-device memory.
+Bound on an H100: one call reads the input rows once and writes the output
+once (8 bytes a word each way against 3.35 TB/s) and does (log2(n) -
+log2(interleave)) / 2 butterflies per output word, 46 32-bit integer
+instructions each (csrc/gl64_sass_count.py), plus 28 per word and table
+multiply, against the card's INT32 rate; from n = 16 up the operations are
+the larger bound.  The kernel runs three or four stages at a time in
+registers (csrc/gl64_radix.cuh) between exchanges through shared memory.
 
 The four-step decomposition is the JAX package's, with the same index
 algebra and the same **permuted coefficient layout** (the K2 output: a
@@ -22,12 +26,13 @@ algebra and the same **permuted coefficient layout** (the K2 output: a
   interpolate+LDE of length-n columns to L = n*blowup, n = a*b, L = a*B:
 
     view (.., a, b)                 rows t1 (natural)
-    K1  DIF_a   (+epilogue W_n^{-j1 t2} at [rev_a(j1), t2])
-    T   transpose -> (.., b, a)
+    K1  DIF_a   (+epilogue W_n^{-j1 t2} at [rev_a(j1), t2]), stored
+                transposed -> (.., b, a)
     K2  DIF_b   (+epilogue (1/n) * s^j at [rev_b(j2), rev_a(j1)])
-    zero-interleave rows by blowup -> (.., B, a)
-    K3  DIT_B   (+epilogue W_L^{r j1} at [r, rev_a(j1)])
-    T   transpose -> (.., a, B)
+    K3  DIT_B   on the (.., b, a) rows zero-interleaved by the blowup
+                (row r at row r*blowup of the (.., B, a) array it stands
+                for), (+epilogue W_L^{r j1} at [r, rev_a(j1)]), stored
+                transposed -> (.., a, B)
     K4  DIT_a   -> natural X[q*B + r], reshape (.., L)
 
 Element arrays are tuples of component tensors (int64 words, ops/gl64.py).
@@ -44,19 +49,23 @@ import torch
 
 from . import gl64 as gl
 from . import ntt as ntt_mod
+from ..native import launch
 
 MAX_TILE = 4096
 MIN_TILE = 128  # smallest tile _pick_factors uses (the factorization rule
 #                 is kept so both packages cut every size the same way)
-TILE_WORDS = 16384  # u64 words of shared memory per block (128 KB)
+TILE_WORDS = 4096  # u64 words of a block's tile where n allows (32 KB)
+SMEM_PER_SM = 228 * 1024  # shared memory of one H100 SM, in bytes
+MAX_THREADS = 256  # threads of a block (the kernel's launch bound)
 
 # launches of the CUDA kernel made by ``ntt_tile`` (and nowhere else): the
-# total, and the same launches split by (dif, B, n, lanes, has epilogue)
+# total, and the same launches split by (dif, B, n, lanes, has epilogue,
+# interleave, has pre, transposed)
 LAUNCHES = 0
 LAUNCHES_BY_SHAPE: collections.Counter = collections.Counter()
 
 _TABLE_CACHE: dict = {}
-_LIB = None
+_LAUNCH = None
 
 
 # ---------------------------------------------------------------------------
@@ -76,14 +85,32 @@ def tile_twiddles(n: int, inverse: bool, device) -> torch.Tensor:
     return _TABLE_CACHE[key]
 
 
-def ntt_tile_plain(x, tw, dif: bool, epilogue=None):
+def ntt_tile_plain(x, tw, dif: bool, epilogue=None, interleave: int = 1, pre=None,
+                   transposed: bool = False):
     """Plain PyTorch version of the tile kernel: all stages of a length-n
     NTT along axis 1 of x (B, n, lanes).  DIF: natural in, bit-reversed out;
     DIT: bit-reversed in, natural out.  tw: (n/2,) root powers; epilogue:
-    optional (n, lanes) table multiplied into the result."""
+    optional (n, lanes) table multiplied into the result.
+
+    Options (the kernel's, for the four-step pipelines):
+    ``pre``: (rows of x, lanes) table multiplied into x first;
+    ``interleave`` f (DIT only): x is (B, n/f, lanes) and stands for the
+    (B, n, lanes) array with x's row r at row r*f and zeros in the f-1 rows
+    after it — whose first log2(f) DIT stages only copy each row into those
+    zero rows, so the rows are repeated f times and the stages start at
+    log2(f) + 1;
+    ``transposed``: the result is returned (B, lanes, n), contiguous."""
+    if pre is not None:
+        x = gl.mul(x, pre.unsqueeze(0))
+    first = 1
+    if interleave > 1:
+        if dif:
+            raise ValueError("a zero-interleaved input is a DIT option")
+        x = x.repeat_interleave(interleave, dim=1)
+        first = interleave.bit_length()
     B, n, lanes = x.shape
     bits = n.bit_length() - 1
-    stages = range(bits, 0, -1) if dif else range(1, bits + 1)
+    stages = range(bits, 0, -1) if dif else range(first, bits + 1)
     for s in stages:
         m = 1 << s
         half = m >> 1
@@ -100,6 +127,8 @@ def ntt_tile_plain(x, tw, dif: bool, epilogue=None):
         x = torch.stack([top, bot], dim=2).reshape(B, n, lanes)
     if epilogue is not None:
         x = gl.mul(x, epilogue.unsqueeze(0))
+    if transposed:
+        x = x.transpose(1, 2).contiguous()
     return x
 
 
@@ -115,44 +144,64 @@ def kernel_sources():
 
 
 def _lib():
-    """Build (first use) and load the kernel library; raises on failure."""
-    global _LIB
-    if _LIB is None:
-        from ..native import build_cuda
+    """Build (first use) and load the kernel library, set its kernels'
+    shared-memory limits once; raises on failure.  Returns the launcher."""
+    global _LAUNCH
+    if _LAUNCH is None:
+        from ..native import load_kernels
 
-        lib = build_cuda("starkntt", kernel_sources())
-        p = ctypes.c_void_p
-        i = ctypes.c_int
-        lib.ntt_tile_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
-        lib.ntt_tile_launch.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+        p, i = ctypes.c_void_p, ctypes.c_int
+        _LAUNCH = load_kernels("starkntt", kernel_sources(), "ntt_tile_init", {
+            "ntt_tile_launch": [p] * 5 + [i] * 9 + [p],
+        })["ntt_tile_launch"]
+    return _LAUNCH
 
 
-def _lanes_per_block(n: int, lanes: int) -> int:
-    """log2 of the lanes one thread block stages: the largest power of two
-    with n * LG <= TILE_WORDS, capped at the next power of two >= lanes."""
-    cap = max(1, TILE_WORDS // n)
+def _block_shape(n: int, rows_in: int, lanes: int, transposed: bool):
+    """(log2 of the lanes one thread block stages, K, threads of the block).
+
+    The lane group LG is the largest power of two whose (n, LG) tile stays
+    within TILE_WORDS words, capped at the next power of two >= lanes; a
+    block that writes its rows straight to device memory (no transposed
+    store) takes at least two lanes, so that a row segment is 16 bytes (one
+    lane would write 8 bytes of every 32-byte sector).  A zero-interleaved
+    input stages its ``rows_in`` rows beside the tile.  K, the stages a
+    thread runs in registers between two exchanges, is 4 where the block's
+    shared memory lets at most two blocks share an SM anyway (fewer passes),
+    else 3 (half the registers, so more blocks share an SM).  A pass has
+    (n / 2^K) * LG tasks of 2^K words; the block runs up to MAX_THREADS of
+    them at once."""
     lg = 1
-    while lg * 2 <= cap and lg < lanes:
+    while lg < lanes and (n * lg * 2 <= TILE_WORDS or (lg == 1 and not transposed)):
         lg *= 2
-    return lg.bit_length() - 1
+    smem = 8 * (n // 2 + n * lg + (rows_in * lg if rows_in < n else 0))
+    radix_log = 4 if 3 * smem > SMEM_PER_SM else 3
+    tasks = (n >> min(radix_log, n.bit_length() - 1)) * lg
+    return lg.bit_length() - 1, radix_log, min(MAX_THREADS, max(32, tasks))
 
 
-def ntt_tile(x, tw, dif: bool, epilogue=None):
-    """Tile NTT along axis 1 of x (B, n, lanes); see ``ntt_tile_plain``.
+def ntt_tile(x, tw, dif: bool, epilogue=None, interleave: int = 1, pre=None,
+             transposed: bool = False):
+    """Tile NTT along axis 1 of x (B, n / interleave, lanes); see
+    ``ntt_tile_plain``.
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel of
     csrc/ntt_tile.cu on the current stream (no synchronisation) or raise."""
     global LAUNCHES
     if x.dim() != 3:
         raise ValueError(f"expected a (B, n, lanes) tensor, got shape {tuple(x.shape)}")
-    B, n, lanes = x.shape
-    if n < 2 or n & (n - 1) or n > MAX_TILE:
-        raise ValueError(f"tile length must be a power of two in [2, {MAX_TILE}], got {n}")
-    tensors = [("x", x, (B, n, lanes)), ("tw", tw, (n // 2,))]
+    B, rows_in, lanes = x.shape
+    if interleave < 1 or interleave & (interleave - 1) or (dif and interleave > 1):
+        raise ValueError(f"interleave must be a power of two, and 1 for a DIF, got {interleave}")
+    n = rows_in * interleave
+    if n < 2 or n & (n - 1) or n > MAX_TILE or interleave >= n:
+        raise ValueError(f"tile length must be a power of two in [2, {MAX_TILE}] "
+                         f"above the interleave, got {n}")
+    tensors = [("x", x, (B, rows_in, lanes)), ("tw", tw, (n // 2,))]
     if epilogue is not None:
         tensors.append(("epilogue", epilogue, (n, lanes)))
+    if pre is not None:
+        tensors.append(("pre", pre, (rows_in, lanes)))
     for name, t, shape in tensors:
         if t.dtype != torch.int64:
             raise TypeError(f"{name} must be int64 (u64 bit patterns), got {t.dtype}")
@@ -161,32 +210,32 @@ def ntt_tile(x, tw, dif: bool, epilogue=None):
         if t.device != x.device:
             raise ValueError(f"{name} lies on {t.device}, x on {x.device}")
     if x.device.type == "cpu":
-        return ntt_tile_plain(x, tw, dif, epilogue)
+        return ntt_tile_plain(x, tw, dif, epilogue, interleave, pre, transposed)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     for name, t, _ in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    out = torch.empty((B, lanes, n) if transposed else (B, n, lanes),
+                      dtype=torch.int64, device=x.device)
     if B == 0 or lanes == 0:
-        return torch.empty_like(x)
-    lib = _lib()
-    out = torch.empty_like(x)
-    log_lg = _lanes_per_block(n, lanes)
-    threads = min(1024, max(32, (n // 2) << log_lg))
-    with torch.cuda.device(x.device):
-        rc = lib.ntt_tile_launch(
-            x.data_ptr(), out.data_ptr(), tw.data_ptr(),
-            epilogue.data_ptr() if epilogue is not None else None,
-            B, n, lanes, log_lg, int(dif), threads,
-            torch.cuda.current_stream().cuda_stream,
-        )
+        return out
+    log_lg, radix_log, threads = _block_shape(n, rows_in, lanes, transposed)
+    rc = launch(
+        _lib(), x.device, x.data_ptr(), out.data_ptr(), tw.data_ptr(),
+        epilogue.data_ptr() if epilogue is not None else None,
+        pre.data_ptr() if pre is not None else None,
+        B, n, lanes, log_lg, int(dif), interleave.bit_length() - 1,
+        int(transposed), radix_log, threads,
+    )
     if rc != 0:
         raise RuntimeError(
             f"ntt_tile kernel launch failed: cudaError {rc} "
-            f"(B={B}, n={n}, lanes={lanes}, dif={dif})"
+            f"(B={B}, n={n}, lanes={lanes}, dif={dif}, interleave={interleave})"
         )
     LAUNCHES += 1
-    LAUNCHES_BY_SHAPE[(bool(dif), B, n, lanes, epilogue is not None)] += 1
+    LAUNCHES_BY_SHAPE[(bool(dif), B, n, lanes, epilogue is not None, interleave,
+                       pre is not None, bool(transposed))] += 1
     return out
 
 
@@ -329,27 +378,30 @@ def fwd_consts(L: int, a: int, eval_offset: int, rows: int, device):
 
 
 def _run_k1k2(comps, c):
-    """Natural (..., n) -> permuted (..., b, a) through K1/T/K2."""
+    """Natural (..., n) -> permuted (..., b, a) through K1 (transposed
+    store) and K2: no copy between the two launches."""
     shape = comps[0].shape
     b, a = c["e2"].shape
     batch = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
     out = []
     for x in comps:
         x = x.reshape(batch, a, b).contiguous()
-        x = ntt_tile(x, c["k1"], True, c["e1"])
-        x = x.transpose(1, 2).contiguous()
+        x = ntt_tile(x, c["k1"], True, c["e1"], transposed=True)
         x = ntt_tile(x, c["k2"], True, c["e2"])
         out.append(x.reshape(shape[:-1] + (b, a)))
     return tuple(out)
 
 
 def _run_interleave_k3k4(comps, c, L, scale=None):
-    """Permuted (..., rows, a) -> natural (..., L) through zero-interleave +
-    K3/T/K4.  ``scale``: optional (rows, a) pre-multiply table (offset^t).
+    """Permuted (..., rows, a) -> natural (..., L) through K3 and K4.
+    ``scale``: optional (rows, a) pre-multiply table (offset^t).
 
-    The blowup zero-padding is written straight into the (B, a) layout K3
-    reads: coefficient row r lands at row r*f, the f-1 rows after it are
-    zero (the JAX package reaches the same array through two transposes)."""
+    K3 takes the coefficient rows as they are: its zero-interleaved input
+    stands for the (B, a) array with coefficient row r at row r*f and zeros
+    in the f-1 rows after it (the blowup zero-padding in the layout K3
+    reads), its pre-multiply takes ``scale``, and its transposed store hands
+    K4 its layout: no copy, no zero buffer and no multiply between the two
+    launches."""
     shape = comps[0].shape
     rows, a = shape[-2], shape[-1]
     Bf = L // a
@@ -357,15 +409,8 @@ def _run_interleave_k3k4(comps, c, L, scale=None):
     batch = int(np.prod(shape[:-2])) if len(shape) > 2 else 1
     out = []
     for x in comps:
-        x = x.reshape(batch, rows, a)
-        if scale is not None:
-            x = gl.mul(x, scale.unsqueeze(0))
-        if f > 1:
-            z = torch.zeros((batch, rows, f, a), dtype=torch.int64, device=x.device)
-            z[:, :, 0, :] = x
-            x = z.reshape(batch, Bf, a)
-        x = ntt_tile(x.contiguous(), c["k3"], False, c["e3"])
-        x = x.transpose(1, 2).contiguous()
+        x = x.reshape(batch, rows, a).contiguous()
+        x = ntt_tile(x, c["k3"], False, c["e3"], interleave=f, pre=scale, transposed=True)
         x = ntt_tile(x, c["k4"], False, None)
         out.append(x.reshape(shape[:-2] + (L,)))
     return tuple(out)

@@ -106,15 +106,20 @@ def trace_commit_big(seg, blowup: int, offset: int, hasher):
 def _small_periodic_columns(air, device):
     """Per-column periodic evaluations over ONE period (m = cycle *
     ce_blowup), to be tiled over a chunk — without materializing (ce,)
-    arrays."""
-    cols = []
-    for poly in air.get_periodic_column_polys():
-        num_cycles = air.trace_length() // len(poly)
+    arrays.  Columns of one cycle length are evaluated in one batched
+    transform, as ``prover/constraints.py:PeriodicValueTable`` does."""
+    polys = air.get_periodic_column_polys()
+    cols = [None] * len(polys)
+    by_len = {}
+    for j, poly in enumerate(polys):
+        by_len.setdefault(len(poly), []).append(j)
+    for poly_size, js in by_len.items():
+        num_cycles = air.trace_length() // poly_size
         offset = pow(air.domain_offset(), num_cycles, gl.P)
-        coeffs = gl.from_u64(np.array(poly, dtype=np.uint64), device)
-        cols.append(
-            ntt.evaluate_poly_with_offset((coeffs,), offset, air.ce_blowup_factor())[0]
-        )
+        coeffs = gl.from_u64(np.array([polys[j] for j in js], dtype=np.uint64), device)
+        evals = ntt.evaluate_poly_with_offset((coeffs,), offset, air.ce_blowup_factor())[0]
+        for row, j in enumerate(js):
+            cols[j] = evals[row]
     return cols
 
 

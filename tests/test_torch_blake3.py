@@ -17,6 +17,8 @@ from starkpack_winterfell_tpu_torch.crypto.merkle import MerkleTree as TMerkleTr
 from starkpack_winterfell_tpu_torch.ops import blake3 as tb3, gl64 as tgl
 from starkpack_winterfell_tpu_torch.prover import device_big as tbig
 
+import _torch_one_thread  # noqa: F401  (one torch thread a test worker)
+
 P = tgl.P
 
 

@@ -26,6 +26,8 @@ from starkpack_winterfell_tpu_torch.ops import cons_kernel as t_cons
 from starkpack_winterfell_tpu_torch.ops.backend import get_backend as t_backend
 from starkpack_winterfell_tpu_torch.utils.convert import from_limb_planes, to_limb_planes
 
+import _torch_one_thread  # noqa: F401  (one torch thread a test worker)
+
 P = t_backend("f128").P
 OPTIONS = (16, 8, 0, 1, 4, 3)
 GROUPS = [[("main", 0, 1), ("main", 1, 1)], [("main", 1, 1)]]  # fib: first step, last step

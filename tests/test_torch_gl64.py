@@ -6,6 +6,7 @@ Same inputs on both sides (numpy, fixed seed, plus the edge words 0, 1,
 
 import numpy as np
 import pytest
+import torch
 
 from starkpack_winterfell_tpu.air.transition import EvaluationFrame as JFrame
 from starkpack_winterfell_tpu.models import rescue_chain as jrc
@@ -17,6 +18,8 @@ from starkpack_winterfell_tpu_torch.models import rescue_chain as trc
 from starkpack_winterfell_tpu_torch.ops import gl64 as tgl, vec as tvec
 from starkpack_winterfell_tpu_torch.ops.felt import Felt as TFelt
 from starkpack_winterfell_tpu_torch.utils import convert
+
+import _torch_one_thread  # noqa: F401  (one torch thread a test worker)
 
 P = tgl.P
 EDGES = np.array([0, 1, (1 << 32) - 1, 1 << 32, P - 1, P - 2, (1 << 63), 7],

@@ -12,6 +12,8 @@ import sys
 
 import pytest
 
+import _torch_one_thread
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 LEAK_CHECK = """
@@ -26,7 +28,7 @@ assert not leaked, leaked
 def _run(code, env_extra=None):
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
-    env.update(env_extra or {})
+    env.update(_torch_one_thread.ENV, **(env_extra or {}))
     return subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, env=env,
         capture_output=True, text=True, timeout=300,
@@ -96,7 +98,7 @@ else:
 def test_cli_runs_on_the_cpu_and_refuses_the_default_device():
     base = [sys.executable, "-m", "starkpack_winterfell_tpu_torch.models.cli",
             "rescue-chain", "-n", "1", "-l", "128"]
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, **_torch_one_thread.ENV)
     r = subprocess.run(base, cwd=ROOT, env=env, capture_output=True, text=True,
                        timeout=300)
     assert r.returncode != 0 and "cuda" in r.stderr.lower()
@@ -116,7 +118,7 @@ def test_cli_runs_on_the_cpu_and_refuses_the_default_device():
 ])
 def test_small_trace_cli_runs_on_the_cpu(args):
     base = [sys.executable, "-m", "starkpack_winterfell_tpu_torch.models.cli"] + args
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, **_torch_one_thread.ENV)
     r = subprocess.run(base + ["--device", "cpu"], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0 and "Proof verified" in r.stdout, r.stderr
@@ -125,7 +127,7 @@ def test_small_trace_cli_runs_on_the_cpu(args):
 def test_limb_cli_runs_on_the_cpu_and_refuses_the_default_device():
     base = [sys.executable, "-m", "starkpack_winterfell_tpu_torch.models.cli",
             "fib-f128", "-n", "2", "-l", "64"]
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, **_torch_one_thread.ENV)
     r = subprocess.run(base, cwd=ROOT, env=env, capture_output=True, text=True,
                        timeout=300)
     assert r.returncode != 0 and "cuda" in r.stderr.lower()
@@ -136,6 +138,7 @@ def test_limb_cli_runs_on_the_cpu_and_refuses_the_default_device():
 
 def test_chip_smoke_exits_nonzero_without_a_card():
     r = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")],
-                       cwd=ROOT, capture_output=True, text=True, timeout=300)
+                       cwd=ROOT, env=dict(os.environ, **_torch_one_thread.ENV),
+                       capture_output=True, text=True, timeout=300)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout

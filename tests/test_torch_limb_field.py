@@ -13,6 +13,8 @@ from starkpack_winterfell_tpu_torch.ops.backend import get_backend
 from starkpack_winterfell_tpu_torch.ops.limb_field import F62 as TF62, F128 as TF
 from starkpack_winterfell_tpu_torch.utils.convert import from_limb_planes, to_limb_planes
 
+import _torch_one_thread  # noqa: F401  (one torch thread a test worker)
+
 P = TF.P
 EDGES = [0, 1, 2, P - 1, P - 2, (1 << 64) - 1, 1 << 64, (1 << 64) + 1, 1 << 127,
          P >> 1, TF.DELTA, P - (1 << 64), (1 << 128) - (1 << 64) - 1 - P + P - 1]

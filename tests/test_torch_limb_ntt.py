@@ -15,6 +15,8 @@ from starkpack_winterfell_tpu_torch.ops import limb_ntt
 from starkpack_winterfell_tpu_torch.ops.limb_field import F62 as TF62, F128 as TF
 from starkpack_winterfell_tpu_torch.utils.convert import from_limb_planes, to_limb_planes
 
+import _torch_one_thread  # noqa: F401  (one torch thread a test worker)
+
 
 @pytest.fixture(autouse=True)
 def _interpret_mode(monkeypatch):

@@ -18,6 +18,8 @@ from starkpack_winterfell_tpu.ops.pallas.ntt_kernel import _per_position_twiddle
 from starkpack_winterfell_tpu_torch.ops import gl64 as tgl, ntt as tntt, ntt4 as tntt4, vec as tvec
 from starkpack_winterfell_tpu_torch.utils.convert import from_limb_pairs, to_limb_pairs
 
+import _torch_one_thread  # noqa: F401  (one torch thread a test worker)
+
 P = tgl.P
 N, BLOWUP, OFFSET = 1 << 14, 8, 7
 L = N * BLOWUP
@@ -100,7 +102,45 @@ def test_tile_wrapper_checks_its_arguments():
         tntt4.ntt_tile(x, tw[:2], True)  # twiddle table too short
     with pytest.raises(ValueError):
         tntt4.ntt_tile(x, tw, True, tgl.zeros((8, 3)))  # epilogue shape
-    assert tntt4.LAUNCHES == 0  # the CPU path launches no kernel
+    with pytest.raises(ValueError):
+        tntt4.ntt_tile(tgl.zeros((2, 2, 4)), tw, True, interleave=4)  # DIF interleave
+    with pytest.raises(ValueError):
+        tntt4.ntt_tile(tgl.zeros((2, 2, 4)), tw, False, interleave=3)  # not a power of two
+    with pytest.raises(ValueError):
+        tntt4.ntt_tile(tgl.zeros((2, 1, 4)), tw, False, interleave=8)  # nothing left to stage
+    with pytest.raises(ValueError):
+        tntt4.ntt_tile(tgl.zeros((2, 2, 4)), tw, False, interleave=4, pre=tgl.zeros((8, 4)))
+    assert tntt4.LAUNCHES == 0 and not tntt4.LAUNCHES_BY_SHAPE  # the CPU path launches no kernel
+
+
+@pytest.mark.parametrize("option", ["transposed", "interleave", "pre"])
+@pytest.mark.parametrize("n", [2, 16, 256])
+def test_tile_options_match_the_copies_they_replace(n, option):
+    """Each layout option of the tile kernel's plain version equals the old
+    plain stages with the copy it folds in done explicitly: a transpose after
+    the stages, a zero buffer holding row r at row r*f before them, a
+    multiply before them."""
+    B, lanes = 2, 5
+    f = min(8, n // 2)
+    for dif in ([True, False] if option != "interleave" else [False]):
+        tw = tntt4.tile_twiddles(n, dif, "cpu")
+        ep = tgl.from_u64(_rand((n, lanes), 21))
+        if option == "transposed":
+            x = tgl.from_u64(_rand((B, n, lanes), 22))
+            got = tntt4.ntt_tile(x, tw, dif, ep, transposed=True)
+            want = tntt4.ntt_tile_plain(x, tw, dif, ep).transpose(1, 2)
+        elif option == "interleave":
+            x = tgl.from_u64(_rand((B, n // f, lanes), 23))
+            z = torch.zeros((B, n // f, f, lanes), dtype=torch.int64)
+            z[:, :, 0] = x
+            got = tntt4.ntt_tile(x, tw, dif, ep, interleave=f, transposed=True)
+            want = tntt4.ntt_tile_plain(z.reshape(B, n, lanes), tw, dif, ep).transpose(1, 2)
+        else:
+            x = tgl.from_u64(_rand((B, n, lanes), 24))
+            pre = tgl.from_u64(_rand((n, lanes), 25))
+            got = tntt4.ntt_tile(x, tw, dif, ep, pre=pre)
+            want = tntt4.ntt_tile_plain(tgl.mul(x, pre.unsqueeze(0)), tw, dif, ep)
+        assert got.is_contiguous() and torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------

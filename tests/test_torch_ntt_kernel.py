@@ -2,11 +2,13 @@
 starkpack_winterfell_tpu_torch against ops/pallas/ntt_kernel.py of the JAX
 package.
 
-On the CPU the wrappers ``dit_axis0`` / ``dit_axis1`` take the kernels' plain
+On the CPU the wrappers ``ntt_last`` / ``dit_axis1`` take the kernels' plain
 versions, which are held here against the Pallas kernels they replace, run in
-interpret mode on the same bit-reversed rows; the three entry points are held
-against the JAX entry points (interpret mode) and against the numpy radix-2
-NTT.  Exact arithmetic: tolerance 0."""
+interpret mode on the same rows (``ntt_last`` reads natural-order rows along
+the last axis, the Pallas axis-0 kernel bit-reversed rows along axis 0); the
+entry points are held against the JAX entry points (interpret mode) and
+against the numpy radix-2 NTT, ``ntt_last_plain`` also against the port's
+own radix-2 stages.  Exact arithmetic: tolerance 0."""
 
 import numpy as np
 import pytest
@@ -17,6 +19,9 @@ from starkpack_winterfell_tpu.ops.pallas import ntt_kernel as jk
 
 from starkpack_winterfell_tpu_torch.ops import gl64 as tgl, ntt as tntt, ntt_kernel as tk
 from starkpack_winterfell_tpu_torch.ops.ntt4 import tile_twiddles
+from starkpack_winterfell_tpu_torch.prover import device_big
+
+import _torch_one_thread  # noqa: F401  (one torch thread a test worker)
 
 P = tgl.P
 # (n, lanes, inverse): n = 4, 64, 1024 with 3 and 130 lanes, forward and
@@ -63,13 +68,17 @@ def _pad_lanes(x):
 
 @pytest.mark.parametrize("n,lanes,inverse", CASES)
 def test_dit_axis0_plain_matches_pallas_interpret(n, lanes, inverse):
-    x = _rand((n, lanes), 11)  # rows taken as already bit-reversed by both
+    """The Pallas axis-0 kernel on bit-reversed rows x (n, lanes) against
+    ``ntt_last`` on the same numbers laid out as the port's callers hold
+    them: one natural-order row per lane."""
+    x = _rand((n, lanes), 11)
     xp = _pad_lanes(x)
     tw = jk._per_position_twiddles(n, inverse)
     call = jk._build_call(n, xp.shape[1], inverse, True)
     want = _ju64(call(tw[0], tw[1], *jgl.from_u64(xp)))[:, :lanes]
-    got = tk.dit_axis0(tgl.from_u64(x), tile_twiddles(n, inverse, "cpu"))
-    assert np.array_equal(tgl.to_u64(got), want)
+    natural = np.ascontiguousarray(x[jntt._bit_rev_perm(n)].T)  # (lanes, n)
+    got = tk.ntt_last(tgl.from_u64(natural), tile_twiddles(n, inverse, "cpu"))
+    assert np.array_equal(tgl.to_u64(got).T, want)
 
 
 @pytest.mark.parametrize("n,lanes,inverse,pre", [
@@ -96,11 +105,17 @@ def test_wrappers_check_their_arguments():
     with pytest.raises(ValueError):
         tk.dit_axis1(x[0], tw)  # not (B, n, lanes)
     with pytest.raises(ValueError):
-        tk.dit_axis0(x, tw)  # not (n, lanes)
+        tk.ntt_last(x, tw)  # not (rows, n)
     with pytest.raises(ValueError):
-        tk.dit_axis0(tgl.zeros((6, 4)), tw)  # n not a power of two
+        tk.ntt_last(tgl.zeros((4, 6)), tw)  # n not a power of two
     with pytest.raises(ValueError):
-        tk.dit_axis0(tgl.zeros((8192, 1)), tile_twiddles(8192, False, "cpu"))
+        tk.ntt_last(tgl.zeros((1, 8192)), tile_twiddles(8192, False, "cpu"))
+    with pytest.raises(ValueError):
+        tk.ntt_last(tgl.zeros((4, 16)), tw, 8)  # rows longer than the transform
+    with pytest.raises(ValueError):
+        tk.ntt_last(tgl.zeros((4, 4)), tw, 8, pre=tgl.zeros((8,)))  # pre shape
+    with pytest.raises(TypeError):
+        tk.ntt_last(tgl.zeros((4, 8)).to(torch.int32), tw)
     with pytest.raises(TypeError):
         tk.dit_axis1(x.to(torch.int32), tw)
     with pytest.raises(ValueError):
@@ -120,6 +135,9 @@ def test_block_shape_fits_the_shared_memory_and_the_lanes():
             assert n * lg <= tk.TILE_WORDS
             assert lg < 2 * lanes  # no block wider than the next power of two
             assert 32 <= threads <= 1024
+            log_rb, threads = tk._last_block_shape(n, lanes)
+            assert (n << log_rb) <= max(n, tk.TARGET_TILE_WORDS)
+            assert 32 <= threads <= tk.LAST_THREADS
 
 
 # ---------------------------------------------------------------------------
@@ -131,8 +149,8 @@ def test_block_shape_fits_the_shared_memory_and_the_lanes():
 def test_ntt_axis0_and_batched_match_reference(n, lanes, inverse):
     x = _rand((n, lanes), 14)
     want = _ju64(jk.pallas_ntt_axis0((_jpair(x),), inverse)[0])
-    got = tk.ntt_axis0((tgl.from_u64(x),), inverse)[0]
-    assert np.array_equal(tgl.to_u64(got), want)
+    got = tk.ntt_batched((tgl.from_u64(np.ascontiguousarray(x.T)),), inverse)[0]
+    assert np.array_equal(tgl.to_u64(got).T, want)
 
     cols = np.ascontiguousarray(x.T).reshape(lanes, 1, n)  # (..., n)
     want_b = _ju64(jk.pallas_ntt_batched((_jpair(cols),), inverse)[0])
@@ -149,6 +167,61 @@ def test_unscaled_inverse_matches_reference():
     want = jntt.ntt_components((jgl.from_u64(x),), inverse=True, scale=False)[0]
     got = tk.ntt_batched((tgl.from_u64(x),), inverse=True, scale=False)[0]
     assert np.array_equal(tgl.to_u64(got), jgl.to_u64(want))
+
+
+@pytest.mark.parametrize("scaled", [True, False], ids=["scaled", "unscaled"])
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("n", [2, 4, 64, 1024])
+def test_ntt_last_plain_matches_radix2_stages(n, inverse, scaled):
+    """``ntt_last_plain`` (the kernel's plain version) against the port's
+    own eager radix-2 stages of ops/ntt.py, the inverse scaled by 1/n in the
+    launch or not at all."""
+    x = tgl.from_u64(_rand((3, n), 19))
+    scale = pow(n, P - 2, P) if scaled else None
+    got = tk.ntt_last_plain(x, tile_twiddles(n, inverse, "cpu"), scale=scale)
+    want = tntt.ntt_components((x,), inverse, scale=False)[0]
+    if scaled:
+        want = tgl.mul(want, tgl.from_int(scale, ()))
+    assert torch.equal(got, want)
+
+
+def test_zero_padded_rows_with_pre_match_the_coset_lde():
+    """One ``ntt_last`` call with the offset powers as its pre-multiply and
+    rows zero-padded to the blowup equals evaluate_poly_with_offset's eager
+    multiply, padding and transform (the route a CUDA tensor takes)."""
+    n, blowup, offset = 8, 8, 7
+    x = tgl.from_u64(_rand((25, n), 20))
+    got = tk.ntt_batched((x,), n=n * blowup, pre=tntt.power_series(offset, n))[0]
+    want = tntt.evaluate_poly_with_offset((x,), offset, blowup)[0]
+    assert got.shape == (25, n * blowup) and torch.equal(got, want)
+
+
+def test_ntt_batched_reads_a_transposed_view():
+    """The FRI fold hands ``ntt_batched`` the transposed view of its layer's
+    evaluations, which the kernel reads through its strides: the result is
+    that of the same rows made contiguous."""
+    view = tgl.from_u64(_rand((4, 300), 21)).T  # (300, 4), strides (1, 300)
+    got = tk.ntt_batched((view,), inverse=True)[0]
+    want = tk.ntt_batched((view.contiguous(),), inverse=True)[0]
+    assert got.is_contiguous() and torch.equal(got, want)
+
+
+def test_batched_periodic_columns_equal_the_per_column_ones():
+    """device_big evaluates all periodic columns of one length in one call;
+    each equals the column evaluated on its own."""
+    from starkpack_winterfell_tpu_torch import FieldExtension, ProofOptions, TraceInfo
+    from starkpack_winterfell_tpu_torch.models.rescue_chain import ChainInputs, RescueChainAir
+
+    air = RescueChainAir(TraceInfo(12, 1 << 14), ChainInputs([1] * 8, [2] * 4),
+                         ProofOptions(28, 8, 16, FieldExtension.NONE, 4, 31))
+    cols = device_big._small_periodic_columns(air, "cpu")
+    polys = air.get_periodic_column_polys()
+    assert len(cols) == len(polys) == 25
+    for col, poly in zip(cols, polys):
+        offset = pow(air.domain_offset(), air.trace_length() // len(poly), P)
+        one = tntt.evaluate_poly_with_offset(
+            (tgl.from_u64(np.array(poly, dtype=np.uint64)),), offset, air.ce_blowup_factor())[0]
+        assert torch.equal(col, one)
 
 
 @pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])

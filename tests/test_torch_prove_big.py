@@ -9,6 +9,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import starkpack_winterfell_tpu as J
 from starkpack_winterfell_tpu.models import rescue_chain as jrc
@@ -17,6 +18,8 @@ import starkpack_winterfell_tpu_torch as T
 from starkpack_winterfell_tpu_torch.models import rescue_chain as trc
 from starkpack_winterfell_tpu_torch.prover import device_big
 from starkpack_winterfell_tpu_torch.utils.convert import trace_from_u64_columns
+
+import _torch_one_thread  # noqa: F401  (one torch thread a test worker)
 
 ROWS = 1 << 14
 BENCH = (28, 8, 16, 1, 4, 31)

@@ -9,6 +9,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import starkpack_winterfell_tpu as J
 from starkpack_winterfell_tpu.models import fib_multifield as jfib
@@ -19,6 +20,8 @@ from starkpack_winterfell_tpu_torch.models import fib_multifield as tfib
 from starkpack_winterfell_tpu_torch.models import rescue128_chain as tr
 from starkpack_winterfell_tpu_torch.parallel import streamed
 from starkpack_winterfell_tpu_torch.prover.trace import TraceTable
+
+import _torch_one_thread  # noqa: F401  (one torch thread a test worker)
 
 BENCH = (28, 8, 16, 1, 4, 31)
 CHEAP = (8, 8, 0, 1, 4, 31)

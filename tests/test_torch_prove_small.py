@@ -13,6 +13,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import starkpack_winterfell_tpu as J
 from starkpack_winterfell_tpu.crypto.hashers import get_hasher as jget_hasher
@@ -27,6 +28,8 @@ from starkpack_winterfell_tpu_torch.ops import gl64 as tgl
 from starkpack_winterfell_tpu_torch.prover import device as tdevice
 from starkpack_winterfell_tpu_torch.prover.domain import StarkDomain as TStarkDomain
 from starkpack_winterfell_tpu_torch.utils.convert import trace_from_u64_columns
+
+import _torch_one_thread  # noqa: F401  (one torch thread a test worker)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_PIN = os.path.join(os.path.dirname(T.__file__), "golden", "do_work_2x64.sha256")
