@@ -3,19 +3,27 @@
 
     python3 chip_smoke.py [--seed N]
 
-Drives the port's three main paths through the entry points a user calls,
-all with BLAKE3-256 and ProofOptions(28, 8, 16, NONE, 4, 31):
+Drives the port's main paths through the entry points a user calls, all
+with ProofOptions(28, 8, 16, NONE, 4, 31) and BLAKE3-256 unless named:
 
 * the f64 big-trace path: a Rescue hash-chain STARK of 2^20 rows x 12
   columns, beside it a 2^14-row prove with a pinned digest and an aggregated
   prove of 4 x 2^16 rows;
-* the f128 limb-field path: a Rescue128 hash-chain STARK of 2^20 rows x 6
-  columns of 16-byte elements, beside it a 2^12-row prove with a pinned
-  digest and an aggregated prove of 4 x 2^14 rows;
+* the f128 limb-field path: a Rescue128 hash-chain STARK of 2^18 rows x 6
+  columns of 16-byte elements (cut from 2^20 rows, whose f128 shapes the
+  1024-signature Lamport+ prove runs, to spare most of the chain's serial
+  host trace build), beside it a 2^12-row prove with a pinned digest and an
+  aggregated prove of 4 x 2^14 rows;
 * the f64 small-trace path (every transform through the DIT kernels):
   do-work 32 x 1024 rows x 10 columns and a Rescue hash chain of 64
   instances x 2^13 rows x 12 columns, beside them do-work 2 x 64 with
-  ProofOptions(16, 8, 0, NONE, 4, 31) and a pinned digest.
+  ProofOptions(16, 8, 0, NONE, 4, 31) and a pinned digest;
+* aggregated Lamport+ signatures over f128 on the limb path, BLAKE3-192:
+  1024 signatures of 127-bit messages in ONE trace of 2^20 rows x 14
+  columns (the per-signature outputs bound by sequence assertions, read by
+  the constraint kernel as tables), beside it 64 signatures (2^16 rows), 4
+  signatures at k = 15 (512 rows) with a pinned digest, and 4 StarkPack
+  instances of one signature each (lamport128, 1024 rows) with SHA3-256.
 
 Builds the CUDA kernels from ``csrc/`` (one nvcc per library, all started
 together) and holds each against its plain PyTorch version on the card at
@@ -28,8 +36,10 @@ a first prove of each size, compared, and then required of the counted
 prove.  Every proof is checked with the port's verifier.  Each phase
 (device, build, kernels, dit_kernels, small, main, aggregated,
 small_trace_golden, small_trace_main_do_work, small_trace_main_rescue,
-limb_small, limb_fib, limb_fib62, limb_main, limb_aggregated) prints one
-JSON line as it ends; any failure raises and the run exits non-zero.  The
+limb_small, limb_fib, limb_fib62, limb_main, limb_aggregated,
+lamport_agg_golden, lamport_agg_64, lamport_agg_main, lamport128_aggregated)
+prints one JSON line as it ends; any failure raises and the run exits
+non-zero.  The
 last two lines are the per-kernel table and the ``{"ok": ...}`` summary.
 
 Needs a CUDA device (exits non-zero without one) and no network.
@@ -40,9 +50,11 @@ from __future__ import annotations
 import argparse
 import collections
 import concurrent.futures
+import contextlib
 import hashlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -52,9 +64,11 @@ import numpy as np
 import torch
 
 from starkpack_winterfell_tpu_torch import (
+    Blake3_192,
     Blake3_256,
     FieldExtension,
     ProofOptions,
+    Sha3_256,
     VerifierError,
     verify,
 )
@@ -65,6 +79,8 @@ from starkpack_winterfell_tpu_torch.models.do_work import (
     PublicInputs as DoWorkInputs,
     build_do_work_trace,
 )
+from starkpack_winterfell_tpu_torch.models import lamport128 as lam
+from starkpack_winterfell_tpu_torch.models import lamport128_agg as lagg
 from starkpack_winterfell_tpu_torch.models.fib_multifield import get_fib_family
 from starkpack_winterfell_tpu_torch.models.rescue128_chain import (
     Rescue128ChainAir,
@@ -84,9 +100,10 @@ from starkpack_winterfell_tpu_torch.ops import limb_ntt
 from starkpack_winterfell_tpu_torch.ops import ntt4
 from starkpack_winterfell_tpu_torch.ops import ntt_kernel
 from starkpack_winterfell_tpu_torch.ops.backend import get_backend
+from starkpack_winterfell_tpu_torch.parallel import full_pipeline
 from starkpack_winterfell_tpu_torch.parallel.full_pipeline import plan_groups
 
-from kernel_times import device_kernel_ms, timed_prove
+from kernel_times import ProfilerDroppedRecords, device_kernel_ms, timed_prove
 
 BENCH_OPTIONS = (28, 8, 16, FieldExtension.NONE, 4, 31)
 BLOWUP = 8
@@ -97,12 +114,17 @@ PATHS = {"small": (14, 1), "main": (20, 1), "aggregated": (16, 4)}
 # the limb-field proves (limb_fib, limb_fib62: the cheap second AIR over
 # f128 and over f62): name -> (log2 of the rows, instances)
 LIMB_PATHS = {"limb_small": (12, 1), "limb_fib": (9, 2), "limb_fib62": (9, 2),
-              "limb_main": (20, 1), "limb_aggregated": (14, 4)}
+              "limb_main": (18, 1), "limb_aggregated": (14, 4)}
 LIMB_WIDTH = 6
 # the small-trace proves: name -> (log2 of the rows, instances)
 SMALL_TRACE_PATHS = {"small_trace_golden": (6, 2), "small_trace_main_do_work": (10, 32),
                      "small_trace_main_rescue": (13, 64)}
 GOLDEN_OPTIONS = (16, 8, 0, FieldExtension.NONE, 4, 31)
+# the Lamport+ proves: name -> (signatures, message bits k); a signature is
+# 8 * (k + 1) rows.  lamport128_aggregated: that many StarkPack instances of
+# one signature each
+LAMPORT_PATHS = {"lamport_agg_golden": (4, 15), "lamport_agg_64": (64, 127),
+                 "lamport_agg_main": (1024, 127), "lamport128_aggregated": (4, 127)}
 
 # NVIDIA H100 SXM: HBM bandwidth from the data sheet; 32-bit integer rate
 # from 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock, one operation per
@@ -134,10 +156,19 @@ GOLDEN_SMALL_TRACE = os.path.join(
     os.path.dirname(os.path.abspath(__file__)),
     "starkpack_winterfell_tpu_torch", "golden", "do_work_2x64.sha256",
 )
+GOLDEN_LAMPORT = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)),
+    "starkpack_winterfell_tpu_torch", "golden", "lamport_agg_4x512_b192.sha256",
+)
+
+
+START = time.perf_counter()
 
 
 def emit(phase: str, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line; ``at_s``: seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields, "at_s": time.perf_counter() - START}),
+          flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -207,6 +238,30 @@ def time_cuda(fn, reps: int):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_timing(fn, match, bound_ms, wrapper_module):
+    """The timing keys of a kernel's row: ``call_ms``, CUDA events around one
+    call of ``fn`` (host work of the wrapper included), during which the
+    wrapper's launch count (``wrapper_module.LAUNCHES``) must show a launch
+    every call; ``device_ms``, the device time of the kernels named by
+    ``match`` in one call (profiler, ``device_kernel_ms``); ``bound_share``.
+    Where the profiler lost the records of too many calls in every session,
+    ``device_ms`` and ``bound_share`` are null and ``ms`` is the call's time
+    (``ms_source``)."""
+    before = wrapper_module.LAUNCHES
+    call_ms = time_cuda(fn, 7)
+    launched = wrapper_module.LAUNCHES - before
+    if launched < 8:
+        raise RuntimeError(f"{match}: {launched} launches counted in 8 calls")
+    try:
+        device_ms = device_kernel_ms(fn, match, sessions=6)
+    except ProfilerDroppedRecords as e:
+        print(f"chip_smoke: {e}; ms is the call's time", file=sys.stderr, flush=True)
+        return {"ms": call_ms, "ms_source": "call", "device_ms": None,
+                "call_ms": call_ms, "bound_share": None}
+    return {"ms": device_ms, "ms_source": "device", "device_ms": device_ms,
+            "call_ms": call_ms, "bound_share": bound_ms / device_ms}
 
 
 def tile_bound(dif: bool, B: int, n: int, lanes: int, epilogue: bool,
@@ -286,10 +341,10 @@ def phase_kernels(rng, device):
         if key in used:
             err = float((got - want).abs().max())
             del got, want
-            device_ms = device_kernel_ms(lambda: ntt4.ntt_tile(*args), "ntt_tile_kernel")
-            call_ms = time_cuda(lambda: ntt4.ntt_tile(*args), 7)
-            plain_ms = time_cuda(lambda: ntt4.ntt_tile_plain(*args), 2)
             bound_ms, bound_by = tile_bound(*key)
+            timing = kernel_timing(lambda: ntt4.ntt_tile(*args), "ntt_tile_kernel", bound_ms,
+                                   ntt4)
+            plain_ms = time_cuda(lambda: ntt4.ntt_tile_plain(*args), 2)
             rows[key] = {
                 "name": tile_name(key),
                 "route": "cuda",
@@ -299,13 +354,10 @@ def phase_kernels(rng, device):
                 "launches": 0,
                 "launches_by_path": {},
                 "max_abs_err": err,
-                "ms": device_ms,
-                "device_ms": device_ms,
-                "call_ms": call_ms,
+                **timing,
                 "plain_ms": plain_ms,
                 "bound_ms": bound_ms,
                 "bound_by": bound_by,
-                "bound_share": bound_ms / device_ms,
                 "library_ms": None,
             }
         del args
@@ -386,8 +438,7 @@ def compare_dit(key, rng, device, used_by):
         replaces = "starkpack_winterfell_tpu/ops/pallas/ntt_kernel.py:224"
         match = "ntt_dit_axis1_kernel"
         bound_ms, bound_by = tile_bound(False, B, n, lanes, has_pre)
-    device_ms = device_kernel_ms(lambda: fn(*args), match)
-    call_ms = time_cuda(lambda: fn(*args), 7)
+    timing = kernel_timing(lambda: fn(*args), match, bound_ms, ntt_kernel)
     plain_ms = time_cuda(lambda: plain(*args), 1)
     del args
     torch.cuda.empty_cache()
@@ -396,9 +447,9 @@ def compare_dit(key, rng, device, used_by):
         "source": "starkpack_winterfell_tpu_torch/csrc/ntt_dit.cu",
         "replaces": replaces,
         "used_by": [used_by], "launches": 0, "launches_by_path": {},
-        "max_abs_err": err, "ms": device_ms, "device_ms": device_ms, "call_ms": call_ms,
+        "max_abs_err": err, **timing,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "bound_share": bound_ms / device_ms, "library_ms": None,
+        "library_ms": None,
     }
 
 
@@ -435,13 +486,43 @@ def phase_dit_kernels(rng, device):
 # ---------------------------------------------------------------------------
 
 
+@contextlib.contextmanager
+def table_build_launches():
+    """Counts by shape (``observed_counts`` keys) of the launches made while
+    the limb pipeline builds its per-config tables (``full_pipeline._cached``:
+    offsets, divisor and periodic tables), which a later prove of the same
+    config finds built and does not launch again."""
+    built = collections.Counter()
+    cached, depth = full_pipeline._cached, [0]
+
+    def counting(key, make):
+        if depth[0] or key in full_pipeline._TABLE_CACHE:
+            return cached(key, make)
+        before = observed_counts()
+        depth[0] += 1
+        try:
+            return cached(key, make)
+        finally:
+            depth[0] -= 1
+            for k, v in observed_counts().items():
+                built[k] += v - before.get(k, 0)
+
+    full_pipeline._cached = counting
+    try:
+        yield built
+    finally:
+        full_pipeline._cached = cached
+
+
 def first_prove(path, prover, traces, kernel_rows, rng, device, airs=None):
     """A first prove of a size shows which shapes of the kernels whose
     shapes are not known in advance (the DIT and the limb kernels) the path
     launches; each shape not yet in the table is held against its plain
-    version.  Returns (proof, seconds, seen counts, rows of the new shapes)."""
+    version.  Returns (proof, seconds, the counts a steady prove must show:
+    the first prove's less its table builds, rows of the new shapes)."""
     reset_observed_counts()
-    proof, seconds, _ = timed_prove(prover, traces)
+    with table_build_launches() as built:
+        proof, seconds, _ = timed_prove(prover, traces)
     seen = observed_counts()
     new_rows = {}
     for key in seen:
@@ -453,13 +534,15 @@ def first_prove(path, prover, traces, kernel_rows, rng, device, airs=None):
             new_rows[key] = compare_limb_tile(key[1:], rng, device, path)
         else:
             new_rows[key] = compare_cons(key[1:], airs[key[1:3]], rng, device, path)
-    return proof, seconds, seen, new_rows
+    steady = {k: v - built[k] for k, v in seen.items() if v > built[k]}
+    return proof, seconds, steady, new_rows
 
 
 def record_observed(path, seen, new_rows, kernel_rows, required):
     """Reads the counts just after a counted prove: it must have launched
     every kind of kernel in ``required``, only compared shapes, and each as
-    often as the first prove did.  The counts go into the table."""
+    often as ``seen`` (the first prove's counts less its table builds) says.
+    The counts go into the table."""
     counted = observed_counts()
     kinds = {k[0] for k in counted}
     if not set(required) <= kinds or any(seen.get(k) != v for k, v in counted.items()):
@@ -588,12 +671,18 @@ def limb_air_config(air0):
 
 
 def smoke_airs():
-    """One AIR object per constraint kernel the limb phases launch."""
+    """One AIR object per constraint kernel the limb phases launch (the
+    emitted body depends on the AIR class and which assertions are
+    sequences, not on the sizes: 4 signatures stand for any number)."""
     options = ProofOptions(*BENCH_OPTIONS)
     airs = {("f128", "Rescue128ChainAir"): Rescue128ChainAir(
         TraceInfo(LIMB_WIDTH, 64), Rescue128ChainInputs([1, 2], [3, 4]), options)}
     for field, fam in FIB.items():
         airs[(field, "FibAirF")] = fam[0](TraceInfo(2, 64), fam[3](5), options)
+    airs[("f128", "Lamport128AggAir")] = lagg.Lamport128AggAir(
+        TraceInfo(lam.TRACE_WIDTH, 512), lagg.LamportAggInputs([1] * 4, [[1, 2]] * 4), options)
+    airs[("f128", "Lamport128Air")] = lam.Lamport128Air(
+        TraceInfo(lam.TRACE_WIDTH, 128), lam.Lamport128Inputs(1, [1, 2]), options)
     return airs
 
 
@@ -651,11 +740,10 @@ def compare_limb_tile(key, rng, device, used_by):
     x = random_limb(field, (B, n, lanes), rng, device)
     pt = random_limb(field, (n, lanes), rng, device) if has_pre else None
     tw = limb_ntt.tile_twiddles(F, n, inverse, device)
-    device_ms = device_kernel_ms(lambda: limb_ntt._tile_launch(F, x, tw, pt, inverse),
-                                 "limb_ntt_tile_kernel")
-    call_ms = time_cuda(lambda: limb_ntt._tile_launch(F, x, tw, pt, inverse), 7)
-    plain_ms = time_cuda(lambda: limb_ntt.tile_plain(F, x, tw, pt), 1)
     bound_ms, bound_by = limb_tile_bound(field, n, B, lanes, has_pre)
+    timing = kernel_timing(lambda: limb_ntt._tile_launch(F, x, tw, pt, inverse),
+                           "limb_ntt_tile_kernel", bound_ms, limb_ntt)
+    plain_ms = time_cuda(lambda: limb_ntt.tile_plain(F, x, tw, pt), 1)
     torch.cuda.empty_cache()
     return {
         "name": f"limb_ntt_tile[{field} {'inverse' if inverse else 'forward'} B={B} n={n} "
@@ -664,30 +752,55 @@ def compare_limb_tile(key, rng, device, used_by):
         "source": "starkpack_winterfell_tpu_torch/csrc/limb_ntt_tile.cu",
         "replaces": "starkpack_winterfell_tpu/ops/pallas/limb_kernel.py:151",
         "used_by": [used_by], "launches": 0, "launches_by_path": {},
-        "max_abs_err": err, "ms": device_ms, "device_ms": device_ms, "call_ms": call_ms,
+        "max_abs_err": err, **timing,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "bound_share": bound_ms / device_ms, "library_ms": None,
+        "library_ms": None,
     }
 
 
+def ptxas_report(lib_name: str):
+    """nvcc seconds and ptxas's registers, spills and stack frame of each
+    kernel of a library this process built (``native.BUILD_LOGS``)."""
+    if lib_name not in native.BUILD_LOGS:
+        return None
+    seconds, log = native.BUILD_LOGS[lib_name]
+    kernels, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            current = kernels.setdefault(m.group(1), {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and current is not None:
+            current.update(stack_frame_bytes=int(m.group(1)),
+                           spill_store_bytes=int(m.group(2)),
+                           spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current is not None:
+            current["registers"] = int(m.group(1))
+    return {"nvcc_s": seconds, "kernels": kernels}
+
+
 def compare_cons(key, air0, rng, device, used_by):
-    """Kernel 5 at one launched shape (AIR, n, w, ce) on random inputs:
-    kernel against ``constraint_eval_plain``, then its time."""
-    field, air_name, n, w, ce = key
+    """Kernel 5 at one launched shape (AIR, n, w, ce, sequence tables) on
+    random inputs: kernel against ``constraint_eval_plain``, then its time."""
+    field, air_name, n, w, ce, n_seq = key
     B = get_backend(field)
     cost, el_bytes = OPS_LIMB[field], B.ELEMENT_BYTES
     w_air, n_per, K, groups = limb_air_config(air0)
-    assert w_air == w
+    assert w_air == w and cons_kernel.seq_count(groups) == n_seq
     shift = BLOWUP // air0.ce_blowup_factor()
     L = ce * shift
     n_ccs = sum(len(g) for g in groups)
     rows = (random_limb(field, (n, w, L), rng, device),)
-    period = 8 * air0.ce_blowup_factor()
-    pers = [random_limb(field, (period,), rng, device) for _ in range(n_per)]
+    # one period of each periodic column over the ce domain, at its own period
+    periods = [len(c) * air0.ce_blowup_factor() for c in air0.get_periodic_column_values()]
+    pers = [random_limb(field, (p,), rng, device) for p in periods]
     divs = [random_limb(field, (ce,), rng, device) for _ in range(1 + len(groups))]
-    scal = torch.stack(random_limb(field, (n, K + 2 * n_ccs + 1), rng, device),
+    seqs = [random_limb(field, (n, ce), rng, device) for _ in range(n_seq)]
+    scal = torch.stack(random_limb(field, (n, K + 2 * n_ccs - n_seq + 1), rng, device),
                        dim=-1).contiguous()
-    args = (B, air0, groups, K, shift, BLOWUP, rows, pers, divs, scal)
+    args = (B, air0, groups, K, shift, BLOWUP, rows, pers, divs, scal, seqs)
     got = cons_kernel.constraint_eval(*args)[0]
     want = cons_kernel.constraint_eval_plain(*args)[0]
     torch.cuda.synchronize()
@@ -697,9 +810,6 @@ def compare_cons(key, air0, rng, device, used_by):
                            f"version in {mism} words at {key}")
     err = max(float((g - x).abs().max()) for g, x in zip(got, want))
     del got, want
-    device_ms = device_kernel_ms(lambda: cons_kernel.constraint_eval(*args), "cons_eval_kernel")
-    call_ms = time_cuda(lambda: cons_kernel.constraint_eval(*args), 7)
-    plain_ms = time_cuda(lambda: cons_kernel.constraint_eval_plain(*args), 1)
     # bound: every input read once, the output written once; the recorded
     # transition plus the frame's operations per point and instance
     counts = cons_kernel.count_ops(cons_kernel.record_transition(air0, w, n_per, K)[0])
@@ -708,28 +818,36 @@ def compare_cons(key, air0, rng, device, used_by):
     sub = counts["sub"] + counts["neg"] + n_ccs
     ops = n * ce * (mul * cost["mul"] + counts["sqr"] * cost["sqr"]
                     + add * cost["add"] + sub * cost["sub"])
-    nbytes = (el_bytes * (n * w * L + n_per * period + (1 + len(groups)) * ce + ce)
+    nbytes = (el_bytes * (n * w * L + sum(periods) + (1 + len(groups)) * ce
+                          + n_seq * n * ce + ce)
               + 8 * scal.numel())
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_INT32_OPS_PER_S * 1e3
     bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    _, path = cons_kernel.kernel_source(air0, w, n_per, K, groups)
-    del rows, pers, divs
+    timing = kernel_timing(lambda: cons_kernel.constraint_eval(*args), "cons_eval_kernel",
+                           bound_ms, cons_kernel)
+    plain_ms = time_cuda(lambda: cons_kernel.constraint_eval_plain(*args), 1)
+    lib_name, path = cons_kernel.kernel_source(air0, w, n_per, K, groups)
+    del rows, pers, divs, seqs, args
     torch.cuda.empty_cache()
-    return {
-        "name": f"cons_eval[{field} {air_name} n={n} w={w} ce={ce}]",
+    row = {
+        "name": f"cons_eval[{field} {air_name} n={n} w={w} ce={ce}"
+                f"{f' seq={n_seq}' if n_seq else ''}]",
         "route": "cuda",
         "source": "starkpack_winterfell_tpu_torch/csrc/cons_frame.cuh + "
                   "ops/cons_kernel.py emit_cuda",
         "emitted_source": os.path.relpath(path, os.path.dirname(os.path.abspath(__file__))),
         "emitted_lines": open(path).read().count("\n"),
         "field_ops_per_point": {"mul": mul, "sqr": counts["sqr"], "add": add, "sub": sub},
+        "sequence_table_bytes": el_bytes * n_seq * n * ce,
+        "ptxas": ptxas_report(lib_name),
         "replaces": "starkpack_winterfell_tpu/ops/pallas/cons_kernel.py:137",
         "used_by": [used_by], "launches": 0, "launches_by_path": {},
-        "max_abs_err": err, "ms": device_ms, "device_ms": device_ms, "call_ms": call_ms,
+        "max_abs_err": err, **timing,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "bound_share": bound_ms / device_ms, "library_ms": None,
+        "library_ms": None,
     }
+    return row
 
 
 def observed_counts():
@@ -749,19 +867,23 @@ def reset_observed_counts():
 
 
 def observed_phase(path, prover, air_class, traces, kernel_rows, rng, device,
-                   required, airs=None, golden=None, tamper=None):
+                   required, airs=None, golden=None, tampers=(), **extra):
     """One size of a path whose kernel shapes are read off a first prove
     (``first_prove``): each new shape is held against its plain version;
     then the counted prove must launch every kind of kernel in ``required``,
-    only compared shapes, each as often as the first prove did.  (The first
-    prove of a limb config also builds its periodic and divisor tables,
-    which later proves find cached: those shapes are compared too, and named
-    ``first_prove_only`` in the phase's line.)"""
+    only compared shapes, each as often as the first prove did less the
+    launches of its table builds.  (The first prove of a limb config also
+    builds its periodic and divisor tables, which later proves find cached:
+    those shapes are compared too, and a shape launched by them alone is
+    named ``first_prove_only`` in the phase's line.)  ``tampers``: (name,
+    function of the public inputs) pairs, each of whose results the verifier
+    must reject; ``extra`` goes into the phase's line."""
     n = len(traces)
+    hasher = prover.hasher
     pub = [prover.get_pub_inputs(t) for t in traces]
     first_proof, first_s, seen, new_rows = first_prove(
         path, prover, traces, kernel_rows, rng, device, airs)
-    verify(air_class, first_proof, pub, Blake3_256)
+    verify(air_class, first_proof, pub, hasher)
     del first_proof
 
     reset_observed_counts()
@@ -776,9 +898,9 @@ def observed_phase(path, prover, air_class, traces, kernel_rows, rng, device,
     if parsed.to_bytes() != data:
         raise RuntimeError("proof serialization round trip failed")
     t0 = time.perf_counter()
-    verify(air_class, parsed, pub, Blake3_256)
+    verify(air_class, parsed, pub, hasher)
     verify_s = time.perf_counter() - t0
-    fields = {}
+    fields = dict(extra)
     if golden is not None:
         digest = hashlib.sha256(data).hexdigest()
         with open(golden) as f:
@@ -786,17 +908,17 @@ def observed_phase(path, prover, air_class, traces, kernel_rows, rng, device,
         if digest != pinned:
             raise RuntimeError(f"{path} proof digest {digest} differs from pinned {pinned}")
         fields.update(sha256=digest, matches_pinned=True)
-    if tamper is not None:
+    for name, tamper in tampers:
         try:
-            verify(air_class, proof.from_bytes(data), tamper(pub), Blake3_256)
+            verify(air_class, proof.from_bytes(data), tamper(pub), hasher)
         except VerifierError as e:
-            fields["tampered_rejected"] = str(e)
+            fields.setdefault("tampered_rejected", {})[name] = str(e)
         else:
-            raise RuntimeError("a tampered public input was accepted")
+            raise RuntimeError(f"a tampered public input ({name}) was accepted")
     el_bytes = traces[0].spec.ELEMENT_BYTES
     lde_bytes = n * traces[0].width * (traces[0].length * BLOWUP) * el_bytes
     emit(path, rows=traces[0].length, columns=traces[0].width, n=n,
-         field=traces[0].field,
+         field=traces[0].field, hasher=hasher.NAME,
          first_prove_s=first_s, steady_prove_s=seconds,
          phases_ms={name: ms for name, ms in phases},
          shapes_compared=len(new_rows), mismatching_words=0,
@@ -842,7 +964,7 @@ def limb_phases(kernel_rows, rng, device):
     trace = build_rescue128_chain_trace([7, 9], rows // 8)
     emit("limb_trace", rows=rows, trace_build_s=time.perf_counter() - t0)
     observed_phase("limb_main", prover, Rescue128ChainAir, [trace],
-                   kernel_rows, rng, device, both, airs, tamper=tamper_seed)
+                   kernel_rows, rng, device, both, airs, tampers=[("seed", tamper_seed)])
     del trace
 
     log2_rows, n = LIMB_PATHS["limb_aggregated"]
@@ -850,7 +972,91 @@ def limb_phases(kernel_rows, rng, device):
     traces = [build_rescue128_chain_trace([int(v) for v in sd], (1 << log2_rows) // 8)
               for sd in seeds]
     observed_phase("limb_aggregated", prover, Rescue128ChainAir, traces,
-                   kernel_rows, rng, device, both, airs, tamper=tamper_seed)
+                   kernel_rows, rng, device, both, airs, tampers=[("seed", tamper_seed)])
+
+
+# ---------------------------------------------------------------------------
+# aggregated Lamport+ signatures: the limb path with sequence assertions
+# ---------------------------------------------------------------------------
+
+
+def phase_airs(prover, traces):
+    """The AIR of a prove, keyed as ``first_prove`` looks up the constraint
+    kernel's AIR: its periodic columns' periods follow the signature block."""
+    air0 = prover.air_class(traces[0].get_info(), prover.get_pub_inputs(traces[0]),
+                            prover.options())
+    return {(air0.field_spec().name, type(air0).__name__): air0}
+
+
+def tamper_agg_message(pub):
+    p = pub[0]
+    messages = list(p.messages)
+    messages[len(messages) // 2] ^= 1
+    return [lagg.LamportAggInputs(messages, p.pub_keys)]
+
+
+def tamper_agg_pub_key(pub):
+    p = pub[0]
+    pub_keys = [list(pk) for pk in p.pub_keys]
+    pub_keys[-1][0] = (pub_keys[-1][0] + 1) % lagg.P
+    return [lagg.LamportAggInputs(p.messages, pub_keys)]
+
+
+def lamport_phases(kernel_rows, rng, device):
+    """Aggregated Lamport+ signatures over f128 with BLAKE3-192: 4 signatures
+    at k = 15 against the pinned digest, then 64 (2^16 rows) and 1024 (2^20
+    rows x 14 columns) signatures of 127-bit messages, the first and last
+    rows of the reference's aggregation table; then 4 StarkPack instances
+    of one signature each (lamport128, k = 127) with SHA3-256.  Every proof
+    is verified; a tampered message and a tampered public key are rejected.
+    The wallet (keys, messages, signatures) and the trace are built on the
+    host and timed apart from the prove."""
+    options = ProofOptions(*BENCH_OPTIONS)
+    both = ("ntt", "cons")
+    for path in ("lamport_agg_golden", "lamport_agg_64", "lamport_agg_main"):
+        n_sigs, k = LAMPORT_PATHS[path]
+        golden = path == "lamport_agg_golden"
+        # the tables and caches of earlier proves go, so the largest prove
+        # finds the card's memory free
+        full_pipeline._TABLE_CACHE.clear()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        messages, _, sigs = lagg.make_wallet(n_sigs, k, seed=0 if golden else
+                                             int(rng.integers(1 << 30)))
+        wallet_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        trace = lagg.build_lamport128_agg_trace(messages, sigs, k)
+        trace_s = time.perf_counter() - t0
+        del messages, sigs
+        prover = lagg.Lamport128AggProver(options, Blake3_192)
+        observed_phase(path, prover, lagg.Lamport128AggAir, [trace], kernel_rows, rng, device,
+                       both, phase_airs(prover, [trace]),
+                       golden=GOLDEN_LAMPORT if golden else None,
+                       tampers=[("message", tamper_agg_message),
+                                ("public key", tamper_agg_pub_key)],
+                       signatures=n_sigs, k=k, wallet_s=wallet_s, trace_build_s=trace_s)
+        del trace
+
+    n, k = LAMPORT_PATHS["lamport128_aggregated"]
+    traces = []
+    for i in range(n):
+        secrets, pk_hashes, _ = lam.keygen(k, seed=i)
+        message = (1 << (k - 1)) | int(rng.integers(1 << 62))
+        traces.append(lam.build_lamport128_trace(
+            message, lam.sign(secrets, pk_hashes, message, k), k))
+    prover = lam.Lamport128Prover(options, Sha3_256)
+
+    def tamper_message(pub):
+        return pub[:1] + [lam.Lamport128Inputs(pub[1].message ^ 1, pub[1].pub_key)] + pub[2:]
+
+    def tamper_pub_key(pub):
+        bad = [(pub[-1].pub_key[0] + 1) % lam.P, pub[-1].pub_key[1]]
+        return pub[:-1] + [lam.Lamport128Inputs(pub[-1].message, bad)]
+
+    observed_phase("lamport128_aggregated", prover, lam.Lamport128Air, traces, kernel_rows,
+                   rng, device, both, phase_airs(prover, traces),
+                   tampers=[("message", tamper_message), ("public key", tamper_pub_key)],
+                   signatures=n, k=k)
 
 
 # ---------------------------------------------------------------------------
@@ -877,13 +1083,13 @@ def small_trace_phases(kernel_rows, rng, device):
                    DoWorkProver(ProofOptions(*GOLDEN_OPTIONS), Blake3_256), DoWorkAir,
                    [build_do_work_trace(i, 1 << log2_rows) for i in range(n)],
                    kernel_rows, rng, device, dit, golden=GOLDEN_SMALL_TRACE,
-                   tamper=tamper_start)
+                   tampers=[("start", tamper_start)])
 
     options = ProofOptions(*BENCH_OPTIONS)
     log2_rows, n = SMALL_TRACE_PATHS["small_trace_main_do_work"]
     observed_phase("small_trace_main_do_work", DoWorkProver(options, Blake3_256), DoWorkAir,
                    [build_do_work_trace(i + 1, 1 << log2_rows) for i in range(n)],
-                   kernel_rows, rng, device, dit, tamper=tamper_start)
+                   kernel_rows, rng, device, dit, tampers=[("start", tamper_start)])
 
     log2_rows, n = SMALL_TRACE_PATHS["small_trace_main_rescue"]
     seeds = rng.integers(0, gl.P, size=(n, 8), dtype=np.uint64)
@@ -893,7 +1099,7 @@ def small_trace_phases(kernel_rows, rng, device):
          trace_build_s=time.perf_counter() - t0)
     observed_phase("small_trace_main_rescue", RescueChainProver(options, Blake3_256),
                    RescueChainAir, traces, kernel_rows, rng, device, dit,
-                   tamper=tamper_chain)
+                   tampers=[("seed", tamper_chain)])
 
 
 def build_all():
@@ -928,7 +1134,8 @@ def build_all():
                   ntt4.kernel_sources() + ntt_kernel.kernel_sources()
                   + limb_ntt.kernel_sources() + emitted],
          emitted_lines={os.path.relpath(p, root): open(p).read().count("\n")
-                        for p in emitted})
+                        for p in emitted},
+         ptxas={name: ptxas_report(name) for name in native.BUILD_LOGS})
 
 
 def main(argv=None):
@@ -960,6 +1167,7 @@ def main(argv=None):
     phase_aggregated(prover, kernel_rows, rng, device)
     small_trace_phases(kernel_rows, rng, device)
     limb_phases(kernel_rows, rng, device)
+    lamport_phases(kernel_rows, rng, device)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": list(kernel_rows.values())}), flush=True)

@@ -63,8 +63,15 @@ def _device_events(prof):
     return out
 
 
+class ProfilerDroppedRecords(RuntimeError):
+    """The profiler lost records: no session recorded a call, or the calls
+    recorded show the kernel but fewer than asked for were recorded whole."""
+
+
 MARK = "spin_kernel"  # torch.cuda._sleep's kernel, launched between calls
-LEAD_MARKS = 3  # markers before the first call: the profiler may drop the first records
+# markers before the first call: the profiler drops the first records of a
+# session now and then (up to five in a row on an H100)
+LEAD_MARKS = 8
 
 
 def profile_calls(fn, reps: int = REPS):
@@ -72,11 +79,11 @@ def profile_calls(fn, reps: int = REPS):
     (CUDA activity only), a synchronisation and a marker kernel after each
     call and LEAD_MARKS before the first.  Each call launches kernels, so
     the non-empty groups of device events between markers are the calls.
-    The profiler now and then drops a record, most often the first of a
-    session: a call whose marker was dropped merges with the next one, a
-    call whose own records were dropped is missing.  Returns (device events
-    of each call recorded, at most ``reps`` of them; wall seconds of each
-    call)."""
+    The profiler loses records now and then: the first few of a session,
+    its tail, or all of it.  A call whose marker was dropped merges with the
+    next one, a call whose own records were dropped is missing.  Returns
+    (device events of each call recorded, at most ``reps`` of them; wall
+    seconds of each call)."""
     fn()
     torch.cuda.synchronize()
     walls = []
@@ -106,12 +113,15 @@ def device_kernel_ms(fn, match, reps: int = REPS, sessions: int = 3):
     """Median device milliseconds, per call, of the kernels whose names hold
     one of the substrings ``match`` (a string or a tuple), over ``reps``
     profiled calls of ``fn``.  A call whose record lacks a launch that the
-    others show, or holds two calls' launches (the profiler drops a record
-    now and then), is left out and made up by another profiling session, up
-    to ``sessions`` of them; raises when no call launched a matching kernel
-    or fewer than ``reps`` calls were recorded whole."""
+    others show, or holds two calls' launches, is left out and made up by
+    another profiling session, up to ``sessions`` of them.  Raises
+    RuntimeError when calls were recorded and none launched a matching
+    kernel, ``ProfilerDroppedRecords`` when no session recorded a call or
+    fewer than ``reps`` calls were recorded whole.  Whether ``fn`` launched
+    its kernel at all is for its wrapper's launch count to say: a session
+    that recorded no call tells nothing."""
     match = (match,) if isinstance(match, str) else tuple(match)
-    hits = []
+    hits, launches, full = [], 0, []
     for _ in range(sessions):
         per_call, _ = profile_calls(fn, reps)
         hits += [split_call(ev, match)[0] for ev in per_call]
@@ -120,7 +130,14 @@ def device_kernel_ms(fn, match, reps: int = REPS, sessions: int = 3):
         full = [sum(h) for h in hits if len(h) == launches]
         if launches > 0 and len(full) >= reps:
             return statistics.median(full) / 1e3
-    raise RuntimeError(f"{match}: launches per call {[len(h) for h in hits]}")
+    if not hits:
+        raise ProfilerDroppedRecords(f"{match}: no call recorded in {sessions} sessions")
+    if launches == 0:
+        raise RuntimeError(f"{match}: none of {len(hits)} recorded calls launched a "
+                           f"matching kernel")
+    raise ProfilerDroppedRecords(
+        f"{match}: {len(full)} of {reps} calls recorded whole in {sessions} sessions "
+        f"(launches per recorded call {[len(h) for h in hits]})")
 
 
 def split_call(events, match):

@@ -11,7 +11,8 @@ Ported so far, all driven through ``Prover.prove`` and ``verify``, extension
 degree 1, main segment only: f64 traces of 2^14 rows and more through the
 big-trace path (prover/device_big.py), shorter f64 traces through the
 small-trace path (prover/device.py), both with BLAKE3-256 or BLAKE3-192, and
-f128/f62 traces through the limb path (parallel/full_pipeline.py).
+f128/f62 traces, with single-value and sequence assertions, through the limb
+path (parallel/full_pipeline.py) with BLAKE3-256, BLAKE3-192 or SHA3-256.
 """
 
 from .air import (
@@ -25,7 +26,7 @@ from .air import (
     TraceLayout,
     TransitionConstraintDegree,
 )
-from .crypto.hashers import Blake3_192, Blake3_256, get_hasher
+from .crypto.hashers import Blake3_192, Blake3_256, Sha3_256, get_hasher
 from .crypto.random_coin import RandomCoin
 from .errors import DeserializationError, ProverError
 from .prover import Prover, TraceTable

@@ -1,4 +1,4 @@
-# Copy of starkpack_winterfell_tpu/air/boundary.py; cut: the FieldBackend interpolation and the native barycentric tier; sequences interpolate on python ints.
+# Copy of starkpack_winterfell_tpu/air/boundary.py; cut: the FieldBackend interpolation and the native barycentric tier; sequences interpolate, and evaluate at a point, on python ints of their field.
 """Boundary constraints — equivalent of air/src/air/boundary/.
 
 Assertions are sorted by (stride, first_step, column), paired with
@@ -54,7 +54,7 @@ class BoundaryConstraint:
             assertion_value = self._poly[0]
         else:
             xx = o.fmul(x, self.poly_offset[1])
-            assertion_value = polynom.eval_at(self.poly, xx, None)
+            assertion_value = polynom.eval_at(self.poly, xx, None if o.name == "f64" else o)
         return o.fsub(trace_value, assertion_value)
 
 

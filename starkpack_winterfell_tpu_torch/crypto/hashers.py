@@ -1,4 +1,4 @@
-# Copy of starkpack_winterfell_tpu/crypto/hashers.py; cut: Sha3_256 and the algebraic hashers (Rp64_256, RpJive64_256, GriffinJive64_256, Rp62_248); Blake3_256 and Blake3_192 are registered.
+# Copy of starkpack_winterfell_tpu/crypto/hashers.py; cut: the algebraic hashers (Rp64_256, RpJive64_256, GriffinJive64_256, Rp62_248); Blake3_256, Blake3_192 and Sha3_256 are registered.
 """Hash function registry — equivalent of crypto/src/hash/mod.rs.
 
 Each hasher exposes a host byte API (for the Fiat-Shamir channel and proof
@@ -10,10 +10,13 @@ boundary, mirroring ByteDigest<24> (crypto/src/hash/blake/mod.rs:70-116).
 
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 import torch
 
 from ..ops import blake3 as b3
+from ..ops import keccak
 from ..utils.serde import ByteWriter
 
 
@@ -167,7 +170,63 @@ def _zeros_like(d, words: int):
     return torch.zeros(shape, dtype=d.dtype, device=d.device)
 
 
-HASHERS = {Blake3_256.NAME: Blake3_256, Blake3_192.NAME: Blake3_192}
+class Sha3_256:
+    """crypto/src/hash/sha/mod.rs: the host byte API through hashlib, the
+    words API through the vectorized Keccak of ops/keccak.py."""
+
+    NAME = "sha3_256"
+    DIGEST_BYTES = 32
+    COLLISION_RESISTANCE = 128
+
+    @staticmethod
+    def hash(data: bytes) -> bytes:
+        return hashlib.sha3_256(data).digest()
+
+    @staticmethod
+    def merge(a: bytes, b: bytes) -> bytes:
+        return hashlib.sha3_256(a + b).digest()
+
+    @staticmethod
+    def merge_with_int(seed: bytes, value: int) -> bytes:
+        return hashlib.sha3_256(
+            seed + (value & 0xFFFFFFFFFFFFFFFF).to_bytes(8, "little")).digest()
+
+    @staticmethod
+    def merge_many(pairs):
+        return [hashlib.sha3_256(a + b).digest() for a, b in pairs]
+
+    @staticmethod
+    def merge_with_int_many(seed: bytes, values):
+        return [Sha3_256.merge_with_int(seed, v) for v in values]
+
+    @classmethod
+    def hash_elements(cls, elements, elem_bytes: int = 8) -> bytes:
+        w = ByteWriter()
+        w.write_felts(elements, elem_bytes)
+        return cls.hash(w.to_bytes())
+
+    @classmethod
+    def hash_elements_many(cls, element_lists, elem_bytes: int = 8):
+        return [cls.hash_elements(e, elem_bytes) for e in element_lists]
+
+    @staticmethod
+    def hash_words(words, byte_len: int):
+        return keccak.sha3_256_words(words, byte_len)
+
+    @staticmethod
+    def merge_words(l, r):
+        return keccak.sha3_merge_words(l, r)
+
+    @staticmethod
+    def digest_to_bytes(d) -> bytes:
+        return b3.digest_to_bytes(d)
+
+    @staticmethod
+    def digest_from_bytes(b: bytes):
+        return b3.digest_from_bytes(b)
+
+
+HASHERS = {h.NAME: h for h in (Blake3_256, Blake3_192, Sha3_256)}
 
 
 def get_hasher(name: str):

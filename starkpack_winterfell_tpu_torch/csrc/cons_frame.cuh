@@ -9,8 +9,12 @@
 //   CONS_W, CONS_K, CONS_NPER             trace width, transition
 //                                         constraints, periodic columns
 //   CONS_NGROUPS, CONS_NCC                boundary groups, their constraints
+//   CONS_NSINGLE, CONS_NSEQ               single-value and sequence ones
 //   CONS_GROUP_SIZE[], CONS_CC_COL[]      constraints per group, the trace
 //                                         column of each constraint
+//   CONS_CC_VAL[]                         where each constraint's value is:
+//                                         single s (>= 0) or sequence
+//                                         table q (-1 - q)
 //   air_transition(cur, nxt, per, ev)     the AIR's transition, straight-line
 //
 // One thread = one point j of the constraint-evaluation (ce) domain.  It
@@ -21,16 +25,20 @@
 // sum_k t_coef[k] * ev[k], the boundary groups sum cc * (state - value),
 // each column times its divisor, the sum times final_power[i], accumulated
 // in the field.  Field addition is exact, so the order of the accumulation
-// does not show in the result.
+// does not show in the result.  A single-value assertion's value is a bank
+// scalar; a sequence assertion's is its table's word at (instance i, point
+// j): the interpolated value polynomial over the ce domain, (n, ce) per
+// sequence, evaluated by the caller (kernel 4).
 //
 // Per-instance scalars come from one (n, NS, words) bank in the order
-// t_coefs (CONS_K), assertion values (CONS_NCC), composition coefficients
-// (CONS_NCC), final_power (1).
+// t_coefs (CONS_K), single assertion values (CONS_NSINGLE), composition
+// coefficients (CONS_NCC), final_power (1).
 //
 // Bound on this card: operations.  A point of the Rescue128 chain AIR costs
 // about 130 f128 multiplies, each seven 64 x 64 products, against 16 bytes
-// per input element; every intermediate lives in registers, the inputs are
-// read once and the (ce,) output written once.
+// per input element (the two-sponge Lamport+ AIR about twice that); every
+// intermediate lives in registers, the inputs are read once and the (ce,)
+// output written once.
 #pragma once
 
 namespace {
@@ -46,6 +54,8 @@ cons_eval_kernel(const uint64_t* __restrict__ lde_lo,
                  const uint64_t* __restrict__ per_hi,
                  const uint64_t* __restrict__ div_lo,
                  const uint64_t* __restrict__ div_hi,
+                 const uint64_t* __restrict__ seq_lo,
+                 const uint64_t* __restrict__ seq_hi,
                  const uint64_t* __restrict__ scal,
                  uint64_t* __restrict__ out_lo, uint64_t* __restrict__ out_hi,
                  int n, long long L, long long ce, int shift, int blowup,
@@ -65,7 +75,8 @@ cons_eval_kernel(const uint64_t* __restrict__ lde_lo,
 
   const size_t row0 = (size_t)j * shift;
   const size_t row1 = (row0 + blowup) & (size_t)(L - 1);  // wraps at the end
-  constexpr int NS = CONS_K + 2 * CONS_NCC + 1;
+  constexpr int NS = CONS_K + CONS_NSINGLE + CONS_NCC + 1;
+  const size_t seq_stride = (size_t)n * ce;  // one sequence's (n, ce) table
 
   FE total = FE::zero();
   for (int i = 0; i < n; ++i) {
@@ -92,8 +103,13 @@ cons_eval_kernel(const uint64_t* __restrict__ lde_lo,
       FE grp = FE::zero();
 #pragma unroll
       for (int q = 0; q < CONS_GROUP_SIZE[g]; ++q, ++ci) {
-        const FE diff = fe_sub(cur[CONS_CC_COL[ci]], cons_scalar(bank, CONS_K + ci));
-        grp = fe_add(grp, fe_mul(cons_scalar(bank, CONS_K + CONS_NCC + ci), diff));
+        const int v = CONS_CC_VAL[ci];
+        const FE value =
+            v >= 0 ? cons_scalar(bank, CONS_K + v)
+                   : FE::load(seq_lo, seq_hi,
+                              (size_t)(-1 - v) * seq_stride + (size_t)i * ce + j);
+        const FE diff = fe_sub(cur[CONS_CC_COL[ci]], value);
+        grp = fe_add(grp, fe_mul(cons_scalar(bank, CONS_K + CONS_NSINGLE + ci), diff));
       }
       acc = fe_add(acc, fe_mul(grp, dv[1 + g]));
     }
@@ -106,13 +122,15 @@ cons_eval_kernel(const uint64_t* __restrict__ lde_lo,
 
 // Plain C interface (loaded with ctypes).  lde: (n, W, L) word planes; per:
 // (NPER, per_len) planes, one period of each periodic column over the ce
-// domain (per_len a power of two); div: (1 + NGROUPS, ce) planes; scal: the
-// (n, NS, words) bank; out: (ce,) planes.  L a power of two, ce = L / shift.
+// domain (per_len a power of two); div: (1 + NGROUPS, ce) planes; seq:
+// (NSEQ, n, ce) planes (unread when NSEQ is 0); scal: the (n, NS, words)
+// bank; out: (ce,) planes.  L a power of two, ce = L / shift.
 // Launches on `stream`, does not synchronise, allocates nothing.  Returns
 // the cudaError_t of the launch (0 = success).
 extern "C" int cons_eval_launch(const void* lde_lo, const void* lde_hi,
                                 const void* per_lo, const void* per_hi,
                                 const void* div_lo, const void* div_hi,
+                                const void* seq_lo, const void* seq_hi,
                                 const void* scal, void* out_lo, void* out_hi,
                                 int n, long long L, long long ce, int shift,
                                 int blowup, int per_len, int threads,
@@ -125,7 +143,7 @@ extern "C" int cons_eval_launch(const void* lde_lo, const void* lde_hi,
   cons_eval_kernel<<<(unsigned)grid, threads, 0, (cudaStream_t)stream>>>(
       (const uint64_t*)lde_lo, (const uint64_t*)lde_hi, (const uint64_t*)per_lo,
       (const uint64_t*)per_hi, (const uint64_t*)div_lo, (const uint64_t*)div_hi,
-      (const uint64_t*)scal, (uint64_t*)out_lo, (uint64_t*)out_hi, n, L, ce,
+      (const uint64_t*)seq_lo, (const uint64_t*)seq_hi, (const uint64_t*)scal, (uint64_t*)out_lo, (uint64_t*)out_hi, n, L, ce,
       shift, blowup, per_len);
   return (int)cudaGetLastError();
 }

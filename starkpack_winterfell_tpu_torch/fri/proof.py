@@ -1,4 +1,4 @@
-# Copy of starkpack_winterfell_tpu/fri/proof.py; cut: the non-BLAKE3 leaf hashing branches of FriProofLayer.parse.
+# Copy of starkpack_winterfell_tpu/fri/proof.py; cut: the algebraic-hasher leaf hashing branch of FriProofLayer.parse (hash_element_rows).
 """FriProof / FriProofLayer — equivalent of fri/src/proof.rs.
 
 Field-parameterized: pass a FieldSpec to use f62/f128 element widths; the
@@ -55,17 +55,20 @@ class FriProofLayer:
             flat[i * folding_factor : (i + 1) * folding_factor]
             for i in range(num_queries)
         ]
-        # hash_elements of canonical elements == BLAKE3 of their LE bytes,
-        # which is exactly this layer's value-byte rows
-        from ..ops import blake3 as b3
+        if getattr(hasher, "NAME", None) in ("blake3_256", "blake3_192"):
+            # hash_elements of canonical elements == BLAKE3 of their LE
+            # bytes, which is exactly this layer's value-byte rows
+            from ..ops import blake3 as b3
 
-        hashed = b3.hash_bytes_many(
-            [
-                self.values[i * num_query_bytes : (i + 1) * num_query_bytes]
-                for i in range(num_queries)
-            ],
-            out_len=hasher.DIGEST_BYTES,
-        )
+            hashed = b3.hash_bytes_many(
+                [
+                    self.values[i * num_query_bytes : (i + 1) * num_query_bytes]
+                    for i in range(num_queries)
+                ],
+                out_len=hasher.DIGEST_BYTES,
+            )
+        else:
+            hashed = [hasher.hash_elements(row, field.ELEMENT_BYTES) for row in rows]
         query_values = [e for row in rows for e in row]
         pr = SliceReader(self.paths)
         depth = domain_size.bit_length() - 1

@@ -4,7 +4,8 @@ and proof-size reporting.
 Counterpart of starkpack_winterfell_tpu/models/cli.py cut to the examples
 that reach a ported path: do-work, fib and rescue-chain (f64: the
 small-trace pipeline below 2^14 rows, the big-trace pipeline from there up),
-rescue128-chain and fib-f128 (f128) and fib-f62 (f62), limb pipeline.
+rescue128-chain, fib-f128, lamport128 and lamport128-agg (f128) and fib-f62
+(f62), limb pipeline.
 
 Usage:
   python -m starkpack_winterfell_tpu_torch.models.cli do-work -n 32 -l 1024
@@ -14,6 +15,8 @@ Usage:
   python -m starkpack_winterfell_tpu_torch.models.cli rescue-chain -n 2 -l 2048 --device cpu
   python -m starkpack_winterfell_tpu_torch.models.cli rescue128-chain -n 1 -l 512 --device cpu
   python -m starkpack_winterfell_tpu_torch.models.cli fib-f128 -n 2 -l 512 --device cpu
+  python -m starkpack_winterfell_tpu_torch.models.cli lamport128 -n 2 -l 128 --hash sha3_256 --device cpu
+  python -m starkpack_winterfell_tpu_torch.models.cli lamport128-agg -n 1 -l 2048 --hash blake3_192 --device cpu
 """
 
 from __future__ import annotations
@@ -59,6 +62,30 @@ def get_example(name: str):
             Rescue128ChainProver,
             lambda i, l: build_rescue128_chain_trace([i + 1, 2 * i + 7], l),
         )
+    if name == "lamport128":
+        from . import lamport128 as lam
+
+        def build128(i, l):
+            # -l is the trace length: 8 rows per message bit plus a final cycle
+            k = l // 8 - 1
+            secrets, pk_hashes, _ = lam.keygen(k, seed=i)
+            message = (0x6A09E667F3BCC908 + i) % (1 << k) if k < 63 else i + 1
+            sig = lam.sign(secrets, pk_hashes, message, k)
+            return lam.build_lamport128_trace(message, sig, k)
+
+        return lam.Lamport128Air, lam.Lamport128Prover, build128
+    if name == "lamport128-agg":
+        from . import lamport128_agg as lagg
+
+        def build_agg(i, l):
+            # one trace aggregating l/1024 signatures over 127-bit messages
+            # (1024 rows per signature, the reference benchmark's block)
+            k = 127
+            n_sigs = max(1, l // (8 * (k + 1)))
+            messages, _, sigs = lagg.make_wallet(n_sigs, k, seed=i)
+            return lagg.build_lamport128_agg_trace(messages, sigs, k)
+
+        return lagg.Lamport128AggAir, lagg.Lamport128AggProver, build_agg
     if name in ("fib-f128", "fib-f62"):
         from .fib_multifield import get_fib_family
 
@@ -70,18 +97,22 @@ def get_example(name: str):
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("example", choices=["do-work", "fib", "rescue-chain",
-                                       "rescue128-chain", "fib-f128", "fib-f62"])
+                                       "rescue128-chain", "fib-f128", "fib-f62",
+                                       "lamport128", "lamport128-agg"])
     p.add_argument("-n", "--num-traces", type=int, default=2)
     p.add_argument("-l", "--trace-length", type=int, default=2048,
                    help="the hash chains: CHAIN length (hashes), the trace has "
-                        "8*l rows; the others: the trace length")
+                        "8*l rows; the others: the trace length (lamport128-agg: "
+                        "l/1024 signatures)")
     p.add_argument("-q", "--queries", type=int, default=32)
     p.add_argument("-b", "--blowup", type=int, default=8)
     p.add_argument("-g", "--grinding", type=int, default=0)
     p.add_argument("-e", "--extension", type=int, default=1, choices=[1, 2, 3])
     p.add_argument("-f", "--folding", type=int, default=8)
     p.add_argument("-r", "--remainder", type=int, default=31)
-    p.add_argument("--hash", default="blake3_256", choices=sorted(HASHERS))
+    p.add_argument("--hash", default="blake3_256", choices=sorted(HASHERS),
+                   help="the f64 paths take blake3_256 and blake3_192, the limb "
+                        "path also sha3_256")
     p.add_argument("--device", default="cuda",
                    help="torch device of the prove (default cuda; raises "
                         "without a card unless cpu is named)")

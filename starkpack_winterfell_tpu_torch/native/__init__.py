@@ -18,6 +18,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import time
 
 import torch
 
@@ -27,8 +28,11 @@ _CACHE: dict = {}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# library name -> (nvcc seconds, ptxas's report: registers, spills and
+# shared memory of each kernel) of the builds this process ran
+BUILD_LOGS: dict = {}
 
 
 def _stale(so: str, sources) -> bool:
@@ -78,8 +82,10 @@ def build_cuda(name: str, sources) -> ctypes.CDLL:
                    if f.endswith(".cuh")]
         so = os.path.join(BUILD_DIR, f"lib{name}.so")
         if _stale(so, list(sources) + headers):
-            _run([find_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", so, *sources],
-                 f"nvcc build of {name}")
+            t0 = time.perf_counter()
+            r = _run([find_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", so, *sources],
+                     f"nvcc build of {name}")
+            BUILD_LOGS[name] = (time.perf_counter() - t0, r.stdout + r.stderr)
         _CACHE[name] = ctypes.CDLL(so)
     return _CACHE[name]
 
@@ -130,7 +136,8 @@ def launch(fn, device, *args) -> int:
 
 def _build_host(name: str, source: str, compilers) -> ctypes.CDLL:
     """Compile one file of native/ with the first host compiler found into
-    build/lib<name>.so and load it."""
+    build/lib<name>.so and load it.  Built with -fopenmp: rescue128.c's batch
+    digests and Lamport+ trace builders run one OpenMP thread a core."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     src = os.path.join(os.path.dirname(os.path.abspath(__file__)), source)
     so = os.path.join(BUILD_DIR, f"lib{name}.so")
@@ -138,7 +145,7 @@ def _build_host(name: str, source: str, compilers) -> ctypes.CDLL:
         cc = next((c for c in compilers if shutil.which(c)), None)
         if cc is None:
             raise RuntimeError(f"no host compiler found for {source}")
-        _run([cc, "-O3", "-shared", "-fPIC", src, "-o", so],
+        _run([cc, "-O3", "-fopenmp", "-shared", "-fPIC", src, "-o", so],
              f"host build of {source}")
     return ctypes.CDLL(so)
 
@@ -163,19 +170,23 @@ def get_builders() -> ctypes.CDLL:
 
 
 def get_rescue128() -> ctypes.CDLL:
-    """ctypes handle for the f128 Rescue128 chain-trace builder
-    (native/rescue128.c), initialized with the protocol constants."""
+    """ctypes handle for the f128 Rescue128 kernels (native/rescue128.c: the
+    chain-trace builder, the batched sponge digest and the Lamport+ trace
+    builders), initialized with the protocol constants."""
     if "r128" not in _CACHE:
         import numpy as np
 
         from ..crypto import rescue128_constants as rc
 
         lib = _build_host("starkr128", "rescue128.c", ("cc", "gcc", "clang"))
-        p = ctypes.c_void_p
-        lib.r128_init.argtypes = [p, p, p]
-        lib.r128_init.restype = None
-        lib.r128_chain_trace.argtypes = [p, ctypes.c_uint64, p, p]
-        lib.r128_chain_trace.restype = None
+        p, u64 = ctypes.c_void_p, ctypes.c_uint64
+        for fn, argtypes in (("r128_init", [p, p, p]),
+                             ("r128_chain_trace", [p, u64, p, p]),
+                             ("r128_digest_batch", [p, u64, u64, p]),
+                             ("lamport128_trace", [u64, p, p, p, p, p]),
+                             ("lamport128_trace_batch", [u64, u64, p, p, p, p, p])):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = None
 
         def pairs(vals):
             flat = []

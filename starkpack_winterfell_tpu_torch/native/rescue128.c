@@ -1,11 +1,14 @@
-// Copy of starkpack_winterfell_tpu/native/rescue128.c; cut: r128_digest_batch and the Lamport+ trace builders; added: r128_chain_trace.
-// Native f128 Rescue128 permutation and the hash-chain trace builder.
+// Copy of starkpack_winterfell_tpu/native/rescue128.c; cut: nothing; added: r128_chain_trace.
+// Native f128 Rescue128 sponge, the hash-chain trace builder and the
+// Lamport+ wallet kernels.
 //
-// A Rescue128 hash chain is sequential scalar work over the 128-bit field
+// A Rescue128 hash chain, the Lamport+ keygen hashing and the signature
+// trace are sequential scalar work over the 128-bit field
 // (examples/src/utils/rescue.rs:14-118): one long dependency through
 // x^{1/5}, a 128-bit exponentiation per element per round, which no
-// accelerator width can hide.  This builder runs it at native speed; the
-// python builder of models/rescue128_chain.py gives the same words.
+// accelerator width can hide.  These builders run it at native speed
+// (OpenMP across independent digests and signature blocks where the
+// compiler has it); the python builders of models/ give the same words.
 //
 // Field: P = 2^128 - 45*2^40 + 1 (math/src/field/f128/mod.rs), so
 // 2^128 === 45*2^40 - 1 (mod P); elements are (lo, hi) u64 pairs.
@@ -155,6 +158,112 @@ void r128_chain_trace(const u64* seed, u64 m, u64* out_lo, u64* out_hi) {
     state[1] = cur[1];
     for (int i = 2; i < W; i++) state[i] = 0;
   }
+}
+
+// digest of m elements (sponge rate 4, no padding — rescue.rs:96-117),
+// batched over n inputs; inputs n*m*(lo,hi), out n*2*(lo,hi)
+void r128_digest_batch(const u64* inputs, u64 m, u64 n, u64* out) {
+#ifdef _OPENMP
+#pragma omp parallel for schedule(static) if (n > 64)
+#endif
+  for (u64 b = 0; b < n; b++) {
+    const u64* in = inputs + b * m * 2;
+    u128 state[W] = {0, 0, 0, 0, 0, 0};
+    u64 i = 0;
+    for (u64 e = 0; e < m; e++) {
+      state[i] = addmod(state[i], rd(in + 2 * e));
+      i++;
+      if (i % 4 == 0) {
+        permute(state);
+        i = 0;
+      }
+    }
+    if (i > 0) permute(state);
+    wr(out + b * 4, state[0]);
+    wr(out + b * 4 + 2, state[1]);
+  }
+}
+
+// Lamport+ signature-verification trace (models/lamport128.py
+// build_lamport128_trace): 14 columns x 8*(k+1) rows, column-major,
+// out_lo/out_hi each 14*length u64.
+static void lamport128_trace_block(u64 k, const u64* msg_bits,
+                                   const u64* revealed, const u64* other,
+                                   u64* out_lo, u64* out_hi, u64 col_stride,
+                                   u64 row_base) {
+  const int A0 = 0, B0 = 6, BIT = 12, MSG = 13, WIDTH = 14;
+  u64 length = col_stride;
+  out_lo += row_base;
+  out_hi += row_base;
+  u128 b_state[W] = {0, 0, 0, 0, 0, 0};
+  u128 msg = 0;
+  const u128 P = make_p();
+  for (u64 c = 0; c <= k; c++) {
+    u64 base = c * CYCLE;
+    u64 bit = (c < k) ? msg_bits[c] : 0;
+    u128 a_cur[W] = {0, 0, 0, 0, 0, 0};
+    if (c < k) {
+      a_cur[0] = rd(revealed + 4 * c);
+      a_cur[1] = rd(revealed + 4 * c + 2);
+    }
+    u128 b_cur[W];
+    for (int i = 0; i < W; i++) b_cur[i] = b_state[i];
+    for (int r = 0; r < CYCLE; r++) {
+      u64 row = base + r;
+      for (int i = 0; i < W; i++) {
+        out_lo[(u64)(A0 + i) * length + row] = (u64)a_cur[i];
+        out_hi[(u64)(A0 + i) * length + row] = (u64)(a_cur[i] >> 64);
+        out_lo[(u64)(B0 + i) * length + row] = (u64)b_cur[i];
+        out_hi[(u64)(B0 + i) * length + row] = (u64)(b_cur[i] >> 64);
+      }
+      out_lo[(u64)BIT * length + row] = bit;
+      out_hi[(u64)BIT * length + row] = 0;
+      out_lo[(u64)MSG * length + row] = (u64)msg;
+      out_hi[(u64)MSG * length + row] = (u64)(msg >> 64);
+      if (r < ROUNDS) {
+        apply_round(a_cur, r);
+        if (c >= 1) apply_round(b_cur, r);
+      }
+    }
+    if (c < k) {
+      u128 h0 = a_cur[0], h1 = a_cur[1];
+      u128 l0 = bit ? rd(other + 4 * c) : h0;
+      u128 l1 = bit ? rd(other + 4 * c + 2) : h1;
+      u128 r0 = bit ? h0 : rd(other + 4 * c);
+      u128 r1 = bit ? h1 : rd(other + 4 * c + 2);
+      b_state[0] = addmod(b_cur[0], l0);
+      b_state[1] = addmod(b_cur[1], l1);
+      b_state[2] = addmod(b_cur[2], r0);
+      b_state[3] = addmod(b_cur[3], r1);
+      b_state[4] = b_cur[4];
+      b_state[5] = b_cur[5];
+      msg = addmod(addmod(msg, msg), (u128)bit);
+      (void)P;
+    }
+  }
+}
+
+void lamport128_trace(u64 k, const u64* msg_bits, const u64* revealed,
+                      const u64* other, u64* out_lo, u64* out_hi) {
+  lamport128_trace_block(k, msg_bits, revealed, other, out_lo, out_hi,
+                         (k + 1) * CYCLE, 0);
+}
+
+// All n_sigs blocks of the aggregated trace in one call (blocks are
+// independent — models/lamport128_agg.py build_lamport128_agg_trace):
+// out planes are 14 x (n_sigs * (k+1) * CYCLE), block s at row offset
+// s * (k+1) * CYCLE.
+void lamport128_trace_batch(u64 n_sigs, u64 k, const u64* msg_bits,
+                            const u64* revealed, const u64* other,
+                            u64* out_lo, u64* out_hi) {
+  u64 block = (k + 1) * CYCLE;
+#ifdef _OPENMP
+#pragma omp parallel for schedule(static) if (n_sigs > 4)
+#endif
+  for (u64 s = 0; s < n_sigs; s++)
+    lamport128_trace_block(k, msg_bits + s * k, revealed + s * 4 * k,
+                           other + s * 4 * k, out_lo, out_hi,
+                           n_sigs * block, s * block);
 }
 
 int r128_is_ready(void) { return g_ready; }

@@ -5,7 +5,9 @@ point j of the constraint-evaluation (ce) domain and per instance i the
 function computes the AIR's ``evaluate_transition`` on the frame (LDE row
 j*shift, LDE row j*shift + blowup), sum_k t_coef[i][k] * ev_k, the boundary
 groups sum cc * (state - value), each times its divisor table, the whole
-times final_power[i], summed over the instances.
+times final_power[i], summed over the instances.  A single-value assertion's
+value is a per-instance scalar; a sequence assertion's is its per-instance
+``(n, ce)`` table (the interpolated value polynomial over the ce domain).
 
 The Pallas kernel gets its body by running the AIR's python
 ``evaluate_transition`` inside ``pallas_call``.  Here the same python runs
@@ -15,7 +17,8 @@ and ``emit_cuda`` writes them as straight-line CUDA C++ into a translation
 unit whose frame (``csrc/cons_frame.cuh``, written by hand) loads the frame
 rows by index, walks the instances and does everything around the
 transition.  The source goes to the build directory and is compiled with
-nvcc at first use, keyed by (AIR class, field, plan groups).
+nvcc at first use, keyed by (AIR class, field, plan groups: which assertions
+are sequences shows in the source).
 
 ``constraint_eval`` is the wrapper: CPU tensors take the plain version
 ``constraint_eval_plain`` (the same python AIR code, eager, through
@@ -42,7 +45,8 @@ from .felt import Felt
 THREADS = 128
 
 # launches of the CUDA kernel made by ``constraint_eval`` (and nowhere
-# else): the total, and the same split by (field, AIR class name, n, w, ce)
+# else): the total, and the same split by (field, AIR class name, n, w, ce,
+# sequence tables)
 LAUNCHES = 0
 LAUNCHES_BY_SHAPE: dict = {}
 
@@ -100,7 +104,8 @@ def eval_block(B, air0, plan_groups, K, frame, pv, t_coefs, singles, seqs,
 
 def pack_scalar_bank(B, t_main, singles, ccs, fp_stack, n, K):
     """(n, NS, words) int64 bank of per-instance scalars in kernel row
-    order: t_coefs (K), singles, ccs, final_power (all ext degree 1)."""
+    order: t_coefs (K), the single-value assertions' values, the ccs of all
+    assertions (sequences' included), final_power (all ext degree 1)."""
     rows = [tuple(l[:, k_i] for l in t_main[0]) for k_i in range(K)]
     rows += [tuple(l[:, 0] for l in s[0]) for s in singles]
     rows += [tuple(l[:, 0] for l in c[0]) for c in ccs]
@@ -111,25 +116,32 @@ def pack_scalar_bank(B, t_main, singles, ccs, fp_stack, n, K):
 def _check_groups(plan_groups):
     for group in plan_groups:
         for seg, _, poly_len in group:
-            if seg != "main" or poly_len != 1:
+            if seg != "main":
                 raise NotImplementedError(
-                    "the constraint kernel takes main-segment single-value "
-                    f"assertions only, got ({seg}, poly_len={poly_len})"
+                    "the constraint kernel takes main-segment assertions only, "
+                    f"got ({seg}, poly_len={poly_len})"
                 )
 
 
+def seq_count(plan_groups) -> int:
+    """Sequence assertions of a plan (the (n, ce) tables the kernel reads)."""
+    return sum(pl > 1 for g in plan_groups for (_, _, pl) in g)
+
+
 def constraint_eval_plain(B, air0, plan_groups, K, shift: int, blowup: int,
-                          main_rows, periodic_tabs, div_tabs, scal):
+                          main_rows, periodic_tabs, div_tabs, scal, seq_tabs=()):
     """Plain PyTorch version of the kernel.
 
     main_rows: comps (n, w, L) LDE rows; periodic_tabs: list of components
     (period_p,) over one period of the ce domain; div_tabs: list of
     components (ce,), the transition divisor first; scal: the
-    ``pack_scalar_bank`` tensor.  Returns comps (ce,)."""
+    ``pack_scalar_bank`` tensor; seq_tabs: one component (n, ce) per
+    sequence assertion, in walk order.  Returns comps (ce,)."""
     _check_groups(plan_groups)
     n, w, L = main_rows[0][0].shape
     ce = L // shift
     n_ccs = sum(len(g) for g in plan_groups)
+    n_singles = n_ccs - seq_count(plan_groups)
 
     def column(sl, c):
         return Felt((tuple(sl(l[:, c]) for l in main_rows[0]),), B=B)
@@ -146,11 +158,12 @@ def constraint_eval_plain(B, air0, plan_groups, K, shift: int, blowup: int,
         return (tuple(scal[:, row, l : l + 1] for l in range(scal.shape[2])),)
 
     t_coefs = [scal_comps(r) for r in range(K)]
-    singles = [scal_comps(K + r) for r in range(n_ccs)]
-    ccs = [scal_comps(K + n_ccs + r) for r in range(n_ccs)]
-    fp = scal_comps(K + 2 * n_ccs)
+    singles = [scal_comps(K + r) for r in range(n_singles)]
+    ccs = [scal_comps(K + n_singles + r) for r in range(n_ccs)]
+    fp = scal_comps(K + n_singles + n_ccs)
     acc = eval_block(B, air0, plan_groups, K, EvaluationFrame(cur_f, nxt_f), pv,
-                     t_coefs, singles, [], ccs, [(d,) for d in div_tabs])
+                     t_coefs, singles, [(t,) for t in seq_tabs], ccs,
+                     [(d,) for d in div_tabs])
     return B.vsum(B.vmul(acc, fp), axis=0)
 
 
@@ -336,6 +349,17 @@ def emit_cuda(field_name: str, air_name: str, ops, results, w: int,
         body.append(f"  ev[{k}] = t{r};")
     cc_cols = [column for group in plan_groups for (_, column, _) in group]
     sizes = [len(group) for group in plan_groups]
+    # the value of assertion ci: single s at bank row K + s (>= 0), or the
+    # table of sequence q (-1 - q), numbered in walk order
+    cc_vals, n_single, n_seq = [], 0, 0
+    for group in plan_groups:
+        for _, _, poly_len in group:
+            if poly_len == 1:
+                cc_vals.append(n_single)
+                n_single += 1
+            else:
+                cc_vals.append(-1 - n_seq)
+                n_seq += 1
     return "\n".join([
         f"// Constraint kernel of {air_name} over {field_name}: the transition",
         "// below was recorded from the AIR's python evaluate_transition and",
@@ -350,10 +374,14 @@ def emit_cuda(field_name: str, air_name: str, ops, results, w: int,
         f"#define CONS_NPER {n_periodic}",
         f"#define CONS_NGROUPS {len(sizes)}",
         f"#define CONS_NCC {len(cc_cols)}",
+        f"#define CONS_NSINGLE {n_single}",
+        f"#define CONS_NSEQ {n_seq}",
         "static __device__ const int CONS_GROUP_SIZE[CONS_NGROUPS + 1] = {"
         + ", ".join(str(s) for s in sizes + [0]) + "};",
         "static __device__ const int CONS_CC_COL[CONS_NCC + 1] = {"
         + ", ".join(str(c) for c in cc_cols + [0]) + "};",
+        "static __device__ const int CONS_CC_VAL[CONS_NCC + 1] = {"
+        + ", ".join(str(v) for v in cc_vals + [0]) + "};",
         "__device__ __forceinline__ void air_transition(",
         "    const FE* cur, const FE* nxt, const FE* per, FE* ev) {",
         *body,
@@ -394,14 +422,14 @@ def _lib(air0, w, n_periodic, K, plan_groups):
         name, path = kernel_source(air0, w, n_periodic, K, plan_groups)
         lib = build_cuda(name, [path])
         p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.cons_eval_launch.argtypes = [p] * 9 + [i, q, q, i, i, i, i, p]
+        lib.cons_eval_launch.argtypes = [p] * 11 + [i, q, q, i, i, i, i, p]
         lib.cons_eval_launch.restype = ctypes.c_int
         _LIBS[key] = lib
     return _LIBS[key]
 
 
 def constraint_eval(B, air0, plan_groups, K, shift: int, blowup: int,
-                    main_rows, periodic_tabs, div_tabs, scal):
+                    main_rows, periodic_tabs, div_tabs, scal, seq_tabs=()):
     """Constraint evaluation over the ce domain; see
     ``constraint_eval_plain`` for the arguments.  CPU tensors take the plain
     version.  CUDA tensors launch the emitted kernel on the current stream
@@ -410,7 +438,7 @@ def constraint_eval(B, air0, plan_groups, K, shift: int, blowup: int,
     lo = main_rows[0][0]
     if lo.device.type == "cpu":
         return constraint_eval_plain(B, air0, plan_groups, K, shift, blowup,
-                                     main_rows, periodic_tabs, div_tabs, scal)
+                                     main_rows, periodic_tabs, div_tabs, scal, seq_tabs)
     if lo.device.type != "cuda":
         raise ValueError(f"unsupported device {lo.device}")
     _check_groups(plan_groups)
@@ -420,11 +448,21 @@ def constraint_eval(B, air0, plan_groups, K, shift: int, blowup: int,
     k = len(main_rows[0])  # word planes per element
     ce = L // shift
     n_ccs = sum(len(g) for g in plan_groups)
+    n_seq = seq_count(plan_groups)
     n_div = 1 + len(plan_groups)
     if L & (L - 1) or L % shift:
         raise ValueError(f"LDE length {L} and shift {shift} must be powers of two")
-    if tuple(scal.shape) != (n, K + 2 * n_ccs + 1, k) or len(div_tabs) != n_div:
-        raise ValueError("scalar bank or divisor tables do not match the plan")
+    if (tuple(scal.shape) != (n, K + 2 * n_ccs - n_seq + 1, k) or len(div_tabs) != n_div
+            or len(seq_tabs) != n_seq):
+        raise ValueError("scalar bank, divisor or sequence tables do not match the plan")
+    # one (n_seq, n, ce) table per word plane, the sequences in walk order
+    seq = tuple(
+        torch.stack([t[l] for t in seq_tabs]).contiguous() if seq_tabs
+        else torch.zeros((1, 1, 1), dtype=torch.int64, device=lo.device)
+        for l in range(k)
+    )
+    if seq_tabs and tuple(seq[0].shape) != (n_seq, n, ce):
+        raise ValueError(f"sequence tables must be (n, ce) = ({n}, {ce})")
     # one (n_periodic, period) table: every column tiled to the longest period
     per_len = max([t[0].shape[0] for t in periodic_tabs] + [1])
     per = tuple(
@@ -437,7 +475,7 @@ def constraint_eval(B, air0, plan_groups, K, shift: int, blowup: int,
     scal = scal.contiguous()
     if tuple(div[0].shape) != (n_div, ce) or per_len & (per_len - 1):
         raise ValueError("divisor tables must be (ce,), periods powers of two")
-    for t in (*rows, *per, *div, scal):
+    for t in (*rows, *per, *div, *seq, scal):
         if t.dtype != torch.int64 or t.device != lo.device:
             raise ValueError("constraint kernel inputs must be int64 on one device")
     lib = _lib(air0, w, len(periodic_tabs), K, plan_groups)
@@ -449,7 +487,7 @@ def constraint_eval(B, air0, plan_groups, K, shift: int, blowup: int,
         return [l.data_ptr() for l in planes] + [None] * (2 - k)
 
     rc = launch(lib.cons_eval_launch, lo.device,
-                *ptrs(rows), *ptrs(per), *ptrs(div), scal.data_ptr(), *ptrs(out),
+                *ptrs(rows), *ptrs(per), *ptrs(div), *ptrs(seq), scal.data_ptr(), *ptrs(out),
                 n, L, ce, shift, blowup, per_len, THREADS)
     if rc != 0:
         raise RuntimeError(
@@ -457,6 +495,6 @@ def constraint_eval(B, air0, plan_groups, K, shift: int, blowup: int,
             f"(air={type(air0).__name__}, n={n}, w={w}, ce={ce})"
         )
     LAUNCHES += 1
-    key = (air0.field_spec().name, type(air0).__name__, n, w, ce)
+    key = (air0.field_spec().name, type(air0).__name__, n, w, ce, n_seq)
     LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
     return (out,)

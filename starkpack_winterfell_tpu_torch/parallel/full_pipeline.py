@@ -12,7 +12,8 @@ ops/cons_kernel.py).
   P2   constraint evaluation over the ce domain, all instances combined
        with final_coeff^i, in the constraint kernel
        (``pallas_constraint_phase`` :442; its frame slicing happens by index
-       inside the kernel).
+       inside the kernel).  Sequence assertions enter as (n, ce) tables,
+       evaluated on the device from their (n, m) coefficient stacks (:846).
   P3   composition polynomial: interpolate, split into columns, coset LDE
        coset by coset against an offsets table, commit
        (``sharded_lde_blocks`` :191).
@@ -24,11 +25,11 @@ ops/cons_kernel.py).
        the queried rows.
 
 Ported: limb-field AIRs (f128, f62) at extension degree 1, main segment only,
-single-value boundary assertions, BLAKE3-256.  Aux segments, sequence
-assertions, extensions, other hashers and configs that would need the
-coset-streamed kernels raise NotImplementedError (``prover/device.py``,
-``parallel/streamed.py``).  Proof bytes equal the JAX package's host
-pipeline.
+single-value and sequence boundary assertions, BLAKE3-256, BLAKE3-192 and
+SHA3-256.  Aux segments, extensions, other hashers and configs that would
+need the coset-streamed kernels raise NotImplementedError
+(``prover/device.py``, ``parallel/streamed.py``).  Proof bytes equal the JAX
+package's host pipeline.
 """
 
 from __future__ import annotations
@@ -133,13 +134,8 @@ def sharded_lde_blocks(B, comps, blowup: int, offset: int, hasher=None, deg=1):
 
 def _pcons_gate(plan, ext_deg, spec):
     """What the constraint kernel takes: main segment only, no field
-    extension, a limb field, single-value assertions."""
-    return (
-        not plan["has_aux"]
-        and ext_deg == 1
-        and spec.name in ("f62", "f128")
-        and all(pl == 1 for g in plan["groups"] for (_, _, pl) in g)
-    )
+    extension, a limb field; single-value and sequence assertions."""
+    return not plan["has_aux"] and ext_deg == 1 and spec.name in ("f62", "f128")
 
 
 def _inv_divisor_numerator(B, divisor, domain, device):
@@ -168,7 +164,10 @@ def _exemptions_eval(B, divisor, domain, device):
 def _periodic_tables(B, air0, device):
     """One period of every periodic column over the ce domain: a list of
     components shaped (cycle * ce_blowup,) (the value at ce step i is
-    table[i % len(table)])."""
+    table[i % len(table)]).  Columns of different periods (Lamport-agg: 8
+    and the signature block) stay at their own lengths here; the kernel's
+    wrapper tiles them all to the longest period, which every period
+    divides, so tab[i % longest] read from a tiled table is tab[i % len]."""
     tabs = []
     for poly in air0.get_periodic_column_polys():
         num_cycles = air0.trace_length() // len(poly)
@@ -224,32 +223,51 @@ def _stack_elems(B, rows, deg, device):
     return B.emap(lambda l: l.reshape(n, k), comps)
 
 
-def _stack_group_values(per_instance, B, ext_deg, device):
+def _stack_group_values(per_instance, domain, air0, B, ext_deg, device):
     """Per-instance boundary values and composition coefficients stacked in
-    kernel walk order: singles and ccs as lists of (n, 1) comps."""
-    singles, ccs = [], []
+    kernel walk order (JAX ``_stack_group_values(seq_coeffs=True)`` :585):
+    singles and ccs as lists of (n, 1) comps; each sequence as (coefficient
+    comps (n, m), off_eff, m), to be evaluated over the ce domain at the
+    offset off_eff = offset * g_ce^-(first step * ce blowup), which is the
+    host's evaluate-then-roll."""
+    singles, seqs, ccs = [], [], []
+    ce = domain.ce_size
+    g_ce = B.get_root_of_unity(ce.bit_length() - 1)
     template = per_instance[0]
     for gi, g in enumerate(template.main_constraints):
         for ci in range(len(g.constraints)):
             cons = [b.main_constraints[gi].constraints[ci] for b in per_instance]
-            if len(cons[0].poly) != 1:
-                raise NotImplementedError(
-                    "sequence/periodic boundary assertions are not ported yet "
-                    "on the limb path (ROADMAP slice iii, rest)"
-                )
-            singles.append(_stack_elems(B, [[c.poly[0]] for c in cons], 1, device))
+            c0 = cons[0]
+            if len(c0.poly) == 1:
+                singles.append(_stack_elems(B, [[c.poly[0]] for c in cons], 1, device))
+            else:
+                m = len(c0.poly)
+                base_off = air0.domain_offset() if m < ce else 1
+                so = c0.poly_offset[0] * air0.ce_blowup_factor()
+                off_eff = base_off * pow(g_ce, -so, B.P) % B.P
+                seqs.append((_stack_elems(B, [list(c.poly) for c in cons], 1, device),
+                             off_eff, m))
             ccs.append(_stack_elems(B, [[c.cc] for c in cons], ext_deg, device))
-    return singles, ccs
+    return singles, seqs, ccs
 
 
-def pallas_constraint_phase(B, air0, domain, plan, main_rows, scal):
+def sequence_tables(B, seq_specs, ce: int):
+    """Each sequence's (n, ce) table over the ce domain, on the device of
+    its coefficients (JAX :846-859): m points a coset, ce / m cosets, kernel
+    4 under ``evaluate_poly_with_offset``."""
+    return [B.evaluate_poly_with_offset(coeffs, off_eff, ce // m)[0]
+            for coeffs, off_eff, m in seq_specs]
+
+
+def pallas_constraint_phase(B, air0, domain, plan, main_rows, scal, seq_tabs=()):
     """The whole constraint body as ONE kernel launch: frames by index from
-    the (n, w, L) LDE rows, transition, boundary groups, divisors and the
-    cross-instance combination -> comps (ce,)."""
+    the (n, w, L) LDE rows, transition, boundary groups (sequence values
+    from ``seq_tabs``), divisors and the cross-instance combination -> comps
+    (ce,)."""
     return cons_kernel.constraint_eval(
         B, air0, plan["groups"], plan["K"], domain.ce_to_lde_blowup,
         domain.trace_to_lde_blowup, main_rows, plan["periodic_tabs"],
-        plan["div_tables"], scal,
+        plan["div_tables"], scal, seq_tabs,
     )
 
 
@@ -393,24 +411,32 @@ def prove_mesh(prover, n: int, traces, device):
     final_coeff = channel.get_final_polynomial_coeffs()
     final_powers = [spec.fexp(final_coeff, i) for i in range(n)]
 
+    # the plan's groups and tables depend on the configuration (AIR type,
+    # sizes and, for Lamport-agg, the signature block: periodic_cache_key),
+    # not on the public inputs or the transcript
     plan = _cached(
         ("plan", B.name, type(airs[0]).__qualname__, w, trace_length, ce, L,
-         str(device)),
+         airs[0].periodic_cache_key(), str(device)),
         lambda: _build_plan(airs[0], boundary_list[0], domain, B, device),
     )
     if not _pcons_gate(plan, ext_deg, spec):
         raise NotImplementedError(
             f"config not ported yet (outside the constraint kernel: aux "
-            f"segments, sequence assertions or an extension field; ROADMAP "
-            f"slice iii, rest): air={type(airs[0]).__name__}, field={spec.name}, "
+            f"segments or an extension field; ROADMAP slice iii, rest): "
+            f"air={type(airs[0]).__name__}, field={spec.name}, "
             f"extension degree={ext_deg}"
         )
-    singles, ccs = _stack_group_values(boundary_list, B, ext_deg, device)
+    singles, seq_specs, ccs = _stack_group_values(boundary_list, domain, airs[0], B,
+                                                  ext_deg, device)
+    seq_tabs = sequence_tables(B, seq_specs, ce)
+    del seq_specs
     t_main = _stack_elems(B, [t.main_constraint_coef for t in tc_list], ext_deg, device)
     fp_stack = B.emap(lambda l: l[:, 0],
                       _stack_elems(B, [[p] for p in final_powers], ext_deg, device))
     scal = cons_kernel.pack_scalar_bank(B, t_main, singles, ccs, fp_stack, n, plan["K"])
-    final_comb = pallas_constraint_phase(B, airs[0], domain, plan, lde_rows, scal)
+    final_comb = pallas_constraint_phase(B, airs[0], domain, plan, lde_rows, scal,
+                                         seq_tabs)
+    del seq_tabs
     _mark("P2 constraint evaluation")
 
     # ---- P3: composition poly + LDE + commitment ----

@@ -1,4 +1,4 @@
-# Copy of starkpack_winterfell_tpu/prover/channel.py; cut: the sequential non-BLAKE3 nonce search; the batched search runs on tensors (device of the prove).
+# Copy of starkpack_winterfell_tpu/prover/channel.py; cut: nothing; the batched BLAKE3 nonce search runs on tensors (device of the prove).
 """Prover-side Fiat-Shamir channel — equivalent of prover/src/channel.rs.
 
 The exact transcript order (SURVEY.md §3.1) is driven from here; every
@@ -117,6 +117,16 @@ class ProverChannel:
     def _find_nonce(self, grinding_factor: int) -> int:
         if grinding_factor == 0:
             return 1  # (1..).find(|_| trailing_zeros >= 0) == 1
+        if not self.hasher.NAME.startswith("blake3"):
+            # sequential search over the byte API (serial reference
+            # semantics; lowest valid nonce)
+            seed = self.public_coin.seed
+            nonce = 1
+            while True:
+                head = int.from_bytes(self.hasher.merge_with_int(seed, nonce)[:8], "little")
+                if head & ((1 << grinding_factor) - 1) == 0:
+                    return nonce
+                nonce += 1
         # the coin seed is exactly one digest (24 bytes for blake3_192, 32
         # for blake3_256); digest_from_bytes zero-pads the words
         seed_words = torch.from_numpy(

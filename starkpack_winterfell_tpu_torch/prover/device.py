@@ -43,7 +43,8 @@ from .constraints import (
     tile_period,
 )
 
-PORTED_HASHERS = ("blake3_256", "blake3_192")
+PORTED_HASHERS = ("blake3_256", "blake3_192")  # the f64 paths
+LIMB_HASHERS = ("blake3_256", "blake3_192", "sha3_256")  # the limb path
 HOST_DIV_TABLE = 4096  # divisor periods up to this are inverted on the host
 
 _logger = logging.getLogger("starkpack_winterfell_tpu_torch.prover.device")
@@ -329,8 +330,6 @@ def prove_device(prover, n: int, traces, device="cuda"):
             f"aux segments={traces[0].num_aux_segments()}"
         )
 
-    if hname not in PORTED_HASHERS:
-        refuse(f"ported hashers: {', '.join(PORTED_HASHERS)}")
     if traces[0].num_aux_segments() > 0:
         refuse("auxiliary trace segments are not ported")
     if ext_deg != 1:
@@ -338,11 +337,13 @@ def prove_device(prover, n: int, traces, device="cuda"):
     if field != "f64":
         if field not in ("f128", "f62"):
             refuse("no backend for this field")
-        if hname != "blake3_256":
-            refuse("the limb pipeline is ported with blake3_256 only")
+        if hname not in LIMB_HASHERS:
+            refuse(f"the limb pipeline is ported with {', '.join(LIMB_HASHERS)}")
         from ..parallel.full_pipeline import prove_mesh
 
         return prove_mesh(prover, n, traces, dev)
+    if hname not in PORTED_HASHERS:
+        refuse(f"the f64 pipelines are ported with {', '.join(PORTED_HASHERS)}")
     if length >= device_big.MIN_TRACE_LENGTH:
         dummy_ccs = [0] * air0.context.num_assertions()
         bt = air0.get_boundary_constraints(None, dummy_ccs)

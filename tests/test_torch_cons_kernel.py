@@ -153,5 +153,73 @@ def test_emitted_f62_source_uses_the_one_word_field():
 
 @pytest.mark.parametrize("group", [("aux", 0, 1), ("main", 0, 4)])
 def test_kernel_refuses_aux_and_sequence_assertions(group):
-    with pytest.raises(NotImplementedError):
+    """Aux segments are still refused; a main-segment sequence (poly_len 4)
+    is taken since the kernel reads sequence tables."""
+    if group[0] == "aux":
+        with pytest.raises(NotImplementedError):
+            t_cons._check_groups([[group]])
+    else:
         t_cons._check_groups([[group]])
+        assert t_cons.seq_count([[group], [("main", 1, 1)]]) == 1
+
+
+def test_plain_version_matches_the_kernel_body_on_lamport_agg_sequences():
+    """The Lamport-agg plan (4 signatures at k = 15: 11 single values, three
+    sequence assertions over 4 values each) with random sequence tables,
+    periodic columns of periods 8 and 128 and n = 2 instances: the plain
+    version against the Pallas kernel's body, ``eval_block`` of the JAX
+    package, run on numpy arrays (as the JAX package's own tests do, the
+    Lamport-agg body is not compiled in interpret mode: XLA:CPU takes many
+    minutes over it).  0 mismatching words."""
+    from starkpack_winterfell_tpu.air.transition import EvaluationFrame as JFrame
+    from starkpack_winterfell_tpu.models import lamport128_agg as j_agg
+    from starkpack_winterfell_tpu.ops.felt import Felt as JFelt
+    from starkpack_winterfell_tpu_torch.models import lamport128_agg as t_agg
+    from starkpack_winterfell_tpu_torch.parallel.full_pipeline import plan_groups
+
+    msgs, pks = [9, 10, 11, 12], [[1, 2], [3, 4], [5, 6], [7, 8]]
+    j_air = j_agg.Lamport128AggAir(J.TraceInfo(14, 512), j_agg.LamportAggInputs(msgs, pks),
+                                   J.ProofOptions(*OPTIONS))
+    t_air = t_agg.Lamport128AggAir(T.TraceInfo(14, 512), t_agg.LamportAggInputs(msgs, pks),
+                                   T.ProofOptions(*OPTIONS))
+    groups = plan_groups(t_air.get_boundary_constraints(None, [0] * t_air.context.num_assertions()))
+    n_seq = t_cons.seq_count(groups)
+    assert n_seq == 3
+    n, w, K, ce, shift, blowup = 2, 14, 14, 256, 2, 8
+    L = ce * shift
+    n_ccs = sum(len(g) for g in groups)
+    n_singles = n_ccs - n_seq
+    NS = K + n_singles + n_ccs + 1
+    periods = [len(c) * 2 for c in t_air.get_periodic_column_values()]
+    rng = np.random.default_rng(41)
+    rows = rand_planes(rng, (n, w, L))
+    pers = [rand_planes(rng, (p,)) for p in periods]
+    divs = [rand_planes(rng, (ce,)) for _ in range(1 + len(groups))]
+    seqs = [rand_planes(rng, (n, ce)) for _ in range(n_seq)]
+    bank = rand_planes(rng, (n, NS))
+
+    # the JAX package's body on its u32 limb planes: frames sliced as
+    # parallel/full_pipeline.py :472-485 does, periodic columns ce-expanded
+    JB = j_backend("f128")
+    ext = [np.concatenate([l, l[:, :, :blowup]], axis=2) for l in rows]
+    cur = [JFelt((tuple(le[:, c, :-blowup:shift] for le in ext),), B=JB) for c in range(w)]
+    nxt = [JFelt((tuple(le[:, c, blowup::shift] for le in ext),), B=JB) for c in range(w)]
+    pv = [JFelt((tuple(np.tile(l, ce // l.shape[0]) for l in p),), B=JB) for p in pers]
+
+    def scal(row):
+        return (tuple(l[:, row : row + 1] for l in bank),)
+
+    acc = j_cons.eval_block(
+        JB, j_air, [tuple(g) for g in groups], K, JFrame(cur, nxt), pv,
+        [scal(r) for r in range(K)], [scal(K + r) for r in range(n_singles)],
+        [(t,) for t in seqs], [scal(K + n_singles + r) for r in range(n_ccs)],
+        [(d,) for d in divs])
+    want = JB.vsum(JB.vmul(acc, scal(NS - 1)), axis=0)[0]
+
+    t_scal = torch.stack(from_limb_planes(bank), dim=-1).contiguous()
+    got = t_cons.constraint_eval_plain(
+        t_backend("f128"), t_air, groups, K, shift, blowup, (from_limb_planes(rows),),
+        [from_limb_planes(p) for p in pers], [from_limb_planes(d) for d in divs], t_scal,
+        [from_limb_planes(t) for t in seqs])[0]
+    mismatching = sum(int((np.asarray(x) != g).sum()) for g, x in zip(to_limb_planes(got), want))
+    assert mismatching == 0

@@ -15,6 +15,9 @@ import pytest
 import _torch_one_thread
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# every child interpreter here takes seconds; a hung one fails its test long
+# before the suite's own time limit
+SUBPROCESS_TIMEOUT = 120
 
 LEAK_CHECK = """
 import sys
@@ -31,7 +34,7 @@ def _run(code, env_extra=None):
     env.update(_torch_one_thread.ENV, **(env_extra or {}))
     return subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, env=env,
-        capture_output=True, text=True, timeout=300,
+        capture_output=True, text=True, timeout=SUBPROCESS_TIMEOUT,
     )
 
 
@@ -59,6 +62,11 @@ def _run(code, env_extra=None):
     "starkpack_winterfell_tpu_torch.crypto.hashers, "
     "starkpack_winterfell_tpu_torch.models.do_work, "
     "starkpack_winterfell_tpu_torch.models.fibonacci",
+    # the Lamport+ slice and SHA3
+    "starkpack_winterfell_tpu_torch.models.lamport128, "
+    "starkpack_winterfell_tpu_torch.models.lamport128_agg, "
+    "starkpack_winterfell_tpu_torch.ops.keccak, "
+    "starkpack_winterfell_tpu_torch.native",
     "chip_smoke",
     "profile_prove",
 ])
@@ -100,15 +108,15 @@ def test_cli_runs_on_the_cpu_and_refuses_the_default_device():
             "rescue-chain", "-n", "1", "-l", "128"]
     env = dict(os.environ, PYTHONPATH=ROOT, **_torch_one_thread.ENV)
     r = subprocess.run(base, cwd=ROOT, env=env, capture_output=True, text=True,
-                       timeout=300)
+                       timeout=SUBPROCESS_TIMEOUT)
     assert r.returncode != 0 and "cuda" in r.stderr.lower()
     # 1024 rows is below the big-trace path: the small-trace path proves it
     r = subprocess.run(base + ["--device", "cpu"], cwd=ROOT, env=env,
-                       capture_output=True, text=True, timeout=300)
+                       capture_output=True, text=True, timeout=SUBPROCESS_TIMEOUT)
     assert r.returncode == 0 and "Proof verified" in r.stdout, r.stderr
     # an unported config is named, not carried on with
     r = subprocess.run(base + ["--device", "cpu", "-e", "2"], cwd=ROOT, env=env,
-                       capture_output=True, text=True, timeout=300)
+                       capture_output=True, text=True, timeout=SUBPROCESS_TIMEOUT)
     assert r.returncode != 0 and "NotImplementedError" in r.stderr
 
 
@@ -120,7 +128,19 @@ def test_small_trace_cli_runs_on_the_cpu(args):
     base = [sys.executable, "-m", "starkpack_winterfell_tpu_torch.models.cli"] + args
     env = dict(os.environ, PYTHONPATH=ROOT, **_torch_one_thread.ENV)
     r = subprocess.run(base + ["--device", "cpu"], cwd=ROOT, env=env,
-                       capture_output=True, text=True, timeout=300)
+                       capture_output=True, text=True, timeout=SUBPROCESS_TIMEOUT)
+    assert r.returncode == 0 and "Proof verified" in r.stdout, r.stderr
+
+
+@pytest.mark.parametrize("args", [
+    ["lamport128", "-n", "2", "-l", "128", "--hash", "sha3_256"],
+    ["lamport128-agg", "-n", "1", "-l", "2048", "--hash", "blake3_192", "-q", "8"],
+])
+def test_lamport_cli_runs_on_the_cpu(args):
+    base = [sys.executable, "-m", "starkpack_winterfell_tpu_torch.models.cli"] + args
+    env = dict(os.environ, PYTHONPATH=ROOT, **_torch_one_thread.ENV)
+    r = subprocess.run(base + ["--device", "cpu"], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=SUBPROCESS_TIMEOUT)
     assert r.returncode == 0 and "Proof verified" in r.stdout, r.stderr
 
 
@@ -129,16 +149,16 @@ def test_limb_cli_runs_on_the_cpu_and_refuses_the_default_device():
             "fib-f128", "-n", "2", "-l", "64"]
     env = dict(os.environ, PYTHONPATH=ROOT, **_torch_one_thread.ENV)
     r = subprocess.run(base, cwd=ROOT, env=env, capture_output=True, text=True,
-                       timeout=300)
+                       timeout=SUBPROCESS_TIMEOUT)
     assert r.returncode != 0 and "cuda" in r.stderr.lower()
     r = subprocess.run(base + ["--device", "cpu"], cwd=ROOT, env=env,
-                       capture_output=True, text=True, timeout=300)
+                       capture_output=True, text=True, timeout=SUBPROCESS_TIMEOUT)
     assert r.returncode == 0 and "Proof verified" in r.stdout, r.stderr
 
 
 def test_chip_smoke_exits_nonzero_without_a_card():
     r = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")],
                        cwd=ROOT, env=dict(os.environ, **_torch_one_thread.ENV),
-                       capture_output=True, text=True, timeout=300)
+                       capture_output=True, text=True, timeout=SUBPROCESS_TIMEOUT)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout

@@ -1,7 +1,8 @@
-"""PyTorch port, the Goldilocks NTT kernels' CUDA sources on the CPU:
-csrc/ntt_tile.cu (kernel 1) and csrc/ntt_dit.cu (kernels 2 and 3) compiled
-by the host's C++ compiler against a stub ``cuda_runtime.h`` and run with
-ONE thread per block, held against the plain PyTorch versions beside their
+"""PyTorch port, kernel CUDA sources on the CPU: csrc/ntt_tile.cu (kernel 1),
+csrc/ntt_dit.cu (kernels 2 and 3) and the constraint kernel (kernel 5: the
+body ops/cons_kernel.py emits, in the frame csrc/cons_frame.cuh) compiled by
+the host's C++ compiler against a stub ``cuda_runtime.h`` and run with ONE
+thread per block, held against the plain PyTorch versions beside their
 wrappers.
 
 With one thread a block, every ``for (t = threadIdx.x; ...; t +=
@@ -21,7 +22,16 @@ import numpy as np
 import pytest
 import torch
 
+import starkpack_winterfell_tpu_torch as T
+from starkpack_winterfell_tpu_torch.models.fib_multifield import get_fib_family
+from starkpack_winterfell_tpu_torch.models.lamport128_agg import (
+    Lamport128AggAir,
+    LamportAggInputs,
+)
+from starkpack_winterfell_tpu_torch.ops import cons_kernel as tcons
 from starkpack_winterfell_tpu_torch.ops import gl64 as tgl, ntt4 as tntt4, ntt_kernel as tk
+from starkpack_winterfell_tpu_torch.ops.backend import get_backend
+from starkpack_winterfell_tpu_torch.parallel.full_pipeline import plan_groups
 
 import _torch_one_thread  # noqa: F401  (one torch thread a test worker)
 
@@ -190,3 +200,96 @@ def test_last_axis_kernel_source_matches_the_plain_version(host_kernels, rows, n
                                           scale or 0, int(scaled), x.stride(0), x.stride(1),
                                           rows, n, n_in, log_rb)
         assert torch.equal(got, want), (inverse, pre_on, scaled)
+
+
+HARNESS_CONS = """
+extern "C" void host_cons_eval(const uint64_t* lde_lo, const uint64_t* lde_hi,
+                               const uint64_t* per_lo, const uint64_t* per_hi,
+                               const uint64_t* div_lo, const uint64_t* div_hi,
+                               const uint64_t* seq_lo, const uint64_t* seq_hi,
+                               const uint64_t* scal, uint64_t* out_lo, uint64_t* out_hi,
+                               int n, long long L, long long ce, int shift, int blowup,
+                               int per_len) {
+  blockDim.x = 1;
+  for (long long j = 0; j < ce; ++j) {
+    blockIdx.x = (unsigned)j;
+    cons_eval_kernel(lde_lo, lde_hi, per_lo, per_hi, div_lo, div_hi, seq_lo, seq_hi, scal,
+                     out_lo, out_hi, n, L, ce, shift, blowup, per_len);
+  }
+}
+"""
+
+
+def _cons_air(case):
+    """(AIR, field) of a constraint-kernel rehearsal: the Lamport-agg body
+    with its three sequence tables (4 signatures at k = 15), or fib-f62
+    (one-word field, single values only)."""
+    options = T.ProofOptions(16, 8, 0, 1, 4, 31)
+    if case == "lamport-agg":
+        pub = LamportAggInputs([9, 10, 11, 12], [[1, 2], [3, 4], [5, 6], [7, 8]])
+        return Lamport128AggAir(T.TraceInfo(14, 512), pub, options), "f128"
+    fam = get_fib_family("f62")
+    return fam[0](T.TraceInfo(2, 64), fam[3](5), options), "f62"
+
+
+@pytest.mark.parametrize("case", ["lamport-agg", "fib-f62"])
+def test_constraint_kernel_source_matches_the_plain_version(tmp_path, case):
+    """The emitted body in its frame, one thread a point, against
+    ``constraint_eval_plain`` on random inputs: periodic columns of two
+    periods tiled as the wrapper tiles them, sequence tables, n = 2."""
+    air, field = _cons_air(case)
+    B = get_backend(field)
+    template = air.get_boundary_constraints(None, [0] * air.context.num_assertions())
+    groups = plan_groups(template)
+    w, K = air.trace_info().width(), air.context.num_transition_constraints()
+    periods = [len(c) for c in air.get_periodic_column_values()]
+    n_seq = tcons.seq_count(groups)
+    assert n_seq == (3 if case == "lamport-agg" else 0)
+    _, src = tcons.kernel_source(air, w, len(periods), K, groups)
+
+    cxx = next((c for c in ("g++", "c++", "clang++") if shutil.which(c)), None)
+    (tmp_path / "cuda_runtime.h").write_text(STUB)
+    (tmp_path / "cons_frame.cuh").write_text(_kernels_only("cons_frame.cuh"))
+    (tmp_path / "cons.cpp").write_text(open(src).read() + HARNESS_CONS)
+    so = tmp_path / "libcons.so"
+    r = subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", str(tmp_path),
+                        "-I", CSRC, "-o", str(so), str(tmp_path / "cons.cpp")],
+                       capture_output=True, text=True)
+    assert r.returncode == 0, r.stderr
+    lib = ctypes.CDLL(str(so))
+    lib.host_cons_eval.argtypes = [ctypes.c_void_p] * 11 + [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_int] * 3
+
+    n, ce, shift, blowup = 2, 256, 2, 8
+    L = ce * shift
+    n_ccs = sum(len(g) for g in groups)
+    rng = np.random.default_rng(7 + n_seq)
+
+    def rand(shape):
+        ints = [int.from_bytes(rng.bytes(16), "little") % B.P
+                for _ in range(int(np.prod(shape)))]
+        return tuple(l.reshape(shape) for l in B.b_from_ints(ints))
+
+    rows = (rand((n, w, L)),)
+    per_len = max(periods, default=1) * 2
+    pers = [rand((p * 2,)) for p in periods]
+    divs = [rand((ce,)) for _ in range(1 + len(groups))]
+    seqs = [rand((n, ce)) for _ in range(n_seq)]
+    scal = torch.stack(rand((n, K + 2 * n_ccs - n_seq + 1)), dim=-1).contiguous()
+    want = tcons.constraint_eval_plain(B, air, groups, K, shift, blowup, rows, pers, divs,
+                                       scal, seqs)[0]
+
+    k = len(rows[0])
+    per = [torch.stack([t[l].repeat(per_len // t[l].shape[0]) for t in pers]) if pers
+           else torch.zeros(1, dtype=torch.int64) for l in range(k)]
+    div = [torch.stack([t[l] for t in divs]) for l in range(k)]
+    seq = [torch.stack([t[l] for t in seqs]) if seqs else torch.zeros(1, dtype=torch.int64)
+           for l in range(k)]
+    out = [torch.zeros(ce, dtype=torch.int64) for _ in range(k)]
+
+    def pair(planes):
+        return [_ptr(p) for p in planes] + [None] * (2 - k)
+
+    lib.host_cons_eval(*pair(rows[0]), *pair(per), *pair(div), *pair(seq), _ptr(scal),
+                       *pair(out), n, L, ce, shift, blowup, per_len)
+    assert all(torch.equal(g, x) for g, x in zip(out, want))
