@@ -54,7 +54,6 @@ import contextlib
 import hashlib
 import json
 import os
-import re
 import statistics
 import subprocess
 import sys
@@ -101,9 +100,17 @@ from starkpack_winterfell_tpu_torch.ops import ntt4
 from starkpack_winterfell_tpu_torch.ops import ntt_kernel
 from starkpack_winterfell_tpu_torch.ops.backend import get_backend
 from starkpack_winterfell_tpu_torch.parallel import full_pipeline
-from starkpack_winterfell_tpu_torch.parallel.full_pipeline import plan_groups
 
-from kernel_times import ProfilerDroppedRecords, device_kernel_ms, timed_prove
+from kernel_times import (
+    ProfilerDroppedRecords,
+    cons_args,
+    cons_config,
+    device_kernel_ms,
+    hold_cons,
+    ptxas_report,
+    random_limb,
+    timed_prove,
+)
 
 BENCH_OPTIONS = (28, 8, 16, FieldExtension.NONE, 4, 31)
 BLOWUP = 8
@@ -662,14 +669,6 @@ def phase_aggregated(prover, kernel_rows, rng, device):
 FIB = {field: get_fib_family(field) for field in ("f128", "f62")}
 
 
-def limb_air_config(air0):
-    """(w, periodic columns, K, plan groups) of the constraint kernel of an
-    AIR — what keys its emitted source."""
-    template = air0.get_boundary_constraints(None, [0] * air0.context.num_assertions())
-    return (air0.trace_info().width(), len(air0.get_periodic_column_values()),
-            air0.context.num_transition_constraints(), plan_groups(template))
-
-
 def smoke_airs():
     """One AIR object per constraint kernel the limb phases launch (the
     emitted body depends on the AIR class and which assertions are
@@ -684,18 +683,6 @@ def smoke_airs():
     airs[("f128", "Lamport128Air")] = lam.Lamport128Air(
         TraceInfo(lam.TRACE_WIDTH, 128), lam.Lamport128Inputs(1, [1, 2]), options)
     return airs
-
-
-def random_limb(field, shape, rng, device):
-    """Canonical elements of a limb field drawn with numpy from the run's
-    seed, as word planes: f128 (lo, hi) with hi below 2^64 - 1, which keeps
-    every value below p; f62 one word below p."""
-    if field == "f62":
-        return (gl.from_u64(rng.integers(0, get_backend("f62").P, size=shape,
-                                         dtype=np.uint64), device),)
-    lo = rng.integers(0, 1 << 64, size=shape, dtype=np.uint64)
-    hi = rng.integers(0, (1 << 64) - 1, size=shape, dtype=np.uint64)
-    return gl.from_u64(lo, device), gl.from_u64(hi, device)
 
 
 def mismatching(got, want):
@@ -758,61 +745,23 @@ def compare_limb_tile(key, rng, device, used_by):
     }
 
 
-def ptxas_report(lib_name: str):
-    """nvcc seconds and ptxas's registers, spills and stack frame of each
-    kernel of a library this process built (``native.BUILD_LOGS``)."""
-    if lib_name not in native.BUILD_LOGS:
-        return None
-    seconds, log = native.BUILD_LOGS[lib_name]
-    kernels, current = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            current = kernels.setdefault(m.group(1), {})
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", line)
-        if m and current is not None:
-            current.update(stack_frame_bytes=int(m.group(1)),
-                           spill_store_bytes=int(m.group(2)),
-                           spill_load_bytes=int(m.group(3)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and current is not None:
-            current["registers"] = int(m.group(1))
-    return {"nvcc_s": seconds, "kernels": kernels}
-
-
 def compare_cons(key, air0, rng, device, used_by):
     """Kernel 5 at one launched shape (AIR, n, w, ce, sequence tables) on
     random inputs: kernel against ``constraint_eval_plain``, then its time."""
     field, air_name, n, w, ce, n_seq = key
-    B = get_backend(field)
-    cost, el_bytes = OPS_LIMB[field], B.ELEMENT_BYTES
-    w_air, n_per, K, groups = limb_air_config(air0)
+    cost, el_bytes = OPS_LIMB[field], get_backend(field).ELEMENT_BYTES
+    w_air, n_per, K, groups = cons_config(air0)
     assert w_air == w and cons_kernel.seq_count(groups) == n_seq
-    shift = BLOWUP // air0.ce_blowup_factor()
+    args = cons_args(air0, n, ce, BLOWUP, rng, device)
+    shift, pers, scal = args[4], args[7], args[9]
     L = ce * shift
     n_ccs = sum(len(g) for g in groups)
-    rows = (random_limb(field, (n, w, L), rng, device),)
-    # one period of each periodic column over the ce domain, at its own period
-    periods = [len(c) * air0.ce_blowup_factor() for c in air0.get_periodic_column_values()]
-    pers = [random_limb(field, (p,), rng, device) for p in periods]
-    divs = [random_limb(field, (ce,), rng, device) for _ in range(1 + len(groups))]
-    seqs = [random_limb(field, (n, ce), rng, device) for _ in range(n_seq)]
-    scal = torch.stack(random_limb(field, (n, K + 2 * n_ccs - n_seq + 1), rng, device),
-                       dim=-1).contiguous()
-    args = (B, air0, groups, K, shift, BLOWUP, rows, pers, divs, scal, seqs)
-    got = cons_kernel.constraint_eval(*args)[0]
-    want = cons_kernel.constraint_eval_plain(*args)[0]
-    torch.cuda.synchronize()
-    mism = mismatching(got, want)
-    if mism:
-        raise RuntimeError(f"the constraint kernel disagrees with its plain "
-                           f"version in {mism} words at {key}")
-    err = max(float((g - x).abs().max()) for g, x in zip(got, want))
-    del got, want
+    periods = [p[0].shape[0] for p in pers]  # one period of each column over the ce domain
+    err, _ = hold_cons(args, key)
     # bound: every input read once, the output written once; the recorded
     # transition plus the frame's operations per point and instance
-    counts = cons_kernel.count_ops(cons_kernel.record_transition(air0, w, n_per, K)[0])
+    body, results = cons_kernel.record_transition(air0, w, n_per, K)
+    counts = cons_kernel.count_ops(body)
     mul = counts["mul"] + K + 1 + len(groups) + n_ccs + 1
     add = counts["add"] + (K - 1) + len(groups) + n_ccs + 1
     sub = counts["sub"] + counts["neg"] + n_ccs
@@ -828,7 +777,8 @@ def compare_cons(key, air0, rng, device, used_by):
                            bound_ms, cons_kernel)
     plain_ms = time_cuda(lambda: cons_kernel.constraint_eval_plain(*args), 1)
     lib_name, path = cons_kernel.kernel_source(air0, w, n_per, K, groups)
-    del rows, pers, divs, seqs, args
+    design = cons_kernel.design(body, results)
+    del args, pers, scal
     torch.cuda.empty_cache()
     row = {
         "name": f"cons_eval[{field} {air_name} n={n} w={w} ce={ce}"
@@ -839,8 +789,14 @@ def compare_cons(key, air0, rng, device, used_by):
         "emitted_source": os.path.relpath(path, os.path.dirname(os.path.abspath(__file__))),
         "emitted_lines": open(path).read().count("\n"),
         "field_ops_per_point": {"mul": mul, "sqr": counts["sqr"], "add": add, "sub": sub},
+        # the emitter's design of the body: its roles (results, mul+sqr of
+        # each, repeated between them), the blocks an SM must hold; the
+        # body's field constants, all literals
+        "roles": len(design["roles"]), "design": design,
+        "constants": {"placement": "literals",
+                      "count": sum(op[0] == "const" for op in body)},
         "sequence_table_bytes": el_bytes * n_seq * n * ce,
-        "ptxas": ptxas_report(lib_name),
+        "ptxas": ptxas_report(native.BUILD_LOGS, lib_name),
         "replaces": "starkpack_winterfell_tpu/ops/pallas/cons_kernel.py:137",
         "used_by": [used_by], "launches": 0, "launches_by_path": {},
         "max_abs_err": err, **timing,
@@ -1115,7 +1071,7 @@ def build_all():
     }
     for (field, name), air0 in airs.items():
         jobs[f"cons_eval {field} {name}"] = lambda air0=air0: cons_kernel._lib(
-            air0, *limb_air_config(air0))
+            air0, *cons_config(air0))
     seconds = {}
 
     def run(item):
@@ -1128,14 +1084,14 @@ def build_all():
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         list(pool.map(run, jobs.items()))
     root = os.path.dirname(os.path.abspath(__file__))
-    emitted = [cons_kernel.kernel_source(a, *limb_air_config(a))[1] for a in airs.values()]
+    emitted = [cons_kernel.kernel_source(a, *cons_config(a))[1] for a in airs.values()]
     emit("build", wall_s=time.perf_counter() - t0, seconds=seconds,
          sources=[os.path.relpath(p, root) for p in
                   ntt4.kernel_sources() + ntt_kernel.kernel_sources()
                   + limb_ntt.kernel_sources() + emitted],
          emitted_lines={os.path.relpath(p, root): open(p).read().count("\n")
                         for p in emitted},
-         ptxas={name: ptxas_report(name) for name in native.BUILD_LOGS})
+         ptxas={name: ptxas_report(native.BUILD_LOGS, name) for name in native.BUILD_LOGS})
 
 
 def main(argv=None):

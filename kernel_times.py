@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Device-only times of the port's Goldilocks NTT kernels on one NVIDIA GPU,
-for one checkout of the port: this one, or another commit unpacked beside it.
+"""Device-only times of the port's Goldilocks NTT kernels and of its
+constraint kernel on one NVIDIA GPU, for one checkout of the port: this one,
+or another commit unpacked beside it.
 
-    python3 kernel_times.py [--root DIR] [--prove]
+    python3 kernel_times.py [--root DIR] [--prove] [--only ntt|cons] [--variants]
 
 ``--root`` names the directory whose ``starkpack_winterfell_tpu_torch``
 package is measured (default: the one beside this script), so that two
@@ -27,7 +28,16 @@ measurement:
 * ``host``: host microseconds per wrapper call, perf_counter over 1000 calls
   with no synchronisation (the kernel wrappers of kernels 1, 3 and 4);
 * ``prove`` (with ``--prove``): one warm and one timed 2^20 x 12 Rescue-chain
-  prove: its phase walls, peak device memory and kernel launches.
+  prove: its phase walls, peak device memory and kernel launches;
+* ``cons``: kernel 5, the constraint kernel (``time_cons``), at the
+  Lamport+ 1024- and 64-signature shapes and the f128 Rescue128 2^18 x 6
+  one, held against its plain version, with ptxas's registers and spills;
+  with ``--variants`` (this checkout only) also with the emitter's rules
+  varied (``CONS_VARIANTS``).
+
+``--only`` times the NTT kernels alone (``ntt``) or kernel 5 alone
+(``cons``).  ``cons_args`` and ``hold_cons`` also build and check
+``chip_smoke.py``'s kernel-5 inputs.
 
 ``device_kernel_ms`` and ``timed_prove`` are also what ``chip_smoke.py``
 times kernels and proves with.  Inputs are drawn from a fixed numpy seed.
@@ -38,9 +48,12 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
+import contextlib
 import json
 import logging
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -192,6 +205,189 @@ def timed_prove(prover, traces):
     return proof, seconds, log.phases
 
 
+def ptxas_report(build_logs, lib_name: str):
+    """nvcc seconds and ptxas's registers, spills and stack frame of each
+    kernel of a library this process built (``native.BUILD_LOGS``)."""
+    if lib_name not in build_logs:
+        return None
+    seconds, log = build_logs[lib_name]
+    kernels, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            current = kernels.setdefault(m.group(1), {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and current is not None:
+            current.update(stack_frame_bytes=int(m.group(1)),
+                           spill_store_bytes=int(m.group(2)),
+                           spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current is not None:
+            current["registers"] = int(m.group(1))
+    return {"nvcc_s": seconds, "kernels": kernels}
+
+
+# kernel 5's designs timed beside the emitter's rules (``--variants``): name
+# -> the rule constants of ops/cons_kernel.py it sets
+CONS_VARIANTS = {
+    "rules": {},
+    "one role": {"SPLIT_MIN_MULS": 1 << 30},
+    "two roles": {"SPLIT_MAX_REPEAT": 1.0},
+    "inputs held from first use": {"RELOADED": ("const",)},
+    "min blocks 4": {"MIN_BLOCKS": 4},
+    "min blocks 2": {"MIN_BLOCKS": 2},
+}
+
+
+@contextlib.contextmanager
+def cons_rules(cons_kernel, **rules):
+    """The emitter's rule constants set to ``rules`` for the duration, with
+    the wrapper's library cache emptied on the way in and out."""
+    old = {k: getattr(cons_kernel, k) for k in rules}
+    cons_kernel._LIBS.clear()
+    for k, v in rules.items():
+        setattr(cons_kernel, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(cons_kernel, k, v)
+        cons_kernel._LIBS.clear()
+
+
+def random_limb(field, shape, rng, device):
+    """Canonical elements of a limb field drawn with numpy from ``rng``, as
+    word planes: f128 (lo, hi) with hi below 2^64 - 1, which keeps every
+    value below p; f62 one word below p."""
+    from starkpack_winterfell_tpu_torch.ops import gl64 as gl
+    from starkpack_winterfell_tpu_torch.ops.backend import get_backend
+
+    if field == "f62":
+        return (gl.from_u64(rng.integers(0, get_backend("f62").P, size=shape,
+                                         dtype=np.uint64), device),)
+    lo = rng.integers(0, 1 << 64, size=shape, dtype=np.uint64)
+    hi = rng.integers(0, (1 << 64) - 1, size=shape, dtype=np.uint64)
+    return gl.from_u64(lo, device), gl.from_u64(hi, device)
+
+
+def cons_config(air0):
+    """(w, periodic columns, K, plan groups) of kernel 5 for an AIR: what
+    keys its emitted source."""
+    from starkpack_winterfell_tpu_torch.parallel.full_pipeline import plan_groups
+
+    template = air0.get_boundary_constraints(None, [0] * air0.context.num_assertions())
+    return (air0.trace_info().width(), len(air0.get_periodic_column_values()),
+            air0.context.num_transition_constraints(), plan_groups(template))
+
+
+def cons_args(air0, n: int, ce: int, blowup: int, rng, device):
+    """Arguments of ``constraint_eval`` / ``constraint_eval_plain`` for an
+    AIR at n instances and ce points, on random elements: LDE rows (n, w,
+    ce * shift), one period of each periodic column at its own period, the
+    divisor tables, the scalar bank, the (n, ce) sequence tables."""
+    from starkpack_winterfell_tpu_torch.ops.backend import get_backend
+
+    field = air0.field_spec().name
+    w, _, K, groups = cons_config(air0)
+    shift = blowup // air0.ce_blowup_factor()
+    n_ccs = sum(len(g) for g in groups)
+    n_seq = sum(pl > 1 for g in groups for (_, _, pl) in g)
+    rows = (random_limb(field, (n, w, ce * shift), rng, device),)
+    pers = [random_limb(field, (len(c) * air0.ce_blowup_factor(),), rng, device)
+            for c in air0.get_periodic_column_values()]
+    divs = [random_limb(field, (ce,), rng, device) for _ in range(1 + len(groups))]
+    seqs = [random_limb(field, (n, ce), rng, device) for _ in range(n_seq)]
+    scal = torch.stack(random_limb(field, (n, K + 2 * n_ccs - n_seq + 1), rng, device),
+                       dim=-1).contiguous()
+    return (get_backend(field), air0, groups, K, shift, blowup, rows, pers, divs, scal, seqs)
+
+
+def hold_cons(args, where, want=None):
+    """Kernel 5 on ``cons_args`` against its plain version (``want``, or
+    computed here): raises RuntimeError naming ``where`` on any mismatching
+    word.  Returns (largest absolute difference of a word, the plain
+    version's output)."""
+    from starkpack_winterfell_tpu_torch.ops import cons_kernel
+
+    got = cons_kernel.constraint_eval(*args)[0]
+    if want is None:
+        want = cons_kernel.constraint_eval_plain(*args)[0]
+    torch.cuda.synchronize()
+    mism = sum(int((g != x).sum()) for g, x in zip(got, want))
+    if mism:
+        raise RuntimeError(f"the constraint kernel disagrees with its plain version in "
+                           f"{mism} words at {where}")
+    return max(float((g - x).abs().max()) for g, x in zip(got, want)), want
+
+
+def time_cons(label, variants: bool, dev):
+    """Kernel 5 (``ops/cons_kernel.py:constraint_eval``) at the shapes of
+    the 1024- and 64-signature Lamport+ proves (n = 1, w = 14, ce = 2^23 and
+    2^19, three sequence tables) and of the f128 Rescue128 2^18 x 6 prove
+    (ce = 2^21), on random inputs from a fixed seed: each design held
+    against ``constraint_eval_plain`` (``hold_cons``), then its device time
+    (``device_kernel_ms``) and ptxas's report.  With ``variants`` the
+    designs of ``CONS_VARIANTS`` are timed beside the rules at the largest
+    Lamport+ shape and the Rescue128 one; their libraries are emitted first
+    and built in parallel."""
+    from starkpack_winterfell_tpu_torch import FieldExtension, ProofOptions, TraceInfo, native
+    from starkpack_winterfell_tpu_torch.models import lamport128_agg as lagg
+    from starkpack_winterfell_tpu_torch.models.rescue128_chain import (
+        Rescue128ChainAir, Rescue128ChainInputs)
+    from starkpack_winterfell_tpu_torch.ops import cons_kernel
+
+    options = ProofOptions(28, 8, 16, FieldExtension.NONE, 4, 31)
+    blowup = 8
+
+    def lamport(sigs, rows):
+        pub = lagg.LamportAggInputs([1] * sigs, [[1, 2]] * sigs)
+        return lagg.Lamport128AggAir(TraceInfo(14, rows), pub, options)
+
+    shapes = {  # name -> (AIR, rows, designs timed)
+        "lamport-agg 1024 signatures": (lamport(1024, 1 << 20), 1 << 20, variants),
+        "lamport-agg 64 signatures": (lamport(64, 1 << 16), 1 << 16, False),
+        "rescue128 2^18 x 6": (Rescue128ChainAir(TraceInfo(6, 1 << 18), Rescue128ChainInputs(
+            [1, 2], [3, 4]), options), 1 << 18, variants),
+    }
+
+    def designs(timed):
+        return CONS_VARIANTS if timed else {"rules": {}}
+
+    # emit every design's source, then build them all at once
+    libs = {}
+    for air0, _, timed in shapes.values():
+        for rules in designs(timed).values():
+            with cons_rules(cons_kernel, **rules):
+                name, path = cons_kernel.kernel_source(air0, *cons_config(air0))
+            libs[name] = path
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda item: native.build_cuda(item[0], [item[1]]), libs.items()))
+
+    rng = np.random.default_rng(0)
+    for shape, (air0, rows, timed) in shapes.items():
+        w, n_per, K, groups = cons_config(air0)
+        ce = rows * blowup // (blowup // air0.ce_blowup_factor())
+        args = cons_args(air0, 1, ce, blowup, rng, dev)
+        want = None
+        for variant, rules in designs(timed).items():
+            with cons_rules(cons_kernel, **rules):
+                name, _ = cons_kernel.kernel_source(air0, w, n_per, K, groups)
+                _, want = hold_cons(args, f"{shape} ({variant})", want)
+                ms = device_kernel_ms(lambda: cons_kernel.constraint_eval(*args),
+                                      "cons_eval_kernel", sessions=6)
+                design = None
+                if hasattr(cons_kernel, "design"):
+                    ops, results = cons_kernel.record_transition(air0, w, n_per, K)
+                    design = cons_kernel.design(ops, results)
+            emit("cons", root=label, shape=shape, n=1, w=w, ce=ce,
+                 sequence_tables=cons_kernel.seq_count(groups), variant=variant,
+                 design=design, device_ms=ms, mismatching_words=0,
+                 ptxas=ptxas_report(native.BUILD_LOGS, name))
+        del args, want
+        torch.cuda.empty_cache()
+
+
 def emit(kind, **fields):
     print(json.dumps({"kind": kind, **fields}), flush=True)
 
@@ -202,6 +398,10 @@ def main(argv=None):
     p.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)),
                    help="directory holding the starkpack_winterfell_tpu_torch to time")
     p.add_argument("--prove", action="store_true", help="also time a 2^20 x 12 prove")
+    p.add_argument("--only", choices=("ntt", "cons"),
+                   help="time only the NTT kernels, or only kernel 5")
+    p.add_argument("--variants", action="store_true",
+                   help="also time kernel 5 with the emitter's rules varied (this checkout)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times.py needs a CUDA device: torch.cuda.is_available() is False")
@@ -221,6 +421,10 @@ def main(argv=None):
     label = os.path.relpath(root, here)
     emit("device", root=label, nvidia_smi=smi, torch=torch.__version__)
     dev = torch.device("cuda")
+    if args.only != "ntt":
+        time_cons(label, args.variants and root == here, dev)
+    if args.only == "cons":
+        return 0
     rng = np.random.default_rng(0)
 
     def words(shape):

@@ -12,22 +12,42 @@ value is a per-instance scalar; a sequence assertion's is its per-instance
 The Pallas kernel gets its body by running the AIR's python
 ``evaluate_transition`` inside ``pallas_call``.  Here the same python runs
 ONCE on a recording Felt (``record_transition``): every add, subtract,
-multiply, square, negation and integer constant becomes one SSA operation,
-and ``emit_cuda`` writes them as straight-line CUDA C++ into a translation
-unit whose frame (``csrc/cons_frame.cuh``, written by hand) loads the frame
-rows by index, walks the instances and does everything around the
-transition.  The source goes to the build directory and is compiled with
-nvcc at first use, keyed by (AIR class, field, plan groups: which assertions
-are sequences shows in the source).
+multiply, square, negation and integer constant becomes one SSA operation.
+``emit_cuda`` applies the rules of ``design`` to that list and writes it as
+straight-line CUDA C++ into a translation unit whose frame
+(``csrc/cons_frame.cuh``, written by hand) walks the instances and does
+everything around the transition.  The source goes to the build directory
+and is compiled with nvcc at first use, keyed by (AIR class, field, plan
+groups: which assertions are sequences shows in the source).
 
 ``constraint_eval`` is the wrapper: CPU tensors take the plain version
 ``constraint_eval_plain`` (the same python AIR code, eager, through
 ``eval_block``), CUDA tensors launch the kernel or raise.
 
-Bound on an H100: up to a few hundred field multiplies per point and instance
-against the card's INT32 rate, far above the bytes of the LDE rows read
-once; the kernel keeps every intermediate in registers, so the only device
-memory traffic is the inputs and the (ce,) output.
+Bound on an H100: operations, a few hundred f128 multiplies per point and
+instance against the card's INT32 rate, far above the bytes of the LDE rows
+read once.  What binds below that is the register file: with the body
+written in the order the python recorded it, one thread a point and every
+input loaded up front, ptxas took 255 registers and spilled on the Lamport+
+body, and an SM held two blocks.  So the emitter applies rules to the
+recorded list (``design``):
+
+* roles: the results are split into two cones that share few multiplies
+  (``split_roles``) where the body is large and the split repeats little;
+  each role is its own function, run by whole warps of a block on the same
+  points, and the partials meet in shared memory;
+* schedule: each role's operations depth-first over each result's cone, so
+  each is written just before its first use; inputs and constants are
+  written again at every use (``RELOADED``), and each result is folded into
+  sum t_coef[k] * ev[k] as soon as it exists (``schedule``;
+  ``eval_schedule_int`` checks it on ints);
+* constants as literals, which IMAD takes as immediates;
+* a register ceiling: ``__launch_bounds__(128, MIN_BLOCKS)``.
+
+The frame's loads keep their address arithmetic inside the load's asm, so
+the compiler holds no column address across the body.  The arithmetic of
+each operation is the recorded one, so the work per point is the recorded
+list's, plus the frame's multiplies once per role.
 """
 
 from __future__ import annotations
@@ -41,8 +61,6 @@ import torch
 from ..air.transition import EvaluationFrame
 from ..native import launch
 from .felt import Felt
-
-THREADS = 128
 
 # launches of the CUDA kernel made by ``constraint_eval`` (and nowhere
 # else): the total, and the same split by (field, AIR class name, n, w, ce,
@@ -276,32 +294,46 @@ def record_transition(air0, w: int, n_periodic: int, K: int):
     return rec.ops, results
 
 
+def _operands(op):
+    """Positions in the list that an operation reads."""
+    if op[0] in ("add", "sub", "mul"):
+        return op[1:3]
+    if op[0] in ("sqr", "neg"):
+        return op[1:2]
+    return ()
+
+
+def _value(op, vals, cur, nxt, per, modulus: int):
+    """One operation on python ints; ``vals`` holds the earlier values."""
+    kind = op[0]
+    if kind == "cur":
+        v = cur[op[1]]
+    elif kind == "nxt":
+        v = nxt[op[1]]
+    elif kind == "per":
+        v = per[op[1]]
+    elif kind == "const":
+        v = op[1]
+    elif kind == "add":
+        v = vals[op[1]] + vals[op[2]]
+    elif kind == "sub":
+        v = vals[op[1]] - vals[op[2]]
+    elif kind == "mul":
+        v = vals[op[1]] * vals[op[2]]
+    elif kind == "sqr":
+        v = vals[op[1]] * vals[op[1]]
+    elif kind == "neg":
+        v = -vals[op[1]]
+    else:
+        raise ValueError(f"unknown operation {op!r}")
+    return v % modulus
+
+
 def eval_ops_int(ops, results, cur, nxt, per, modulus: int):
     """Evaluate a recorded operation list on python ints."""
     vals = []
     for op in ops:
-        kind = op[0]
-        if kind == "cur":
-            v = cur[op[1]]
-        elif kind == "nxt":
-            v = nxt[op[1]]
-        elif kind == "per":
-            v = per[op[1]]
-        elif kind == "const":
-            v = op[1]
-        elif kind == "add":
-            v = vals[op[1]] + vals[op[2]]
-        elif kind == "sub":
-            v = vals[op[1]] - vals[op[2]]
-        elif kind == "mul":
-            v = vals[op[1]] * vals[op[2]]
-        elif kind == "sqr":
-            v = vals[op[1]] * vals[op[1]]
-        elif kind == "neg":
-            v = -vals[op[1]]
-        else:
-            raise ValueError(f"unknown operation {op!r}")
-        vals.append(v % modulus)
+        vals.append(_value(op, vals, cur, nxt, per, modulus))
     return [vals[r] for r in results]
 
 
@@ -314,39 +346,232 @@ def count_ops(ops):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the emitter's rules: roles, schedule, constants, register ceiling
+# ---------------------------------------------------------------------------
+
+# a body is split across two roles when it has at least this many multiplies
+# (mul + sqr; below that registers do not bound it) ...
+SPLIT_MIN_MULS = 64
+# ... and its best two-way split repeats at most this share of them (the
+# Rescue128 round repeats 18 of 126, the cubes of the current row that both
+# halves need, and runs faster as one role on an H100)
+SPLIT_MAX_REPEAT = 0.1
+# the exhaustive split looks at 2^(K-1) partitions; above this many results a
+# body is not split
+SPLIT_MAX_RESULTS = 20
+# blocks of CONS_THREADS an SM must hold: ptxas's register ceiling is
+# 65536 / (128 * CONS_MIN_BLOCKS), 168 registers a thread for 3
+MIN_BLOCKS = 3
+# the kinds of operation the schedule writes again at every use instead of
+# holding in a register from the first (an input is read again from L1; on
+# an H100 as fast as holding it, and the Rescue128 body does not spill)
+RELOADED = ("const", "cur", "nxt", "per")
+
+
+def cone_masks(ops):
+    """Bit set (a python int) of each operation's cone: the operation and
+    everything it reads, directly or through others."""
+    masks = []
+    for i, op in enumerate(ops):
+        m = 1 << i
+        for a in _operands(op):
+            m |= masks[a]
+        masks.append(m)
+    return masks
+
+
+def _mul_mask(ops):
+    return sum(1 << i for i, op in enumerate(ops) if op[0] in ("mul", "sqr"))
+
+
+def split_roles(ops, results):
+    """The two-way split of the results whose heavier role has the fewest
+    multiplies (mul + sqr of the union of its results' cones), the fewest
+    repeated between the two on a tie: (role 0, role 1, multiplies of each,
+    repeated multiplies); role 0 is the lighter, since it also takes the
+    boundary groups.  None for fewer than two results or more than
+    SPLIT_MAX_RESULTS."""
+    K = len(results)
+    if K < 2 or K > SPLIT_MAX_RESULTS:
+        return None
+    cones = cone_masks(ops)
+    muls = _mul_mask(ops)
+    result_cones = [cones[r] for r in results]
+    unions = [0] * (1 << K)
+    for s in range(1, 1 << K):
+        low = s & -s
+        unions[s] = unions[s ^ low] | result_cones[low.bit_length() - 1]
+    full = (1 << K) - 1
+    total = (unions[full] & muls).bit_count()
+    best = None
+    for s in range(1, 1 << K, 2):  # result 0 on side s: each split once
+        if s == full:
+            continue
+        a = (unions[s] & muls).bit_count()
+        b = (unions[full ^ s] & muls).bit_count()
+        score = (max(a, b), a + b)
+        if best is None or score < best[0]:
+            best = (score, s, a, b)
+    _, s, a, b = best
+    sides = [[k for k in range(K) if s >> k & 1], [k for k in range(K) if not s >> k & 1]]
+    if a > b:
+        sides, (a, b) = sides[::-1], (b, a)
+    return sides[0], sides[1], (a, b), a + b - total
+
+
+def design(ops, results):
+    """The rules the emitter applies to a recorded body: {"roles": result
+    indices of each role, "mul_per_role", "repeated_mul", "min_blocks"}."""
+    K = len(results)
+    cones, union = cone_masks(ops), 0
+    for r in results:
+        union |= cones[r]
+    total = (union & _mul_mask(ops)).bit_count()
+    out = {"roles": [list(range(K))], "mul_per_role": [total], "repeated_mul": 0,
+           "min_blocks": MIN_BLOCKS}
+    split = split_roles(ops, results) if total >= SPLIT_MIN_MULS else None
+    if split is not None:
+        role0, role1, (a, b), repeated = split
+        if repeated <= SPLIT_MAX_REPEAT * total:
+            out.update(roles=[role0, role1], mul_per_role=[a, b], repeated_mul=repeated)
+    return out
+
+
+def _register_need(ops):
+    """Sethi-Ullman numbers of the operations (as if the list were a tree):
+    the registers an operation's evaluation needs when the operand that
+    needs more goes first."""
+    need = []
+    for op in ops:
+        args = _operands(op)
+        if not args:
+            need.append(1)
+        elif len(args) == 1 or args[0] == args[1]:
+            need.append(need[args[0]])
+        else:
+            x, y = need[args[0]], need[args[1]]
+            need.append(max(x, y) if x != y else x + 1)
+    return need
+
+
+def schedule(ops, results, role):
+    """The operations of one role in the order the emitter writes them:
+    depth-first over the cone of each of the role's results in turn, so each
+    operation comes just before its first use, the operand that needs more
+    registers first; right after result k exists, ("fold", k, position)
+    adds t_coef[k] * value to the role's sum.  The kinds in ``RELOADED``
+    are written again at every use, so none is held in registers between
+    its uses.  Operands are positions in the returned list."""
+    need = _register_need(ops)
+    local, out = {}, []
+
+    def fresh(i):  # written again at every use
+        return ops[i][0] in RELOADED
+
+    def ref(a):
+        if fresh(a):
+            out.append(ops[a])
+            return len(out) - 1
+        return local[a]
+
+    for k in role:
+        stack = [(results[k], False)]
+        while stack:
+            i, expanded = stack.pop()
+            if i in local or fresh(i):
+                continue
+            args = _operands(ops[i])
+            if expanded or not args:
+                pos = {a: ref(a) for a in dict.fromkeys(args)}
+                local[i] = len(out)
+                out.append((ops[i][0], *(pos[a] for a in args)) if args else ops[i])
+                continue
+            stack.append((i, True))
+            for a in sorted(set(args), key=lambda a: need[a]):  # the last pushed goes first
+                stack.append((a, False))
+        out.append(("fold", k, ref(results[k])))
+    return out
+
+
+def eval_schedule_int(sched, cur, nxt, per, t_coefs, modulus: int):
+    """sum of t_coefs[k] * value over the folds of one role's schedule, on
+    python ints."""
+    vals, total = [], 0
+    for op in sched:
+        if op[0] == "fold":
+            total = (total + t_coefs[op[1]] * vals[op[2]]) % modulus
+            vals.append(None)
+        else:
+            vals.append(_value(op, vals, cur, nxt, per, modulus))
+    return total
+
+
+def peak_live(sched):
+    """Most values of a schedule live at once (a value lives from the
+    operation that makes it to its last use)."""
+    last = {}
+    for i, op in enumerate(sched):
+        for a in (op[2:3] if op[0] == "fold" else _operands(op)):
+            last[a] = i
+    live = peak = 0
+    for i, op in enumerate(sched):
+        if op[0] != "fold" and i in last:
+            live += 1
+            peak = max(peak, live)
+        live -= sum(1 for a in set(op[2:3] if op[0] == "fold" else _operands(op))
+                    if last[a] == i)
+    return peak
+
+
 # field name -> (C++ field type, its header, 64-bit words per element)
 _FIELD_TYPES = {"f128": ("F128", "f128.cuh", 2), "f62": ("F62", "f62.cuh", 1)}
 
 
 def emit_cuda(field_name: str, air_name: str, ops, results, w: int,
               n_periodic: int, plan_groups) -> str:
-    """CUDA C++ translation unit: the recorded transition as straight-line
-    code, the plan's boundary structure as constant tables, then the frame."""
+    """CUDA C++ translation unit: the plan's boundary structure as constant
+    tables, the body's field constants, the frame, then each role of the
+    recorded transition as straight-line code in its schedule."""
     fe, header, words = _FIELD_TYPES[field_name]
+    rules = design(ops, results)
+    roles = rules["roles"]
+    scheds = [schedule(ops, results, role) for role in roles]
+    n_consts = len({op[1] for sched in scheds for op in sched if op[0] == "const"})
 
-    def literal(v):
-        parts = ", ".join(f"0x{(v >> (64 * i)) & 0xFFFFFFFFFFFFFFFF:016X}ULL"
-                          for i in range(words))
-        return f"{fe}::make({parts})"
+    def constant(v):
+        word_list = (f"0x{(v >> (64 * i)) & 0xFFFFFFFFFFFFFFFF:016X}ULL" for i in range(words))
+        return f"{fe}::make({', '.join(word_list)})"
 
     body = []
-    for i, op in enumerate(ops):
-        kind = op[0]
-        if kind in ("cur", "nxt", "per"):
-            expr = f"{kind}[{op[1]}]"
-        elif kind == "const":
-            expr = literal(op[1])
-        elif kind in ("add", "sub", "mul"):
-            expr = f"fe_{kind}(t{op[1]}, t{op[2]})"
-        elif kind == "sqr":
-            expr = f"fe_sqr(t{op[1]})"
-        elif kind == "neg":
-            expr = f"fe_sub({fe}::zero(), t{op[1]})"
-        else:
-            raise ValueError(f"unknown operation {op!r}")
-        body.append(f"  const FE t{i} = {expr};")
-    for k, r in enumerate(results):
-        body.append(f"  ev[{k}] = t{r};")
+    for r, sched in enumerate(scheds):
+        body.append(f"__device__ __forceinline__ FE cons_role{r}(const ConsPoint& q) {{")
+        folded = False
+        for i, op in enumerate(sched):
+            kind = op[0]
+            if kind == "fold":
+                term = f"fe_mul(cons_scalar(q.bank, {op[1]}), s{op[2]})"
+                body.append(f"  col = fe_add(col, {term});" if folded else f"  FE col = {term};")
+                folded = True
+                continue
+            if kind in ("cur", "nxt", "per"):
+                expr = f"cons_{kind}(q, {op[1]})"
+            elif kind == "const":
+                expr = constant(op[1])
+            elif kind in ("add", "sub", "mul"):
+                expr = f"fe_{kind}(s{op[1]}, s{op[2]})"
+            elif kind == "sqr":
+                expr = f"fe_sqr(s{op[1]})"
+            elif kind == "neg":
+                expr = f"fe_sub({fe}::zero(), s{op[1]})"
+            else:
+                raise ValueError(f"unknown operation {op!r}")
+            body.append(f"  const FE s{i} = {expr};")
+        body += ["  return col;", "}"]
+    body.append("__device__ __forceinline__ FE cons_role(int role, const ConsPoint& q) {")
+    body += [f"  if (role == {r}) return cons_role{r}(q);" for r in range(1, len(roles))]
+    body += ["  return cons_role0(q);", "}"]
+
     cc_cols = [column for group in plan_groups for (_, column, _) in group]
     sizes = [len(group) for group in plan_groups]
     # the value of assertion ci: single s at bank row K + s (>= 0), or the
@@ -360,11 +585,18 @@ def emit_cuda(field_name: str, air_name: str, ops, results, w: int,
             else:
                 cc_vals.append(-1 - n_seq)
                 n_seq += 1
+    role_notes = [
+        f"//   role {r}: results {' '.join(str(k) for k in role)}, "
+        f"{rules['mul_per_role'][r]} mul+sqr" for r, role in enumerate(roles)]
     return "\n".join([
         f"// Constraint kernel of {air_name} over {field_name}: the transition",
         "// below was recorded from the AIR's python evaluate_transition and",
         "// written by ops/cons_kernel.py emit_cuda; the frame is",
         "// csrc/cons_frame.cuh.",
+        f"// {len(roles)} role(s), {rules['repeated_mul']} mul+sqr repeated between them:",
+        *role_notes,
+        f"// {n_consts} field constants as literals; "
+        f"__launch_bounds__(CONS_THREADS, {rules['min_blocks']})",
         "#include <cstdint>",
         "#include <cuda_runtime.h>",
         f'#include "{header}"',
@@ -376,17 +608,18 @@ def emit_cuda(field_name: str, air_name: str, ops, results, w: int,
         f"#define CONS_NCC {len(cc_cols)}",
         f"#define CONS_NSINGLE {n_single}",
         f"#define CONS_NSEQ {n_seq}",
+        f"#define CONS_ROLES {len(roles)}",
+        f"#define CONS_MIN_BLOCKS {rules['min_blocks']}",
         "static __device__ const int CONS_GROUP_SIZE[CONS_NGROUPS + 1] = {"
         + ", ".join(str(s) for s in sizes + [0]) + "};",
         "static __device__ const int CONS_CC_COL[CONS_NCC + 1] = {"
         + ", ".join(str(c) for c in cc_cols + [0]) + "};",
         "static __device__ const int CONS_CC_VAL[CONS_NCC + 1] = {"
         + ", ".join(str(v) for v in cc_vals + [0]) + "};",
-        "__device__ __forceinline__ void air_transition(",
-        "    const FE* cur, const FE* nxt, const FE* per, FE* ev) {",
-        *body,
-        "}",
         '#include "cons_frame.cuh"',
+        "namespace {",
+        *body,
+        "}  // namespace",
         "",
     ])
 
@@ -422,7 +655,7 @@ def _lib(air0, w, n_periodic, K, plan_groups):
         name, path = kernel_source(air0, w, n_periodic, K, plan_groups)
         lib = build_cuda(name, [path])
         p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.cons_eval_launch.argtypes = [p] * 11 + [i, q, q, i, i, i, i, p]
+        lib.cons_eval_launch.argtypes = [p] * 11 + [i, q, q, i, i, i, p]
         lib.cons_eval_launch.restype = ctypes.c_int
         _LIBS[key] = lib
     return _LIBS[key]
@@ -488,7 +721,7 @@ def constraint_eval(B, air0, plan_groups, K, shift: int, blowup: int,
 
     rc = launch(lib.cons_eval_launch, lo.device,
                 *ptrs(rows), *ptrs(per), *ptrs(div), *ptrs(seq), scal.data_ptr(), *ptrs(out),
-                n, L, ce, shift, blowup, per_len, THREADS)
+                n, L, ce, shift, blowup, per_len)
     if rc != 0:
         raise RuntimeError(
             f"constraint kernel launch failed: cudaError {rc} "

@@ -6,6 +6,8 @@ own python on ints.  Inputs from a numpy seed; tolerance zero.  The CUDA
 kernel itself is held against the plain version on the card by
 chip_smoke.py."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -136,11 +138,23 @@ def test_emitted_source_is_straight_line_cuda_in_the_frame():
     ops, results = t_cons.record_transition(air, 6, 13, 6)
     src = t_cons.emit_cuda("f128", "Rescue128ChainAir", ops, results, 6, 13, groups)
     counts = t_cons.count_ops(ops)
-    assert src.count("fe_mul(") == counts["mul"] and src.count("fe_sqr(") == counts["sqr"]
     assert counts["sqr"] == 24 and counts["mul"] >= 72 + 12  # 12 x^5, two 6x6 MDS
+    # each role writes its schedule, one fe_mul a fold of t_coef[k] * ev[k]
+    rules = t_cons.design(ops, results)
+    scheds = [t_cons.schedule(ops, results, role) for role in rules["roles"]]
+    muls = [t_cons.count_ops(s) for s in scheds]
+    assert src.count("fe_mul(") == sum(m["mul"] for m in muls) + len(results)
+    assert src.count("fe_sqr(") == sum(m["sqr"] for m in muls)
+    assert sum(m["mul"] + m["sqr"] for m in muls) == 126 + rules["repeated_mul"]
     assert "#define CONS_NCC 8" in src and "CONS_GROUP_SIZE[CONS_NGROUPS + 1] = {6, 2, 0}" in src
-    assert src.rstrip().endswith('#include "cons_frame.cuh"')
-    assert "for" not in src.split("air_transition(")[1].split("}")[0]
+    assert f"#define CONS_ROLES {len(scheds)}" in src
+    head, roles = src.split('#include "cons_frame.cuh"')
+    assert roles.rstrip().endswith("}  // namespace")
+    assert not re.search(r"\bfor\s*\(", roles) and "cons_role0(const ConsPoint& q)" in roles
+    # each use of one of the 73 field constants is a literal in the code
+    uses = sum(op[0] == "const" for sched in scheds for op in sched)
+    assert roles.count("F128::make(") == uses
+    assert "// 73 field constants as literals" in head
 
 
 def test_emitted_f62_source_uses_the_one_word_field():
@@ -148,7 +162,8 @@ def test_emitted_f62_source_uses_the_one_word_field():
     ops, results = t_cons.record_transition(air, 2, 0, 2)
     src = t_cons.emit_cuda("f62", "FibAirF", ops, results, 2, 0, GROUPS)
     assert '#include "f62.cuh"' in src and "typedef F62 FE;" in src
-    assert "F128" not in src and "ev[1] = t" in src
+    assert "F128" not in src and "fe_mul(cons_scalar(q.bank, 1), s" in src
+    assert "#define CONS_ROLES 1" in src  # four additions: too small to split
 
 
 @pytest.mark.parametrize("group", [("aux", 0, 1), ("main", 0, 4)])
@@ -223,3 +238,87 @@ def test_plain_version_matches_the_kernel_body_on_lamport_agg_sequences():
         [from_limb_planes(t) for t in seqs])[0]
     mismatching = sum(int((np.asarray(x) != g).sum()) for g, x in zip(to_limb_planes(got), want))
     assert mismatching == 0
+
+
+def five_bodies():
+    """The five AIR bodies the port's proves emit: (AIR, w, periodic
+    columns, K)."""
+    from starkpack_winterfell_tpu_torch.models import lamport128 as t_lam
+    from starkpack_winterfell_tpu_torch.models import lamport128_agg as t_agg
+
+    options = T.ProofOptions(*OPTIONS)
+    airs = {
+        "rescue128": rescue_air(),
+        "fib-f128": t_fib("f128")[0](T.TraceInfo(2, 64), t_fib("f128")[3](5), options),
+        "fib-f62": t_fib("f62")[0](T.TraceInfo(2, 64), t_fib("f62")[3](5), options),
+        "lamport128": t_lam.Lamport128Air(T.TraceInfo(t_lam.TRACE_WIDTH, 128),
+                                          t_lam.Lamport128Inputs(1, [1, 2]), options),
+        "lamport128-agg": t_agg.Lamport128AggAir(
+            T.TraceInfo(14, 512), t_agg.LamportAggInputs([9, 10, 11, 12], [[1, 2]] * 4),
+            options),
+    }
+    return {name: (air, air.trace_info().width(), len(air.get_periodic_column_values()),
+                   air.context.num_transition_constraints()) for name, air in airs.items()}
+
+
+@pytest.mark.parametrize("roles", ["rules", "one", "two", "rules, inputs held"])
+@pytest.mark.parametrize("body", ["rescue128", "fib-f128", "fib-f62", "lamport128",
+                                  "lamport128-agg"])
+def test_scheduled_roles_evaluate_as_the_recorded_body(body, roles, monkeypatch):
+    """The roles, each in its schedule, evaluated on python ints and summed:
+    equal to sum t_coef[k] * ev[k] of ``eval_ops_int`` on the recorded list,
+    for random frames.  ``roles``: the emitter's rules, one role, the best
+    two-way split (whether or not the rules take it), or the rules with
+    inputs held from their first use (only constants written again)."""
+    air, w, n_per, K = five_bodies()[body]
+    P = air.field_spec().P
+    ops, results = t_cons.record_transition(air, w, n_per, K)
+    if roles.endswith("inputs held"):
+        monkeypatch.setattr(t_cons, "RELOADED", ("const",))
+        roles = "rules"
+    split = {"rules": t_cons.design(ops, results)["roles"], "one": [list(range(K))],
+             "two": list(t_cons.split_roles(ops, results)[:2])}[roles]
+    assert sorted(k for role in split for k in role) == list(range(K))
+    scheds = [t_cons.schedule(ops, results, role) for role in split]
+    if t_cons.RELOADED == ("const",):  # each input read once a role
+        for sched in scheds:
+            reads = [op for op in sched if op[0] in ("cur", "nxt", "per")]
+            assert len(reads) == len(set(reads))
+    rng = np.random.default_rng(K * 10 + w + len(split))
+    for _ in range(3):
+        cur, nxt, per, t = ([int.from_bytes(rng.bytes(16), "little") % P for _ in range(m)]
+                            for m in (w, w, n_per, K))
+        want = sum(a * b for a, b in zip(t, t_cons.eval_ops_int(ops, results, cur, nxt,
+                                                                per, P))) % P
+        got = sum(t_cons.eval_schedule_int(s, cur, nxt, per, t, P) for s in scheds) % P
+        assert got == want
+
+
+def test_lamport_agg_roles_repeat_no_multiply():
+    """The two roles of the Lamport-agg body are sponge A with the bit and
+    message constraints, and sponge B: they share no multiply, and each
+    role's schedule holds exactly its cone's multiplies."""
+    air, w, n_per, K = five_bodies()["lamport128-agg"]
+    ops, results = t_cons.record_transition(air, w, n_per, K)
+    rules = t_cons.design(ops, results)
+    assert rules["roles"] == [[0, 1, 2, 3, 4, 5, 12, 13], [6, 7, 8, 9, 10, 11]]
+    assert rules["repeated_mul"] == 0 and rules["mul_per_role"] == [131, 154]
+    counts = t_cons.count_ops(ops)
+    assert sum(rules["mul_per_role"]) == counts["mul"] + counts["sqr"]
+    for role, muls in zip(rules["roles"], rules["mul_per_role"]):
+        c = t_cons.count_ops(t_cons.schedule(ops, results, role))
+        assert c["mul"] + c["sqr"] == muls
+    # the Rescue128 round splits too, repeating the cubes of the current row
+    r_ops, r_results = t_cons.record_transition(rescue_air(), 6, 13, 6)
+    assert t_cons.split_roles(r_ops, r_results)[2:] == ((72, 72), 18)
+
+
+def test_schedule_shortens_what_is_live():
+    """Depth-first by cone, inputs read at every use: the values a role
+    holds at once, against the recorded order (the first design's)."""
+    air, w, n_per, K = five_bodies()["lamport128-agg"]
+    ops, results = t_cons.record_transition(air, w, n_per, K)
+    recorded = t_cons.peak_live(list(ops) + [("fold", k, r) for k, r in enumerate(results)])
+    roles = t_cons.design(ops, results)["roles"]
+    live = [t_cons.peak_live(t_cons.schedule(ops, results, role)) for role in roles]
+    assert recorded > 100 and max(live) <= 24

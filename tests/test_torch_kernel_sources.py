@@ -24,9 +24,18 @@ import torch
 
 import starkpack_winterfell_tpu_torch as T
 from starkpack_winterfell_tpu_torch.models.fib_multifield import get_fib_family
+from starkpack_winterfell_tpu_torch.models.lamport128 import (
+    TRACE_WIDTH,
+    Lamport128Air,
+    Lamport128Inputs,
+)
 from starkpack_winterfell_tpu_torch.models.lamport128_agg import (
     Lamport128AggAir,
     LamportAggInputs,
+)
+from starkpack_winterfell_tpu_torch.models.rescue128_chain import (
+    Rescue128ChainAir,
+    Rescue128ChainInputs,
 )
 from starkpack_winterfell_tpu_torch.ops import cons_kernel as tcons
 from starkpack_winterfell_tpu_torch.ops import gl64 as tgl, ntt4 as tntt4, ntt_kernel as tk
@@ -210,11 +219,23 @@ extern "C" void host_cons_eval(const uint64_t* lde_lo, const uint64_t* lde_hi,
                                const uint64_t* scal, uint64_t* out_lo, uint64_t* out_hi,
                                int n, long long L, long long ce, int shift, int blowup,
                                int per_len) {
-  blockDim.x = 1;
-  for (long long j = 0; j < ce; ++j) {
-    blockIdx.x = (unsigned)j;
-    cons_eval_kernel(lde_lo, lde_hi, per_lo, per_hi, div_lo, div_hi, seq_lo, seq_hi, scal,
-                     out_lo, out_hi, n, L, ce, shift, blowup, per_len);
+  const ConsArgs a{lde_lo, lde_hi, per_lo, per_hi, div_lo, div_hi, seq_lo, seq_hi, scal,
+                   out_lo, out_hi, n, L, ce, shift, blowup, per_len};
+  static FE part[CONS_ROLES][CONS_PPB];
+  blockDim.x = CONS_THREADS;
+  for (long long b = 0; b < (ce + CONS_PPB - 1) / CONS_PPB; ++b) {
+    blockIdx.x = (unsigned)b;
+    std::fill((uint64_t*)part, (uint64_t*)part + sizeof(part) / 8, 0xDEADBEEFDEADBEEFULL);
+    // the barrier between the passes: every thread of the block runs its
+    // role, then role 0's threads meet the partials
+    for (unsigned t = 0; t < CONS_THREADS; ++t) {
+      threadIdx.x = t;
+      cons_role_pass(a, part);
+    }
+    for (unsigned t = 0; t < CONS_THREADS; ++t) {
+      threadIdx.x = t;
+      cons_meet_pass(a, part);
+    }
   }
 }
 """
@@ -222,21 +243,37 @@ extern "C" void host_cons_eval(const uint64_t* lde_lo, const uint64_t* lde_hi,
 
 def _cons_air(case):
     """(AIR, field) of a constraint-kernel rehearsal: the Lamport-agg body
-    with its three sequence tables (4 signatures at k = 15), or fib-f62
-    (one-word field, single values only)."""
+    with its three sequence tables (4 signatures at k = 15), the lamport128
+    and Rescue128 chain bodies (single values), or fib-f62 (one-word field,
+    a body too small to split)."""
     options = T.ProofOptions(16, 8, 0, 1, 4, 31)
     if case == "lamport-agg":
         pub = LamportAggInputs([9, 10, 11, 12], [[1, 2], [3, 4], [5, 6], [7, 8]])
         return Lamport128AggAir(T.TraceInfo(14, 512), pub, options), "f128"
+    if case == "lamport128":
+        return Lamport128Air(T.TraceInfo(TRACE_WIDTH, 128), Lamport128Inputs(1, [1, 2]),
+                             options), "f128"
+    if case == "rescue128":
+        return Rescue128ChainAir(T.TraceInfo(6, 64), Rescue128ChainInputs([1, 2], [3, 4]),
+                                 options), "f128"
     fam = get_fib_family("f62")
     return fam[0](T.TraceInfo(2, 64), fam[3](5), options), "f62"
 
 
-@pytest.mark.parametrize("case", ["lamport-agg", "fib-f62"])
-def test_constraint_kernel_source_matches_the_plain_version(tmp_path, case):
-    """The emitted body in its frame, one thread a point, against
-    ``constraint_eval_plain`` on random inputs: periodic columns of two
-    periods tiled as the wrapper tiles them, sequence tables, n = 2."""
+@pytest.mark.parametrize("case", ["lamport-agg", "fib-f62", "rescue128", "lamport128",
+                                  "rescue128 two roles"])
+def test_constraint_kernel_source_matches_the_plain_version(tmp_path, monkeypatch, case):
+    """The emitted body in its frame against ``constraint_eval_plain`` on
+    random inputs: every thread of a block runs its role, then role 0's
+    threads meet the partials (the roles the emitter chose: two for the
+    Lamport+ bodies, one for Rescue128 and fib-f62); periodic columns of two
+    periods tiled as the wrapper tiles them, sequence tables, n = 2.  The
+    last case splits the Rescue128 body into two roles that repeat the cubes
+    of the current row, the split the rules measured against one role."""
+    two_roles = case.endswith("two roles")
+    if two_roles:
+        monkeypatch.setattr(tcons, "SPLIT_MAX_REPEAT", 1.0)
+        case = case.split()[0]
     air, field = _cons_air(case)
     B = get_backend(field)
     template = air.get_boundary_constraints(None, [0] * air.context.num_assertions())
@@ -245,6 +282,9 @@ def test_constraint_kernel_source_matches_the_plain_version(tmp_path, case):
     periods = [len(c) for c in air.get_periodic_column_values()]
     n_seq = tcons.seq_count(groups)
     assert n_seq == (3 if case == "lamport-agg" else 0)
+    ops, results = tcons.record_transition(air, w, len(periods), K)
+    assert len(tcons.design(ops, results)["roles"]) == (
+        2 if case.startswith("lamport") or two_roles else 1)
     _, src = tcons.kernel_source(air, w, len(periods), K, groups)
 
     cxx = next((c for c in ("g++", "c++", "clang++") if shutil.which(c)), None)
