@@ -9,6 +9,11 @@ with ProofOptions(28, 8, 16, NONE, 4, 31) and BLAKE3-256 unless named:
 * the f64 big-trace path: a Rescue hash-chain STARK of 2^20 rows x 12
   columns, beside it a 2^14-row prove with a pinned digest and an aggregated
   prove of 4 x 2^16 rows;
+* the same path over the extension fields: the 2^20-row chain again with
+  the 128-bit options ProofOptions(38, 8, 16, CUBIC, 4, 31) (ext_cubic_main,
+  right after the base prove of the same trace), those options at 2^14 rows
+  with a pinned digest (ext_cubic_golden), and 4 x 2^16 rows aggregated
+  with ProofOptions(28, 8, 16, QUADRATIC, 4, 31) (ext_quad_aggregated);
 * the f128 limb-field path: a Rescue128 hash-chain STARK of 2^18 rows x 6
   columns of 16-byte elements (cut from 2^20 rows, whose f128 shapes the
   1024-signature Lamport+ prove runs, to spare most of the chain's serial
@@ -17,7 +22,10 @@ with ProofOptions(28, 8, 16, NONE, 4, 31) and BLAKE3-256 unless named:
 * the f64 small-trace path (every transform through the DIT kernels):
   do-work 32 x 1024 rows x 10 columns and a Rescue hash chain of 64
   instances x 2^13 rows x 12 columns, beside them do-work 2 x 64 with
-  ProofOptions(16, 8, 0, NONE, 4, 31) and a pinned digest;
+  ProofOptions(16, 8, 0, NONE, 4, 31) and a pinned digest; then rows 2
+  (do-work 1 x 64, quadratic, grinding 4) and 4 (fib 2 x 256, cubic,
+  folding 16) of the golden transcript matrix against pinned digests, and
+  do-work 32 x 1024 at quadratic;
 * aggregated Lamport+ signatures over f128 on the limb path, BLAKE3-192:
   1024 signatures of 127-bit messages in ONE trace of 2^20 rows x 14
   columns (the per-signature outputs bound by sequence assertions, read by
@@ -34,13 +42,15 @@ shapes.  The big-trace path's tile shapes are known in advance
 (which also serve the small transforms of the big-trace path) are read off
 a first prove of each size, compared, and then required of the counted
 prove.  Every proof is checked with the port's verifier.  Each phase
-(device, build, kernels, dit_kernels, small, main, aggregated,
-small_trace_golden, small_trace_main_do_work, small_trace_main_rescue,
-limb_small, limb_fib, limb_fib62, limb_main, limb_aggregated,
-lamport_agg_golden, lamport_agg_64, lamport_agg_main, lamport128_aggregated)
-prints one JSON line as it ends; any failure raises and the run exits
-non-zero.  The
-last two lines are the per-kernel table and the ``{"ok": ...}`` summary.
+(device, build, kernels, dit_kernels, small, main, ext_cubic_main,
+aggregated, ext_cubic_golden, ext_quad_aggregated, small_trace_golden,
+small_trace_main_do_work, small_trace_main_rescue,
+small_trace_ext_golden_row2, small_trace_ext_golden_row4,
+small_trace_ext_do_work, limb_small, limb_fib, limb_fib62, limb_main,
+limb_aggregated, lamport_agg_golden, lamport_agg_64, lamport_agg_main,
+lamport128_aggregated) prints one JSON line as it ends; any failure raises
+and the run exits non-zero.  The last two lines are the per-kernel table
+and the ``{"ok": ...}`` summary.
 
 Needs a CUDA device (exits non-zero without one) and no network.
 """
@@ -72,6 +82,7 @@ from starkpack_winterfell_tpu_torch import (
     verify,
 )
 from starkpack_winterfell_tpu_torch import TraceInfo, native
+from starkpack_winterfell_tpu_torch.models.cli import get_example
 from starkpack_winterfell_tpu_torch.models.do_work import (
     DoWorkAir,
     DoWorkProver,
@@ -113,11 +124,20 @@ from kernel_times import (
 )
 
 BENCH_OPTIONS = (28, 8, 16, FieldExtension.NONE, 4, 31)
+# the 128-bit column of the reference's Rescue-chain table: cubic extension,
+# 38 queries, grinding 16 (conjectured security 128 bits)
+CUBIC128_OPTIONS = (38, 8, 16, FieldExtension.CUBIC, 4, 31)
+QUAD_OPTIONS = (28, 8, 16, FieldExtension.QUADRATIC, 4, 31)
 BLOWUP = 8
 WIDTH = 12
 COMPOSITION_COLUMNS = 7
-# the three proves this script drives: name -> (log2 of the rows, instances)
-PATHS = {"small": (14, 1), "main": (20, 1), "aggregated": (16, 4)}
+# the big-trace proves this script drives: name -> (log2 of the rows,
+# instances, ProofOptions); the field extension is the options' fourth entry
+PATHS = {"small": (14, 1, BENCH_OPTIONS), "main": (20, 1, BENCH_OPTIONS),
+         "aggregated": (16, 4, BENCH_OPTIONS),
+         "ext_cubic_main": (20, 1, CUBIC128_OPTIONS),
+         "ext_cubic_golden": (14, 1, CUBIC128_OPTIONS),
+         "ext_quad_aggregated": (16, 4, QUAD_OPTIONS)}
 # the limb-field proves (limb_fib, limb_fib62: the cheap second AIR over
 # f128 and over f62): name -> (log2 of the rows, instances)
 LIMB_PATHS = {"limb_small": (12, 1), "limb_fib": (9, 2), "limb_fib62": (9, 2),
@@ -125,8 +145,16 @@ LIMB_PATHS = {"limb_small": (12, 1), "limb_fib": (9, 2), "limb_fib62": (9, 2),
 LIMB_WIDTH = 6
 # the small-trace proves: name -> (log2 of the rows, instances)
 SMALL_TRACE_PATHS = {"small_trace_golden": (6, 2), "small_trace_main_do_work": (10, 32),
-                     "small_trace_main_rescue": (13, 64)}
+                     "small_trace_main_rescue": (13, 64), "small_trace_ext_do_work": (10, 32)}
 GOLDEN_OPTIONS = (16, 8, 0, FieldExtension.NONE, 4, 31)
+# rows 2 and 4 of the JAX package's golden transcript matrix: name ->
+# (example, instances, rows, ProofOptions, pinned sha256 file)
+SMALL_TRACE_EXT_GOLDEN = {
+    "small_trace_ext_golden_row2": (
+        "do-work", 1, 64, (16, 8, 4, FieldExtension.QUADRATIC, 4, 31), "do_work_1x64_quad"),
+    "small_trace_ext_golden_row4": (
+        "fib", 2, 256, (16, 8, 0, FieldExtension.CUBIC, 16, 31), "fib_2x256_cubic"),
+}
 # the Lamport+ proves: name -> (signatures, message bits k); a signature is
 # 8 * (k + 1) rows.  lamport128_aggregated: that many StarkPack instances of
 # one signature each
@@ -151,22 +179,18 @@ OPS_FIELD_SUB = 8
 OPS_LIMB = {"f128": {"mul": 130, "sqr": 114, "add": 25, "sub": 20},
             "f62": {"mul": 78, "sqr": 74, "add": 8, "sub": 8}}
 
-GOLDEN_LIMB = os.path.join(
-    os.path.dirname(os.path.abspath(__file__)),
-    "starkpack_winterfell_tpu_torch", "golden", "rescue128_12_bench.sha256",
-)
-GOLDEN = os.path.join(
-    os.path.dirname(os.path.abspath(__file__)),
-    "starkpack_winterfell_tpu_torch", "golden", "rescue14_bench.sha256",
-)
-GOLDEN_SMALL_TRACE = os.path.join(
-    os.path.dirname(os.path.abspath(__file__)),
-    "starkpack_winterfell_tpu_torch", "golden", "do_work_2x64.sha256",
-)
-GOLDEN_LAMPORT = os.path.join(
-    os.path.dirname(os.path.abspath(__file__)),
-    "starkpack_winterfell_tpu_torch", "golden", "lamport_agg_4x512_b192.sha256",
-)
+
+def golden_pin(name: str) -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "starkpack_winterfell_tpu_torch", "golden", f"{name}.sha256")
+
+
+GOLDEN_LIMB = golden_pin("rescue128_12_bench")
+GOLDEN_SMALL_TRACE = golden_pin("do_work_2x64")
+GOLDEN_LAMPORT = golden_pin("lamport_agg_4x512_b192")
+# the big-trace proves checked against a pinned digest: path -> pin
+GOLDEN_BIG = {"small": golden_pin("rescue14_bench"),
+              "ext_cubic_golden": golden_pin("rescue14_cubic128")}
 
 
 START = time.perf_counter()
@@ -191,14 +215,16 @@ def nvidia_smi_line() -> str:
 # ---------------------------------------------------------------------------
 
 
-def path_shapes(log2_rows: int, n_inst: int):
+def path_shapes(log2_rows: int, n_inst: int, options):
     """(label, (dif, B, n, lanes, epilogue, interleave, pre, transposed)) of
     every tile transform one prove of ``n_inst`` traces of 2^log2_rows rows
     launches: the trace interpolate+LDE (batch = 12 columns per instance),
     the composition interpolate (one per instance) and the composition
     column LDE (the 7 columns of the instances' sum, each 1/ce_over_length
-    of the permuted rows, zero-interleaved back to the LDE's rows).  Two
-    steps may share a shape."""
+    of the permuted rows, zero-interleaved back to the LDE's rows).  The
+    composition is an element of the options' extension field: its steps
+    run once per component.  Two steps may share a shape."""
+    ext_deg = int(options[3])
     length = 1 << log2_rows
     L = length * BLOWUP
     a, b, Bf = ntt4._pick_factors(length, L)
@@ -207,16 +233,19 @@ def path_shapes(log2_rows: int, n_inst: int):
     a2, b2, Bf2 = ntt4._pick_factors(ce, L)
     nc = COMPOSITION_COLUMNS
     rows_col = b2 // (ce // length)
+    composition = [
+        ("K1", (True, n_inst, a2, b2, True, 1, False, True)),
+        ("K2", (True, n_inst, b2, a2, True, 1, False, False)),
+        ("K3", (False, nc, Bf2, a2, True, Bf2 // rows_col, True, True)),
+        ("K4", (False, nc, a2, Bf2, False, 1, False, False)),
+    ]
     return [
         ("trace K1", (True, w, a, b, True, 1, False, True)),
         ("trace K2", (True, w, b, a, True, 1, False, False)),
         ("trace K3", (False, w, Bf, a, True, Bf // b, False, True)),
         ("trace K4", (False, w, a, Bf, False, 1, False, False)),
-        ("composition K1", (True, n_inst, a2, b2, True, 1, False, True)),
-        ("composition K2", (True, n_inst, b2, a2, True, 1, False, False)),
-        ("composition K3", (False, nc, Bf2, a2, True, Bf2 // rows_col, True, True)),
-        ("composition K4", (False, nc, a2, Bf2, False, 1, False, False)),
-    ]
+    ] + [(f"composition{f' c{c}' if ext_deg > 1 else ''} {k}", key)
+         for c in range(ext_deg) for k, key in composition]
 
 
 def expected_launches(path: str) -> collections.Counter:
@@ -604,61 +633,79 @@ def verified_bytes(prover, proof, traces):
     return data, time.perf_counter() - t0
 
 
-def phase_small(prover, kernel_rows, rng, device):
-    rows = 1 << PATHS["small"][0]
-    traces = [build_chain_trace([7] * 8, rows // 8)]
-    _, _, seen, new_rows = first_prove("small", prover, traces, kernel_rows, rng, device)
-    proof, seconds, _, total, launches = counted_prove(
-        "small", prover, traces, kernel_rows, seen, new_rows)
-    data, verify_s = verified_bytes(prover, proof, traces)
-    digest = hashlib.sha256(data).hexdigest()
-    with open(GOLDEN) as f:
-        pinned = f.read().strip()
-    if digest != pinned:
-        raise RuntimeError(f"2^14 proof digest {digest} differs from pinned {pinned}")
-    emit("small", rows=rows, sha256=digest, matches_pinned=True,
-         prove_s=seconds, verify_s=verify_s, proof_bytes=len(data),
-         kernel_launches=total, launches=launches)
+def tamper_chain_seed(pub):
+    return pub[:-1] + [ChainInputs([(pub[-1].seed[0] + 1) % gl.P] + pub[-1].seed[1:],
+                                   pub[-1].result)]
 
 
-def phase_main(prover, kernel_rows, rng, device):
-    rows = 1 << PATHS["main"][0]
-    t0 = time.perf_counter()
-    traces = [build_chain_trace([7] * 8, rows // 8)]
-    trace_s = time.perf_counter() - t0
-    _, first_s, seen, new_rows = first_prove("main", prover, traces, kernel_rows, rng, device)
+def big_phase(path, kernel_rows, rng, device, traces, **extra):
+    """One prove size of the f64 big-trace path with its ``PATHS`` options: a
+    first prove (each DIT shape it shows is held against its plain version),
+    then the counted prove and its peak device memory over the main LDE;
+    the proof is verified, a tampered seed rejected and, where the path has
+    a pin (``GOLDEN_BIG``), its sha256 matched.  ``extra`` goes into the
+    phase's line; with ``base_steady_prove_s`` the line also gives the
+    steady prove over it.  Returns the steady prove's seconds."""
+    log2_rows, n, options = PATHS[path]
+    prover = RescueChainProver(ProofOptions(*options), Blake3_256)
+    _, first_s, seen, new_rows = first_prove(path, prover, traces, kernel_rows, rng, device)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     proof, steady_s, phases, total, launches = counted_prove(
-        "main", prover, traces, kernel_rows, seen, new_rows)
+        path, prover, traces, kernel_rows, seen, new_rows)
     peak = torch.cuda.max_memory_allocated()
     data, verify_s = verified_bytes(prover, proof, traces)
-    emit("main", rows=rows, columns=WIDTH, n=1,
-         trace_build_s=trace_s, first_prove_s=first_s, steady_prove_s=steady_s,
-         phases_ms={name: ms for name, ms in phases},
-         kernel_launches=total, launches=launches, peak_memory_bytes=peak,
-         proof_bytes=len(data), verify_s=verify_s, verified=True)
-
-
-def phase_aggregated(prover, kernel_rows, rng, device):
-    log2_rows, n = PATHS["aggregated"]
-    rows = 1 << log2_rows
-    seeds = rng.integers(0, gl.P, size=(n, 8), dtype=np.uint64)
-    traces = [build_chain_trace([int(v) for v in s], rows // 8) for s in seeds]
-    _, _, seen, new_rows = first_prove("aggregated", prover, traces, kernel_rows, rng, device)
-    proof, seconds, _, total, launches = counted_prove(
-        "aggregated", prover, traces, kernel_rows, seen, new_rows)
-    data, verify_s = verified_bytes(prover, proof, traces)
+    fields = dict(extra)
+    if "base_steady_prove_s" in extra:
+        fields["steady_over_base"] = steady_s / extra["base_steady_prove_s"]
     pub = [prover.get_pub_inputs(t) for t in traces]
-    pub[2] = ChainInputs([(pub[2].seed[0] + 1) % gl.P] + pub[2].seed[1:], pub[2].result)
     try:
-        verify(RescueChainAir, proof.from_bytes(data), pub, Blake3_256)
+        verify(RescueChainAir, proof.from_bytes(data), tamper_chain_seed(pub), Blake3_256)
     except VerifierError as e:
-        rejected = str(e)
+        fields["tampered_rejected"] = str(e)
     else:
-        raise RuntimeError("a tampered public input was accepted")
-    emit("aggregated", n=n, rows=rows, prove_s=seconds, verify_s=verify_s,
-         proof_bytes=len(data), verified=True, tampered_rejected=rejected,
-         kernel_launches=total, launches=launches)
+        raise RuntimeError(f"{path}: a tampered seed was accepted")
+    if path in GOLDEN_BIG:
+        digest = hashlib.sha256(data).hexdigest()
+        with open(GOLDEN_BIG[path]) as f:
+            pinned = f.read().strip()
+        if digest != pinned:
+            raise RuntimeError(f"{path} proof digest {digest} differs from pinned {pinned}")
+        fields.update(sha256=digest, matches_pinned=True)
+    lde_bytes = n * WIDTH * (1 << log2_rows) * BLOWUP * 8
+    emit(path, rows=1 << log2_rows, columns=WIDTH, n=n, options=list(options),
+         hasher=prover.hasher.NAME, first_prove_s=first_s, steady_prove_s=steady_s,
+         phases_ms={name: ms for name, ms in phases},
+         kernel_launches=total, launches=launches,
+         peak_memory_bytes=peak, resident_before_bytes=resident,
+         peak_over_main_lde=(peak - resident) / lde_bytes,
+         proof_bytes=len(data), security_level_conjectured=proof.security_level_conjectured(),
+         verify_s=verify_s, verified=True, **fields)
+    return steady_s
+
+
+def big_trace_phases(kernel_rows, rng, device):
+    """The f64 big-trace path: 2^14 rows against its pinned digest, the
+    2^20-row chain with the bench options and then, on the same trace, with
+    the 128-bit options (cubic), 4 x 2^16 rows aggregated; then the 128-bit
+    options at 2^14 rows against their pin, and 4 x 2^16 rows at
+    quadratic."""
+    chain = lambda seeds, rows: [build_chain_trace([int(v) for v in s], rows // 8)
+                                 for s in seeds]
+    big_phase("small", kernel_rows, rng, device, chain([[7] * 8], 1 << PATHS["small"][0]))
+    t0 = time.perf_counter()
+    main_traces = chain([[7] * 8], 1 << PATHS["main"][0])
+    trace_s = time.perf_counter() - t0
+    base_s = big_phase("main", kernel_rows, rng, device, main_traces, trace_build_s=trace_s)
+    big_phase("ext_cubic_main", kernel_rows, rng, device, main_traces, trace_build_s=trace_s,
+              base_steady_prove_s=base_s)
+    del main_traces
+    for path in ("aggregated", "ext_cubic_golden", "ext_quad_aggregated"):
+        log2_rows, n, _ = PATHS[path]
+        seeds = ([[7] * 8] if path in GOLDEN_BIG
+                 else rng.integers(0, gl.P, size=(n, 8), dtype=np.uint64))
+        big_phase(path, kernel_rows, rng, device, chain(seeds, 1 << log2_rows))
 
 
 # ---------------------------------------------------------------------------
@@ -1030,10 +1077,6 @@ def small_trace_phases(kernel_rows, rng, device):
     def tamper_start(pub):
         return pub[:-1] + [DoWorkInputs((pub[-1].start + 1) % gl.P, pub[-1].result)]
 
-    def tamper_chain(pub):
-        return pub[:-1] + [ChainInputs([(pub[-1].seed[0] + 1) % gl.P] + pub[-1].seed[1:],
-                                       pub[-1].result)]
-
     log2_rows, n = SMALL_TRACE_PATHS["small_trace_golden"]
     observed_phase("small_trace_golden",
                    DoWorkProver(ProofOptions(*GOLDEN_OPTIONS), Blake3_256), DoWorkAir,
@@ -1055,7 +1098,23 @@ def small_trace_phases(kernel_rows, rng, device):
          trace_build_s=time.perf_counter() - t0)
     observed_phase("small_trace_main_rescue", RescueChainProver(options, Blake3_256),
                    RescueChainAir, traces, kernel_rows, rng, device, dit,
-                   tampers=[("seed", tamper_chain)])
+                   tampers=[("seed", tamper_chain_seed)])
+    del traces
+
+    # the extension fields: golden rows 2 and 4 against their pins, then
+    # do-work 32 x 1024 at quadratic
+    for path, (example, n, rows, opts, pin) in SMALL_TRACE_EXT_GOLDEN.items():
+        air_class, prover_class, build = get_example(example)
+        observed_phase(path, prover_class(ProofOptions(*opts), Blake3_256), air_class,
+                       [build(i, rows) for i in range(n)], kernel_rows, rng, device, dit,
+                       golden=golden_pin(pin), options=list(opts),
+                       tampers=[("start", tamper_start)] if example == "do-work" else ())
+    log2_rows, n = SMALL_TRACE_PATHS["small_trace_ext_do_work"]
+    observed_phase("small_trace_ext_do_work",
+                   DoWorkProver(ProofOptions(*QUAD_OPTIONS), Blake3_256), DoWorkAir,
+                   [build_do_work_trace(i + 1, 1 << log2_rows) for i in range(n)],
+                   kernel_rows, rng, device, dit, options=list(QUAD_OPTIONS),
+                   tampers=[("start", tamper_start)])
 
 
 def build_all():
@@ -1113,14 +1172,11 @@ def main(argv=None):
     print(smi, flush=True)
 
     rng = np.random.default_rng(args.seed)
-    prover = RescueChainProver(ProofOptions(*BENCH_OPTIONS), Blake3_256)
 
     build_all()
     kernel_rows = phase_kernels(rng, device)
     phase_dit_kernels(rng, device)
-    phase_small(prover, kernel_rows, rng, device)
-    phase_main(prover, kernel_rows, rng, device)
-    phase_aggregated(prover, kernel_rows, rng, device)
+    big_trace_phases(kernel_rows, rng, device)
     small_trace_phases(kernel_rows, rng, device)
     limb_phases(kernel_rows, rng, device)
     lamport_phases(kernel_rows, rng, device)

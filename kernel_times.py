@@ -3,7 +3,7 @@
 constraint kernel on one NVIDIA GPU, for one checkout of the port: this one,
 or another commit unpacked beside it.
 
-    python3 kernel_times.py [--root DIR] [--prove] [--only ntt|cons] [--variants]
+    python3 kernel_times.py [--root DIR] [--prove] [--only ntt|cons|ext] [--variants]
 
 ``--root`` names the directory whose ``starkpack_winterfell_tpu_torch``
 package is measured (default: the one beside this script), so that two
@@ -35,9 +35,12 @@ measurement:
   with ``--variants`` (this checkout only) also with the emitter's rules
   varied (``CONS_VARIANTS``).
 
-``--only`` times the NTT kernels alone (``ntt``) or kernel 5 alone
-(``cons``).  ``cons_args`` and ``hold_cons`` also build and check
-``chip_smoke.py``'s kernel-5 inputs.
+* ``ext`` (only with ``--only ext``): the eager extension-field steps of
+  the 2^20 x 12 prove at degree 1 and 3 (``time_ext``).
+
+``--only`` times the NTT kernels alone (``ntt``), kernel 5 alone (``cons``)
+or the eager extension-field steps alone (``ext``).  ``cons_args`` and
+``hold_cons`` also build and check ``chip_smoke.py``'s kernel-5 inputs.
 
 ``device_kernel_ms`` and ``timed_prove`` are also what ``chip_smoke.py``
 times kernels and proves with.  Inputs are drawn from a fixed numpy seed.
@@ -388,6 +391,71 @@ def time_cons(label, variants: bool, dev):
         torch.cuda.empty_cache()
 
 
+def time_ext(label, dev):
+    """The eager extension-field steps of the 2^20 x 12 big-trace prove at
+    its shapes (L = 2^23), each at degree 1 and at 3 (cubic) on random
+    inputs: wall ms of a call (CUDA-synchronised), device ms and device
+    kernels of a call (``profile_calls``), medians of 3 calls."""
+    from starkpack_winterfell_tpu_torch import Blake3_256
+    from starkpack_winterfell_tpu_torch.ops import gl64 as gl, ntt4, vec
+    from starkpack_winterfell_tpu_torch.prover import device, device_big
+
+    rng = np.random.default_rng(1)
+    length, blowup, offset, width, nc_total, num_cols, K = 1 << 20, 8, 7, 12, 8, 7, 12
+    L, chunk = length * blowup, 1 << 20
+    b1, a1 = ntt4._pick_factors(length, L)[1::-1]
+    a2, b2 = ntt4._pick_factors(L, L)[:2]
+
+    def words(*shape):
+        return gl.from_u64(rng.integers(0, gl.P, size=shape, dtype=np.uint64), dev)
+
+    def elem(deg, *shape):
+        return tuple(words(*shape) for _ in range(deg))
+
+    lde = (words(1, width, L),)
+    pc1 = words(1, width, b1, a1)
+    evals = words(K, 1, chunk)
+    divisor = words(chunk)
+    for deg in (1, 3):
+        z, zg = elem(deg, 1), elem(deg, 1)
+        comp_lde = elem(deg, num_cols, L)
+        pc_cols = elem(deg, num_cols, b2 // nc_total, a2)
+        t_coeffs = elem(deg, 1, K)
+        deep_args = (lde, comp_lde, z, zg, elem(deg, 1, width), elem(deg, 1, width),
+                     elem(deg, num_cols), elem(deg, 1, width), elem(deg, num_cols),
+                     offset, deg)
+        layer = elem(deg, L)
+        transposed = tuple(c.reshape(4, L // 4).T for c in layer)
+
+        def combine():
+            acc = vec.vzeros((1, chunk), deg, dev)
+            for k in range(K):
+                coef = tuple(c[:, k : k + 1] for c in t_coeffs)
+                acc = vec.vadd(acc, vec.vmul(coef, (evals[k],)))
+            return vec.vmul(acc, (divisor,))
+
+        steps = {
+            "P2+3 combine 12 transition results and divide, one 2^20 chunk of 8": combine,
+            "P4 ood_kernel_big": lambda: device_big.ood_kernel_big(
+                pc1, pc_cols, z, zg, z, length, length),
+            "P5+6 deep_kernel_big": lambda: device_big.deep_kernel_big(*deep_args),
+            "P5+6 vinv(x - z) over L": lambda: vec.vinv(vec.vsub((lde[0][0, 0],), z)),
+            "P5+6 first FRI layer hash (L/4 rows of 4)": lambda: device.fri_hash_kernel(
+                layer, 4, deg, Blake3_256),
+            "P5+6 first FRI fold": lambda: device.fri_fold_kernel(
+                transposed, z, offset, deg),
+        }
+        for name, fn in steps.items():
+            per_call, walls = profile_calls(fn, 3)
+            emit("ext", root=label, step=name, ext_deg=deg,
+                 wall_ms=statistics.median(walls) * 1e3,
+                 device_ms=statistics.median(sum(d for _, _, d in ev) for ev in per_call) / 1e3,
+                 device_kernels=statistics.median(len(ev) for ev in per_call))
+            torch.cuda.empty_cache()
+        del comp_lde, pc_cols, deep_args, layer, transposed
+        torch.cuda.empty_cache()
+
+
 def emit(kind, **fields):
     print(json.dumps({"kind": kind, **fields}), flush=True)
 
@@ -398,8 +466,9 @@ def main(argv=None):
     p.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)),
                    help="directory holding the starkpack_winterfell_tpu_torch to time")
     p.add_argument("--prove", action="store_true", help="also time a 2^20 x 12 prove")
-    p.add_argument("--only", choices=("ntt", "cons"),
-                   help="time only the NTT kernels, or only kernel 5")
+    p.add_argument("--only", choices=("ntt", "cons", "ext"),
+                   help="time only the NTT kernels, only kernel 5, or only the eager "
+                        "extension-field steps")
     p.add_argument("--variants", action="store_true",
                    help="also time kernel 5 with the emitter's rules varied (this checkout)")
     args = p.parse_args(argv)
@@ -421,6 +490,9 @@ def main(argv=None):
     label = os.path.relpath(root, here)
     emit("device", root=label, nvidia_smi=smi, torch=torch.__version__)
     dev = torch.device("cuda")
+    if args.only == "ext":
+        time_ext(label, dev)
+        return 0
     if args.only != "ntt":
         time_cons(label, args.variants and root == here, dev)
     if args.only == "cons":

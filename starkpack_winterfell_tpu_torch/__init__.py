@@ -7,12 +7,13 @@ asking for the default on a machine without a CUDA device raises — nothing
 carries on silently on the CPU.  Pass ``device="cpu"`` to run the plain
 tensor code on the host (the tests do).
 
-Ported so far, all driven through ``Prover.prove`` and ``verify``, extension
-degree 1, main segment only: f64 traces of 2^14 rows and more through the
-big-trace path (prover/device_big.py), shorter f64 traces through the
-small-trace path (prover/device.py), both with BLAKE3-256 or BLAKE3-192, and
-f128/f62 traces, with single-value and sequence assertions, through the limb
-path (parallel/full_pipeline.py) with BLAKE3-256, BLAKE3-192 or SHA3-256.
+Ported so far, all driven through ``Prover.prove`` and ``verify``, main
+segment only: f64 traces of 2^14 rows and more through the big-trace path
+(prover/device_big.py), shorter f64 traces through the small-trace path
+(prover/device.py), both at extension degree 1, 2 or 3 with BLAKE3-256 or
+BLAKE3-192, and f128/f62 traces at extension degree 1, with single-value and
+sequence assertions, through the limb path (parallel/full_pipeline.py) with
+BLAKE3-256, BLAKE3-192 or SHA3-256.
 """
 
 from .air import (

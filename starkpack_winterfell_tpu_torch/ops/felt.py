@@ -11,7 +11,8 @@ A Felt without a backend holds one int64 tensor per component and calls
 gl64/vec directly (the f64 big-trace path).  ``Felt(..., B=backend)`` holds
 one tuple of word planes per component and routes every operation through
 the ``FieldBackend`` (ops/backend.py), so the same AIR code runs on f128
-planes.  Only degree 1 is ported.
+planes.  Goldilocks Felts take degree 1, 2 and 3 (ops/gl64_ext.py); limb
+Felts degree 1 (the backend refuses more).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..math import scalar as fs
 from . import gl64 as gl
 from . import vec
 
@@ -48,19 +50,30 @@ class Felt:
     # -- constructors -------------------------------------------------------
 
     @staticmethod
-    def from_u64s(arr, device="cpu") -> "Felt":
-        """From a numpy uint64 array of base-field elements."""
-        return Felt((gl.from_u64(np.asarray(arr, dtype=np.uint64), device),))
+    def from_u64s(arr, deg: int = 1, device="cpu") -> "Felt":
+        """From a numpy uint64 array of Goldilocks elements; for deg > 1 the
+        last axis holds the ``deg`` components."""
+        arr = np.asarray(arr, dtype=np.uint64)
+        if deg == 1:
+            return Felt((gl.from_u64(arr, device),))
+        assert arr.shape[-1] == deg
+        return Felt(tuple(gl.from_u64(arr[..., i], device) for i in range(deg)))
 
     @staticmethod
-    def from_int(v: int, shape=(), device="cpu", B=None) -> "Felt":
+    def from_int(v, shape=(), deg: int = 1, device="cpu", B=None) -> "Felt":
+        """A constant: ``v`` an int (embedded in degree ``deg``) or a tuple
+        of ``deg`` components."""
+        comps = fs.components(fs.embed(v, deg))
         if B is not None:
-            return Felt((B.b_from_int(v, shape, device),), B=B)
-        return Felt((gl.from_int(v, shape, device),))
+            return Felt(tuple(B.b_from_int(x, shape, device) for x in comps), B=B)
+        return Felt(tuple(gl.from_int(x, shape, device) for x in comps))
 
     def to_u64s(self) -> np.ndarray:
-        assert self.deg == 1
-        return gl.to_u64(self.c[0])
+        """To a numpy uint64 array (Goldilocks only); deg > 1 appends a
+        trailing component axis."""
+        if self.deg == 1:
+            return gl.to_u64(self.c[0])
+        return np.stack([gl.to_u64(c) for c in self.c], axis=-1)
 
     # -- shape/utils --------------------------------------------------------
 
@@ -90,7 +103,7 @@ class Felt:
     def _promote(self, other):
         """Coerce other to a Felt of the same degree as self."""
         if isinstance(other, int):
-            other = Felt.from_int(other, (), self.device, self.B)
+            other = Felt.from_int(other, (), device=self.device, B=self.B)
         if not isinstance(other, Felt):
             return NotImplemented
         d = max(self.deg, other.deg)
@@ -124,7 +137,7 @@ class Felt:
 
     def __mul__(self, other):
         if isinstance(other, int):
-            other = Felt.from_int(other, (), self.device, self.B)
+            other = Felt.from_int(other, (), device=self.device, B=self.B)
         if not isinstance(other, Felt):
             return NotImplemented
         return Felt(self._v.vmul(self.c, other.c), B=self.B)

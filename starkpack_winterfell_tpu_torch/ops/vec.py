@@ -1,9 +1,8 @@
 """Vectorized element operations on component tuples.
 
 Counterpart of starkpack_winterfell_tpu/ops/vec.py.  An element array is a
-tuple of ``deg`` int64 tensors (see ops/gl64.py).  Only degree 1 is ported;
-the tuple-of-components shape is kept so the quadratic and cubic extensions
-slot in later (``_ext_unsupported`` marks where).
+tuple of ``deg`` int64 tensors (see ops/gl64.py), deg = 1, 2 or 3; the
+quadratic and cubic products are those of ops/gl64_ext.py.
 """
 
 from __future__ import annotations
@@ -11,12 +10,7 @@ from __future__ import annotations
 import torch
 
 from . import gl64 as gl
-
-
-def _ext_unsupported(d: int):
-    raise NotImplementedError(
-        f"extension degree {d} is not ported yet (ops/gl64_ext.py counterpart)"
-    )
+from . import gl64_ext as ext
 
 
 def deg(a) -> int:
@@ -54,19 +48,21 @@ def vmul(a, b):
         return tuple(gl.mul(x, b[0]) for x in a)
     if len(a) == 1:
         return tuple(gl.mul(a[0], y) for y in b)
-    _ext_unsupported(len(a))
+    if len(a) == 2:
+        return ext.mul2(a, b)
+    return ext.mul3(a, b)
 
 
 def vsquare(a):
     if len(a) == 1:
         return (gl.square(a[0]),)
-    _ext_unsupported(len(a))
+    return ext.square2(a) if len(a) == 2 else ext.square3(a)
 
 
 def vinv(a):
     if len(a) == 1:
         return (gl.inv(a[0]),)
-    _ext_unsupported(len(a))
+    return ext.inv2(a) if len(a) == 2 else ext.inv3(a)
 
 
 def vzeros(shape, d: int = 1, device="cpu"):

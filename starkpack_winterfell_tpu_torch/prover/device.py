@@ -332,11 +332,11 @@ def prove_device(prover, n: int, traces, device="cuda"):
 
     if traces[0].num_aux_segments() > 0:
         refuse("auxiliary trace segments are not ported")
-    if ext_deg != 1:
-        refuse("only extension degree 1 is ported")
     if field != "f64":
         if field not in ("f128", "f62"):
             refuse("no backend for this field")
+        if ext_deg != 1:
+            refuse("the limb pipeline is ported at extension degree 1")
         if hname not in LIMB_HASHERS:
             refuse(f"the limb pipeline is ported with {', '.join(LIMB_HASHERS)}")
         from ..parallel.full_pipeline import prove_mesh

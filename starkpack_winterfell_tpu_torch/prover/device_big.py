@@ -21,8 +21,10 @@ is permutation-free.
   arithmetic is exact.
 * Phases 5-6 reuse the FRI/assembly helpers of device.py.
 
-Ported: f64 AIRs, extension degree 1, main segment only, single-value
-boundary assertions, BLAKE3-256 or BLAKE3-192.  ``device.prove_device``
+Ported: f64 AIRs at extension degree 1, 2 or 3 (the composition, DEEP and
+FRI arrays are then extension elements, one tensor a component), main
+segment only, single-value and periodic boundary assertions, BLAKE3-256 or
+BLAKE3-192.  ``device.prove_device``
 sends every other f64 config to the small-trace pipeline or refuses it.
 
 Apart from the tile transform (a CUDA kernel on the card) everything here is
@@ -63,7 +65,7 @@ def supported(air0, boundary_template, length, ext_deg) -> bool:
     """True when the gather-free pipeline can prove this config."""
     if air0.field_spec().name != "f64":
         return False
-    if ext_deg != 1:
+    if ext_deg not in (1, 2, 3):
         return False
     domain_ce = air0.ce_domain_size()
     L = air0.lde_domain_size()

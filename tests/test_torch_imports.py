@@ -114,8 +114,9 @@ def test_cli_runs_on_the_cpu_and_refuses_the_default_device():
     r = subprocess.run(base + ["--device", "cpu"], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=SUBPROCESS_TIMEOUT)
     assert r.returncode == 0 and "Proof verified" in r.stdout, r.stderr
-    # an unported config is named, not carried on with
-    r = subprocess.run(base + ["--device", "cpu", "-e", "2"], cwd=ROOT, env=env,
+    # an unported config (a limb field at quadratic) is named, not carried on with
+    limb = base[:3] + ["rescue128-chain", "-n", "1", "-l", "16"]
+    r = subprocess.run(limb + ["--device", "cpu", "-e", "2"], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=SUBPROCESS_TIMEOUT)
     assert r.returncode != 0 and "NotImplementedError" in r.stderr
 

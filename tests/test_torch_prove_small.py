@@ -152,11 +152,12 @@ def test_phase_walls_are_logged():
 @pytest.mark.parametrize("case", ["cubic", "sha3", "limb-b192"])
 def test_unported_configs_raise_naming_the_config(case):
     """SHA3-256 is ported on the limb path only; the limb path takes
-    BLAKE3-192 but no field extension yet."""
+    BLAKE3-192 but no field extension yet (the f64 paths take both,
+    tests/test_torch_prove_ext.py)."""
     if case == "cubic":
-        _, prover_cls, build = tget_example("do-work")
+        _, prover_cls, build = tget_example("fib-f128")
         prover = prover_cls(T.ProofOptions(8, 8, 0, T.FieldExtension.CUBIC, 4, 31), T.Blake3_256)
-        trace, match = build(1, 64), "extension degree=3"
+        trace, match = build(0, 64), "extension degree=3"
     elif case == "sha3":
         _, prover_cls, build = tget_example("do-work")
         prover = prover_cls(T.ProofOptions(8, 8, 0, 1, 4, 31), T.Sha3_256)
