@@ -31,7 +31,18 @@ with ProofOptions(28, 8, 16, NONE, 4, 31) and BLAKE3-256 unless named:
   columns (the per-signature outputs bound by sequence assertions, read by
   the constraint kernel as tables), beside it 64 signatures (2^16 rows), 4
   signatures at k = 15 (512 rows) with a pinned digest, and 4 StarkPack
-  instances of one signature each (lamport128, 1024 rows) with SHA3-256.
+  instances of one signature each (lamport128, 1024 rows) with SHA3-256;
+* the limb path over the extension fields (the eager constraint phase in
+  place of the constraint kernel): the 2^18-row Rescue128 chain again at
+  ProofOptions(28, 8, 16, QUADRATIC, 4, 31) (limb_ext_main, right after the
+  degree-1 prove of the same trace, with kernel 4's launches derived from
+  that prove's); 256 Merkle authentication paths over f128 of depth 32
+  (256 rows x 7 columns each) aggregated into ONE proof, once at degree 1
+  with BLAKE3-256 (the constraint kernel's merkle128 body) and once at
+  quadratic with SHA3-256 (merkle128_aggregated, merkle128_aggregated_quad);
+  rows 10 (rescue128-chain) and 12 (merkle128) of the golden transcript
+  matrix, SHA3-256 at quadratic, against pinned digests (limb_ext_golden_*);
+  fib over f62 2 x 512 at cubic against a pinned digest (limb_ext_f62).
 
 Builds the CUDA kernels from ``csrc/`` (one nvcc per library, all started
 together) and holds each against its plain PyTorch version on the card at
@@ -47,7 +58,9 @@ aggregated, ext_cubic_golden, ext_quad_aggregated, small_trace_golden,
 small_trace_main_do_work, small_trace_main_rescue,
 small_trace_ext_golden_row2, small_trace_ext_golden_row4,
 small_trace_ext_do_work, limb_small, limb_fib, limb_fib62, limb_main,
-limb_aggregated, lamport_agg_golden, lamport_agg_64, lamport_agg_main,
+limb_ext_main, limb_aggregated, merkle128_aggregated,
+merkle128_aggregated_quad, limb_ext_golden_row10, limb_ext_golden_row12,
+limb_ext_f62, lamport_agg_golden, lamport_agg_64, lamport_agg_main,
 lamport128_aggregated) prints one JSON line as it ends; any failure raises
 and the run exits non-zero.  The last two lines are the per-kernel table
 and the ``{"ok": ...}`` summary.
@@ -64,6 +77,7 @@ import contextlib
 import hashlib
 import json
 import os
+import random
 import statistics
 import subprocess
 import sys
@@ -82,6 +96,7 @@ from starkpack_winterfell_tpu_torch import (
     verify,
 )
 from starkpack_winterfell_tpu_torch import TraceInfo, native
+from starkpack_winterfell_tpu_torch.fri import prover as fri_prover
 from starkpack_winterfell_tpu_torch.models.cli import get_example
 from starkpack_winterfell_tpu_torch.models.do_work import (
     DoWorkAir,
@@ -91,6 +106,7 @@ from starkpack_winterfell_tpu_torch.models.do_work import (
 )
 from starkpack_winterfell_tpu_torch.models import lamport128 as lam
 from starkpack_winterfell_tpu_torch.models import lamport128_agg as lagg
+from starkpack_winterfell_tpu_torch.models import merkle128 as mk
 from starkpack_winterfell_tpu_torch.models.fib_multifield import get_fib_family
 from starkpack_winterfell_tpu_torch.models.rescue128_chain import (
     Rescue128ChainAir,
@@ -143,6 +159,22 @@ PATHS = {"small": (14, 1, BENCH_OPTIONS), "main": (20, 1, BENCH_OPTIONS),
 LIMB_PATHS = {"limb_small": (12, 1), "limb_fib": (9, 2), "limb_fib62": (9, 2),
               "limb_main": (18, 1), "limb_aggregated": (14, 4)}
 LIMB_WIDTH = 6
+# the limb path over the extension fields: the limb_main trace at quadratic;
+# Merkle authentication paths (paths, tree depth: 8 rows a level) aggregated
+# into one proof, at degree 1 and at quadratic with SHA3-256
+LIMB_EXT_OPTIONS = QUAD_OPTIONS
+MERKLE_PATHS = (256, 32)
+MERKLE_QUAD_OPTIONS = QUAD_OPTIONS
+# rows 10 and 12 of the golden transcript matrix and fib-f62 at cubic: name
+# -> (example, instances, -l as the CLI takes it, ProofOptions, hasher, pin)
+LIMB_EXT_GOLDEN = {
+    "limb_ext_golden_row10": ("rescue128-chain", 1, 8, (16, 8, 0, FieldExtension.QUADRATIC, 4, 31),
+                              Sha3_256, "rescue128_chain_1x64_quad_sha3"),
+    "limb_ext_golden_row12": ("merkle128", 1, 64, (16, 8, 0, FieldExtension.QUADRATIC, 4, 31),
+                              Sha3_256, "merkle128_1x64_quad_sha3"),
+    "limb_ext_f62": ("fib-f62", 2, 512, (28, 8, 16, FieldExtension.CUBIC, 4, 31),
+                     Blake3_256, "fib62_2x512_cubic"),
+}
 # the small-trace proves: name -> (log2 of the rows, instances)
 SMALL_TRACE_PATHS = {"small_trace_golden": (6, 2), "small_trace_main_do_work": (10, 32),
                      "small_trace_main_rescue": (13, 64), "small_trace_ext_do_work": (10, 32)}
@@ -576,14 +608,14 @@ def first_prove(path, prover, traces, kernel_rows, rng, device, airs=None):
 
 def record_observed(path, seen, new_rows, kernel_rows, required):
     """Reads the counts just after a counted prove: it must have launched
-    every kind of kernel in ``required``, only compared shapes, and each as
-    often as ``seen`` (the first prove's counts less its table builds) says.
-    The counts go into the table."""
+    every kind of kernel in ``required`` and no other kind, only compared
+    shapes, and each as often as ``seen`` (the first prove's counts less its
+    table builds) says.  The counts go into the table."""
     counted = observed_counts()
     kinds = {k[0] for k in counted}
-    if not set(required) <= kinds or any(seen.get(k) != v for k, v in counted.items()):
+    if set(required) != kinds or any(seen.get(k) != v for k, v in counted.items()):
         raise RuntimeError(f"the {path} prove launched {counted}, required kinds "
-                           f"{required}, compared were {seen}")
+                           f"{required} and no other, compared were {seen}")
     for key, count in counted.items():
         if key not in kernel_rows:
             kernel_rows[key] = new_rows[key]
@@ -729,6 +761,8 @@ def smoke_airs():
         TraceInfo(lam.TRACE_WIDTH, 512), lagg.LamportAggInputs([1] * 4, [[1, 2]] * 4), options)
     airs[("f128", "Lamport128Air")] = lam.Lamport128Air(
         TraceInfo(lam.TRACE_WIDTH, 128), lam.Lamport128Inputs(1, [1, 2]), options)
+    airs[("f128", "Merkle128Air")] = mk.Merkle128Air(
+        TraceInfo(mk.TRACE_WIDTH, 64), mk.Merkle128Inputs([1, 2]), options)
     return airs
 
 
@@ -869,18 +903,78 @@ def reset_observed_counts():
     cons_kernel.reset_launch_counts()
 
 
+@contextlib.contextmanager
+def extension_side_launches():
+    """Counts by shape (``observed_counts`` keys) of kernel 4's launches made
+    inside the steps of a limb prove that run once per extension component
+    at degree > 1: the composition's interpolation and the FRI remainder
+    (``interpolate_poly_with_offset``), the coset LDE of the composition
+    columns and of the DEEP polynomial (``full_pipeline.sharded_lde_blocks``)
+    and the FRI folds (``fri/prover.py:limb_apply_drp``).  Everything else
+    kernel 4 does in a prove (the trace LDE, the sequence tables) is the
+    same at every degree."""
+    counts = collections.Counter()
+    depth = [0]
+
+    def counted(fn):
+        def call(*args, **kwargs):
+            if depth[0]:
+                return fn(*args, **kwargs)
+            before = dict(limb_ntt.LAUNCHES_BY_SHAPE)
+            depth[0] += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+                for key, v in limb_ntt.LAUNCHES_BY_SHAPE.items():
+                    counts[("ntt",) + key] += v - before.get(key, 0)
+        return call
+
+    saved = (full_pipeline.sharded_lde_blocks, fri_prover.limb_apply_drp)
+    backends = [get_backend(field) for field in ("f128", "f62")]
+    full_pipeline.sharded_lde_blocks = counted(saved[0])
+    fri_prover.limb_apply_drp = counted(saved[1])
+    for B in backends:
+        B.interpolate_poly_with_offset = counted(B.interpolate_poly_with_offset)
+    try:
+        yield counts
+    finally:
+        full_pipeline.sharded_lde_blocks, fri_prover.limb_apply_drp = saved
+        for B in backends:
+            del B.interpolate_poly_with_offset
+
+
+def extension_launches(base, side, ext_deg):
+    """Kernel 4's launches by shape that a prove at ``ext_deg`` must make,
+    from the degree-1 prove of the same trace and options: ``base``, its
+    counts, and ``side``, those of them made by the steps that run once per
+    extension component (``extension_side_launches``); kernel 5 gives way
+    to the eager constraint phase."""
+    want = collections.Counter({k: v for k, v in base.items() if k[0] == "ntt"})
+    for key, v in side.items():
+        want[key] += (ext_deg - 1) * v
+    return +want
+
+
 def observed_phase(path, prover, air_class, traces, kernel_rows, rng, device,
-                   required, airs=None, golden=None, tampers=(), **extra):
+                   required, airs=None, golden=None, tampers=(), side=None,
+                   expected=None, **extra):
+
     """One size of a path whose kernel shapes are read off a first prove
     (``first_prove``): each new shape is held against its plain version;
-    then the counted prove must launch every kind of kernel in ``required``,
-    only compared shapes, each as often as the first prove did less the
+    then the counted prove must launch every kind of kernel in ``required``
+    and no other kind, only compared shapes, each as often as the first prove did less the
     launches of its table builds.  (The first prove of a limb config also
     builds its periodic and divisor tables, which later proves find cached:
     those shapes are compared too, and a shape launched by them alone is
     named ``first_prove_only`` in the phase's line.)  ``tampers``: (name,
     function of the public inputs) pairs, each of whose results the verifier
-    must reject; ``extra`` goes into the phase's line."""
+    must reject.  ``side``: a dict that gets the counted prove's
+    ``extension_side_launches``; ``expected``: the counts the counted prove
+    must show, derived beforehand (``extension_launches``).  ``extra`` goes
+    into the phase's line; with ``base_steady_prove_s`` the line also gives
+    the steady prove over it.  Returns {"counted", "steady_prove_s",
+    "phases_ms"} of the counted prove."""
     n = len(traces)
     hasher = prover.hasher
     pub = [prover.get_pub_inputs(t) for t in traces]
@@ -893,9 +987,21 @@ def observed_phase(path, prover, air_class, traces, kernel_rows, rng, device,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()  # tables cached by earlier proves
-    proof, seconds, phases = timed_prove(prover, traces)
+    with (extension_side_launches() if side is not None
+          else contextlib.nullcontext()) as side_counts:
+        proof, seconds, phases = timed_prove(prover, traces)
     peak = torch.cuda.max_memory_allocated()
     counted = record_observed(path, seen, new_rows, kernel_rows, required)
+    fields = dict(extra)
+    if side is not None:
+        side.update(+side_counts)
+    if expected is not None:
+        if dict(counted) != dict(expected):
+            raise RuntimeError(f"the {path} prove launched {counted}, derived from the "
+                               f"degree-1 prove were {dict(expected)}")
+        fields["launches_as_derived"] = True
+    if "base_steady_prove_s" in extra:
+        fields["steady_over_base"] = seconds / extra["base_steady_prove_s"]
     data = proof.to_bytes()
     parsed = proof.from_bytes(data)
     if parsed.to_bytes() != data:
@@ -903,7 +1009,6 @@ def observed_phase(path, prover, air_class, traces, kernel_rows, rng, device,
     t0 = time.perf_counter()
     verify(air_class, parsed, pub, hasher)
     verify_s = time.perf_counter() - t0
-    fields = dict(extra)
     if golden is not None:
         digest = hashlib.sha256(data).hexdigest()
         with open(golden) as f:
@@ -932,7 +1037,10 @@ def observed_phase(path, prover, air_class, traces, kernel_rows, rng, device,
          launches={kernel_rows[k]["name"]: v for k, v in counted.items()},
          peak_memory_bytes=peak, resident_before_bytes=resident,
          peak_over_main_lde=(peak - resident) / lde_bytes,
-         proof_bytes=len(data), verify_s=verify_s, verified=True, **fields)
+         proof_bytes=len(data), security_level_conjectured=proof.security_level_conjectured(),
+         verify_s=verify_s, verified=True, **fields)
+    return {"counted": counted, "steady_prove_s": seconds,
+            "phases_ms": {name: ms for name, ms in phases}}
 
 
 def tamper_seed(pub):
@@ -966,8 +1074,20 @@ def limb_phases(kernel_rows, rng, device):
     t0 = time.perf_counter()
     trace = build_rescue128_chain_trace([7, 9], rows // 8)
     emit("limb_trace", rows=rows, trace_build_s=time.perf_counter() - t0)
-    observed_phase("limb_main", prover, Rescue128ChainAir, [trace],
-                   kernel_rows, rng, device, both, airs, tampers=[("seed", tamper_seed)])
+    side = {}
+    base = observed_phase("limb_main", prover, Rescue128ChainAir, [trace],
+                          kernel_rows, rng, device, both, airs, side=side,
+                          tampers=[("seed", tamper_seed)])
+    # the same trace at quadratic: the eager constraint phase in place of
+    # kernel 5, the extension's steps through kernel 4 once per component
+    ext_prover = Rescue128ChainProver(ProofOptions(*LIMB_EXT_OPTIONS), Blake3_256)
+    observed_phase("limb_ext_main", ext_prover, Rescue128ChainAir, [trace], kernel_rows,
+                   rng, device, ("ntt",),
+                   expected=extension_launches(base["counted"], side,
+                                               int(LIMB_EXT_OPTIONS[3])),
+                   tampers=[("seed", tamper_seed)], options=list(LIMB_EXT_OPTIONS),
+                   base_steady_prove_s=base["steady_prove_s"],
+                   base_phases_ms=base["phases_ms"])
     del trace
 
     log2_rows, n = LIMB_PATHS["limb_aggregated"]
@@ -976,6 +1096,71 @@ def limb_phases(kernel_rows, rng, device):
               for sd in seeds]
     observed_phase("limb_aggregated", prover, Rescue128ChainAir, traces,
                    kernel_rows, rng, device, both, airs, tampers=[("seed", tamper_seed)])
+
+
+# ---------------------------------------------------------------------------
+# the limb path over the extension fields: Merkle paths, golden rows, f62
+# ---------------------------------------------------------------------------
+
+
+def merkle_paths(n: int, depth: int, rng):
+    """``n`` Merkle authentication paths of ``depth`` levels over f128,
+    drawn from the run's seed: (leaf, siblings, index) each."""
+    prng = random.Random(int(rng.integers(1 << 62)))
+    return [([prng.randrange(mk.P) for _ in range(2)],
+             [[prng.randrange(mk.P) for _ in range(2)] for _ in range(depth)],
+             prng.getrandbits(depth)) for _ in range(n)]
+
+
+def tamper_root(pub):
+    return pub[:-1] + [mk.Merkle128Inputs([(pub[-1].root[0] + 1) % mk.P, pub[-1].root[1]])]
+
+
+def limb_ext_phases(kernel_rows, rng, device):
+    """Merkle authentication paths over f128, many aggregated into ONE proof
+    (a batch of membership proofs against one tree, such as the account
+    reads of a block): at degree 1 with BLAKE3-256 through the constraint
+    kernel's merkle128 body, then on the same traces at quadratic with
+    SHA3-256 (the golden row's hasher) through the eager constraint phase,
+    kernel 4's launches derived from the degree-1 prove's.  A tampered root
+    is rejected.  The paths and their traces are built on the host (native
+    builder) and timed apart.  Then golden rows 10 and 12 and fib-f62 at
+    cubic against their pins."""
+    n, depth = MERKLE_PATHS
+    t0 = time.perf_counter()
+    paths = merkle_paths(n, depth, rng)
+    traces = mk.build_merkle128_traces(paths)
+    trace_s = time.perf_counter() - t0
+    leaf, sibs, index = paths[0]
+    root = [traces[0].get(c, traces[0].length - 1) for c in (0, 1)]
+    if root != mk.compute_root128(leaf, sibs, index):
+        raise RuntimeError("the native Merkle-path builder disagrees with compute_root128")
+    del paths
+    prover = mk.Merkle128Prover(ProofOptions(*BENCH_OPTIONS), Blake3_256)
+    side = {}
+    base = observed_phase("merkle128_aggregated", prover, mk.Merkle128Air, traces, kernel_rows,
+                          rng, device, ("ntt", "cons"), phase_airs(prover, traces), side=side,
+                          tampers=[("root", tamper_root)], paths=n, depth=depth,
+                          trace_build_s=trace_s)
+    quad = mk.Merkle128Prover(ProofOptions(*MERKLE_QUAD_OPTIONS), Sha3_256)
+    observed_phase("merkle128_aggregated_quad", quad, mk.Merkle128Air, traces, kernel_rows,
+                   rng, device, ("ntt",),
+                   expected=extension_launches(base["counted"], side,
+                                               int(MERKLE_QUAD_OPTIONS[3])),
+                   tampers=[("root", tamper_root)], paths=n, depth=depth,
+                   options=list(MERKLE_QUAD_OPTIONS), base_steady_prove_s=base["steady_prove_s"],
+                   base_phases_ms=base["phases_ms"])
+    del traces
+
+    for path, (example, n, l, opts, hasher, pin) in LIMB_EXT_GOLDEN.items():
+        air_class, prover_class, build = get_example(example)
+        if example == "rescue128-chain":  # the golden matrix's seeds
+            traces = [build_rescue128_chain_trace([i + 1, i + 2], l) for i in range(n)]
+        else:
+            traces = [build(i, l) for i in range(n)]
+        observed_phase(path, prover_class(ProofOptions(*opts), hasher), air_class, traces,
+                       kernel_rows, rng, device, ("ntt",), golden=golden_pin(pin),
+                       options=list(opts))
 
 
 # ---------------------------------------------------------------------------
@@ -1179,6 +1364,7 @@ def main(argv=None):
     big_trace_phases(kernel_rows, rng, device)
     small_trace_phases(kernel_rows, rng, device)
     limb_phases(kernel_rows, rng, device)
+    limb_ext_phases(kernel_rows, rng, device)
     lamport_phases(kernel_rows, rng, device)
 
     print(smi, flush=True)

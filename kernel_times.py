@@ -3,7 +3,7 @@
 constraint kernel on one NVIDIA GPU, for one checkout of the port: this one,
 or another commit unpacked beside it.
 
-    python3 kernel_times.py [--root DIR] [--prove] [--only ntt|cons|ext] [--variants]
+    python3 kernel_times.py [--root DIR] [--prove] [--only ntt|cons|ext|limb_ext] [--variants]
 
 ``--root`` names the directory whose ``starkpack_winterfell_tpu_torch``
 package is measured (default: the one beside this script), so that two
@@ -37,9 +37,14 @@ measurement:
 
 * ``ext`` (only with ``--only ext``): the eager extension-field steps of
   the 2^20 x 12 prove at degree 1 and 3 (``time_ext``).
+* ``limb_ext`` (only with ``--only limb_ext``): the eager steps of the f128
+  Rescue128 2^18 x 6 prove at degree 1 and at quadratic, the eager
+  constraint phase among them, beside kernel 5 on the same inputs
+  (``time_limb_ext``).
 
 ``--only`` times the NTT kernels alone (``ntt``), kernel 5 alone (``cons``)
-or the eager extension-field steps alone (``ext``).  ``cons_args`` and
+or the eager extension-field steps alone (``ext`` on f64, ``limb_ext`` on
+f128).  ``cons_args`` and
 ``hold_cons`` also build and check ``chip_smoke.py``'s kernel-5 inputs.
 
 ``device_kernel_ms`` and ``timed_prove`` are also what ``chip_smoke.py``
@@ -456,6 +461,101 @@ def time_ext(label, dev):
         torch.cuda.empty_cache()
 
 
+def time_limb_ext(label, dev):
+    """The eager steps of the f128 Rescue128 2^18 x 6 prove (rescue128-chain,
+    ce = L = 2^21) that change with the extension, at degree 1 and at
+    quadratic on random inputs: the eager constraint phase
+    (``full_pipeline.eager_constraint_phase``, the whole ce domain), the two
+    OOD power series of length 2^18 (P4), one DEEP quotient
+    (``syn_div_binomial`` of 6 rows of 2^18) and the first FRI fold (P5+6).
+    Kernel 5 on the same degree-1 inputs is timed beside the eager phase;
+    then P1's leaf hashing of the 256-path merkle128 prove's rows with
+    BLAKE3-256 and SHA3-256 (wall ms of one call only).  Wall ms of a call (CUDA-synchronised), device ms and device kernels of a
+    call (``profile_calls``), medians of 3 calls."""
+    from starkpack_winterfell_tpu_torch import ProofOptions, TraceInfo
+    from starkpack_winterfell_tpu_torch.fri.prover import limb_apply_drp, limb_drp_inv_offsets
+    from starkpack_winterfell_tpu_torch.models.rescue128_chain import (
+        Rescue128ChainAir, Rescue128ChainInputs)
+    from starkpack_winterfell_tpu_torch.ops import cons_kernel
+    from starkpack_winterfell_tpu_torch.ops.backend import get_backend
+    from starkpack_winterfell_tpu_torch.parallel import full_pipeline
+    from starkpack_winterfell_tpu_torch.prover.domain import StarkDomain
+
+    rng = np.random.default_rng(2)
+    B = get_backend("f128")
+    length, width, n = 1 << 18, 6, 1
+    air = Rescue128ChainAir(TraceInfo(width, length), Rescue128ChainInputs([1, 2], [3, 4]),
+                            ProofOptions(28, 8, 16, 1, 4, 31))
+    domain = StarkDomain(air)
+    template = air.get_boundary_constraints(None, [0] * air.context.num_assertions())
+    plan = full_pipeline._build_plan(air, template, domain, B, dev)
+    K, ce, L = plan["K"], domain.ce_size, domain.lde_size
+    n_ccs = sum(len(g) for g in plan["groups"])
+
+    def elem(deg, *shape):
+        return tuple(random_limb("f128", shape, rng, dev) for _ in range(deg))
+
+    rows = elem(1, n, width, L)
+    singles = [elem(1, n, 1) for _ in range(n_ccs)]
+    for deg in (1, 2):
+        t_main, fp = elem(deg, n, K), elem(deg, n)
+        ccs = [elem(deg, n, 1) for _ in range(n_ccs)]
+        x, z = elem(deg, 1), elem(deg, 1)
+        p = elem(deg, width, length)
+        layer = elem(deg, L)
+        transposed = tuple(B.cmap(lambda l: l.reshape(4, L // 4).T.contiguous(), c)
+                           for c in layer)
+        inv_offs = limb_drp_inv_offsets(B, L // 4, 4, air.domain_offset(), dev)
+        steps = {
+            "P2 eager constraint phase": lambda: full_pipeline.eager_constraint_phase(
+                B, air, domain, plan, rows, t_main, singles, [], ccs, fp),
+            "P4 two OOD power series of 2^18": lambda: [B.power_series_elem(v, length)
+                                                        for v in (x, z)],
+            "P5+6 syn_div_binomial of 6 x 2^18": lambda: B.syn_div_binomial(p, z),
+            "P5+6 first FRI fold (2^19 rows of 4)": lambda: limb_apply_drp(
+                B, transposed, x, inv_offs, deg),
+        }
+        if deg == 1:
+            scal = cons_kernel.pack_scalar_bank(B, t_main, singles, ccs, fp, n, K)
+            steps["P2 kernel 5"] = lambda: cons_kernel.constraint_eval(
+                B, air, plan["groups"], K, domain.ce_to_lde_blowup,
+                domain.trace_to_lde_blowup, rows, plan["periodic_tabs"],
+                plan["div_tables"], scal)
+        for name, fn in steps.items():
+            per_call, walls = profile_calls(fn, 3)
+            emit("limb_ext", root=label, step=name, ext_deg=deg, ce=ce,
+                 wall_ms=statistics.median(walls) * 1e3,
+                 device_ms=statistics.median(sum(d for _, _, d in ev) for ev in per_call) / 1e3,
+                 device_kernels=statistics.median(len(ev) for ev in per_call))
+            torch.cuda.empty_cache()
+        if deg == 1:
+            # the eager phase at degree 1 computes what kernel 5 does
+            got = full_pipeline.eager_constraint_phase(B, air, domain, plan, rows, t_main,
+                                                       singles, [], ccs, fp)
+            hold_cons((B, air, plan["groups"], K, domain.ce_to_lde_blowup,
+                       domain.trace_to_lde_blowup, rows, plan["periodic_tabs"],
+                       plan["div_tables"], scal, []), "the eager phase's inputs", got[0])
+            del got, scal
+        del p, layer, transposed
+        torch.cuda.empty_cache()
+
+    # P1's leaves of the 256-path merkle128 prove: the LDE rows (2048 of them,
+    # 256 instances x 7 columns of f128 each) hashed whole, with each hasher;
+    # one call's wall alone (under the profiler a call takes minutes)
+    from starkpack_winterfell_tpu_torch.crypto.hashers import get_hasher
+
+    row_elems = 256 * 7
+    words = B.rows_to_words(elem(1, 2048, row_elems), 1)
+    for hname in ("blake3_256", "sha3_256"):
+        hasher = get_hasher(hname)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hasher.hash_words(words, row_elems * B.ELEMENT_BYTES)
+        torch.cuda.synchronize()
+        emit("limb_ext", root=label, step=f"P1 leaves of 2048 rows of {row_elems} f128",
+             hasher=hname, wall_ms=(time.perf_counter() - t0) * 1e3)
+
+
 def emit(kind, **fields):
     print(json.dumps({"kind": kind, **fields}), flush=True)
 
@@ -466,9 +566,9 @@ def main(argv=None):
     p.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)),
                    help="directory holding the starkpack_winterfell_tpu_torch to time")
     p.add_argument("--prove", action="store_true", help="also time a 2^20 x 12 prove")
-    p.add_argument("--only", choices=("ntt", "cons", "ext"),
+    p.add_argument("--only", choices=("ntt", "cons", "ext", "limb_ext"),
                    help="time only the NTT kernels, only kernel 5, or only the eager "
-                        "extension-field steps")
+                        "extension-field steps (f64, or f128)")
     p.add_argument("--variants", action="store_true",
                    help="also time kernel 5 with the emitter's rules varied (this checkout)")
     args = p.parse_args(argv)
@@ -492,6 +592,9 @@ def main(argv=None):
     dev = torch.device("cuda")
     if args.only == "ext":
         time_ext(label, dev)
+        return 0
+    if args.only == "limb_ext":
+        time_limb_ext(label, dev)
         return 0
     if args.only != "ntt":
         time_cons(label, args.variants and root == here, dev)

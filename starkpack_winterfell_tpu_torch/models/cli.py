@@ -4,8 +4,10 @@ and proof-size reporting.
 Counterpart of starkpack_winterfell_tpu/models/cli.py cut to the examples
 that reach a ported path: do-work, fib and rescue-chain (f64: the
 small-trace pipeline below 2^14 rows, the big-trace pipeline from there up),
-rescue128-chain, fib-f128, lamport128 and lamport128-agg (f128) and fib-f62
-(f62), limb pipeline.
+rescue128-chain, fib-f128, merkle128, lamport128 and lamport128-agg (f128)
+and fib-f62 (f62), limb pipeline.  ``-e 2`` (quadratic) reaches every
+example, ``-e 3`` (cubic) every one but the f128 examples, which have no
+cubic extension.
 
 Usage:
   python -m starkpack_winterfell_tpu_torch.models.cli do-work -n 32 -l 1024
@@ -15,6 +17,8 @@ Usage:
   python -m starkpack_winterfell_tpu_torch.models.cli rescue-chain -n 2 -l 2048 --device cpu
   python -m starkpack_winterfell_tpu_torch.models.cli rescue128-chain -n 1 -l 512 --device cpu
   python -m starkpack_winterfell_tpu_torch.models.cli fib-f128 -n 2 -l 512 --device cpu
+  python -m starkpack_winterfell_tpu_torch.models.cli fib-f62 -n 2 -l 256 -e 3 --device cpu
+  python -m starkpack_winterfell_tpu_torch.models.cli merkle128 -n 2 -l 64 -e 2 --hash sha3_256 --device cpu
   python -m starkpack_winterfell_tpu_torch.models.cli lamport128 -n 2 -l 128 --hash sha3_256 --device cpu
   python -m starkpack_winterfell_tpu_torch.models.cli lamport128-agg -n 1 -l 2048 --hash blake3_192 --device cpu
 """
@@ -62,6 +66,20 @@ def get_example(name: str):
             Rescue128ChainProver,
             lambda i, l: build_rescue128_chain_trace([i + 1, 2 * i + 7], l),
         )
+    if name == "merkle128":
+        import random as _random
+
+        from .merkle128 import P, Merkle128Air, Merkle128Prover, build_merkle128_trace
+
+        def build_mk(i, l):
+            # -l is the trace length: 8 rows per tree level
+            depth = l // 8
+            rng = _random.Random(i)
+            leaf = [rng.randrange(P), rng.randrange(P)]
+            sibs = [[rng.randrange(P), rng.randrange(P)] for _ in range(depth)]
+            return build_merkle128_trace(leaf, sibs, rng.getrandbits(depth))
+
+        return Merkle128Air, Merkle128Prover, build_mk
     if name == "lamport128":
         from . import lamport128 as lam
 
@@ -98,7 +116,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("example", choices=["do-work", "fib", "rescue-chain",
                                        "rescue128-chain", "fib-f128", "fib-f62",
-                                       "lamport128", "lamport128-agg"])
+                                       "merkle128", "lamport128", "lamport128-agg"])
     p.add_argument("-n", "--num-traces", type=int, default=2)
     p.add_argument("-l", "--trace-length", type=int, default=2048,
                    help="the hash chains: CHAIN length (hashes), the trace has "

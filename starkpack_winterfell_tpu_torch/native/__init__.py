@@ -171,8 +171,8 @@ def get_builders() -> ctypes.CDLL:
 
 def get_rescue128() -> ctypes.CDLL:
     """ctypes handle for the f128 Rescue128 kernels (native/rescue128.c: the
-    chain-trace builder, the batched sponge digest and the Lamport+ trace
-    builders), initialized with the protocol constants."""
+    chain-trace builder, the batched sponge digest, the Merkle-path and the
+    Lamport+ trace builders), initialized with the protocol constants."""
     if "r128" not in _CACHE:
         import numpy as np
 
@@ -183,6 +183,7 @@ def get_rescue128() -> ctypes.CDLL:
         for fn, argtypes in (("r128_init", [p, p, p]),
                              ("r128_chain_trace", [p, u64, p, p]),
                              ("r128_digest_batch", [p, u64, u64, p]),
+                             ("r128_merkle_trace_batch", [u64, u64, p, p, p, p, p]),
                              ("lamport128_trace", [u64, p, p, p, p, p]),
                              ("lamport128_trace_batch", [u64, u64, p, p, p, p, p])):
             getattr(lib, fn).argtypes = argtypes

@@ -160,6 +160,49 @@ void r128_chain_trace(const u64* seed, u64 m, u64* out_lo, u64* out_hi) {
   }
 }
 
+// Merkle authentication-path traces (models/merkle128.py
+// build_merkle128_trace), batched over n paths of one depth: 7 columns x
+// 8*depth rows each, out_lo/out_hi each n*7*length u64 (path-major, then
+// column-major).  leaves n*2*(lo,hi), sibs n*depth*2*(lo,hi), index n bit
+// masks (bit l routes level l).  Level l hashes [digest, sibling] (bit 0) or
+// [sibling, digest] (bit 1) with two zero capacity elements; column 6 holds
+// the bit, and the absorb row of a level holds the next level's bit.
+void r128_merkle_trace_batch(u64 n, u64 depth, const u64* leaves, const u64* sibs,
+                             const u64* index, u64* out_lo, u64* out_hi) {
+  const u64 length = depth * CYCLE;
+#ifdef _OPENMP
+#pragma omp parallel for schedule(static) if (n > 8)
+#endif
+  for (u64 b = 0; b < n; b++) {
+    u64* lo = out_lo + b * (W + 1) * length;
+    u64* hi = out_hi + b * (W + 1) * length;
+    u128 digest[2] = {rd(leaves + 4 * b), rd(leaves + 4 * b + 2)};
+    for (u64 lvl = 0; lvl < depth; lvl++) {
+      const u64 bit = (index[b] >> lvl) & 1;
+      const u64* sp = sibs + (b * depth + lvl) * 4;
+      const u128 sib[2] = {rd(sp), rd(sp + 2)};
+      u128 s[W] = {0, 0, 0, 0, 0, 0};
+      for (int i = 0; i < 2; i++) {
+        s[i] = bit ? sib[i] : digest[i];
+        s[2 + i] = bit ? digest[i] : sib[i];
+      }
+      const u64 base = lvl * CYCLE;
+      for (int r = 0; r < CYCLE; r++) {
+        if (r > 0) apply_round(s, r - 1);
+        for (int i = 0; i < W; i++) {
+          lo[(u64)i * length + base + r] = (u64)s[i];
+          hi[(u64)i * length + base + r] = (u64)(s[i] >> 64);
+        }
+        lo[(u64)W * length + base + r] = bit;
+        hi[(u64)W * length + base + r] = 0;
+      }
+      digest[0] = s[0];
+      digest[1] = s[1];
+      if (lvl + 1 < depth) lo[(u64)W * length + base + CYCLE - 1] = (index[b] >> (lvl + 1)) & 1;
+    }
+  }
+}
+
 // digest of m elements (sponge rate 4, no padding — rescue.rs:96-117),
 // batched over n inputs; inputs n*m*(lo,hi), out n*2*(lo,hi)
 void r128_digest_batch(const u64* inputs, u64 m, u64 n, u64* out) {

@@ -6,8 +6,9 @@ Counterpart of starkpack_winterfell_tpu/ops/backend.py (``FieldBackend`` :26,
 (extension coordinates); each component is a tuple of int64 word planes —
 two planes ``(lo, hi)`` for f128, one for f62 (ops/limb_field.py).  The f64
 big-trace path keeps calling ops/gl64 and ops/vec directly, so ``GL64Backend`` is not
-carried over; nor are the extension products (``ext_mul``, ``ext_inv``): the
-limb path proves at extension degree 1.
+carried over.  The extension products (``ext_mul``, ``ext_inv``) take degree 2
+on f128 and f62 and degree 3 on f62, as the JAX package's do; f128 has no cubic
+extension (math/fieldspec.py).
 
 Every function runs on the device of the tensors it is given; functions that
 create tensors take ``device``.
@@ -19,6 +20,10 @@ import torch
 
 from ..math.fieldspec import FIELDS
 from .limb_field import FIELDS_BY_NAME
+
+# the most elements a cubic inverse takes through the host (JAX
+# ``ext_inv``'s round trip): the DEEP point z and its like are one element
+HOST_INV_MAX = 64
 
 
 class FieldBackend:
@@ -51,11 +56,6 @@ class FieldBackend:
         z = self.cmap(torch.zeros_like, a[0])
         return a + (z,) * (target_deg - 1)
 
-    def _ext_unsupported(self, d: int):
-        raise NotImplementedError(
-            f"extension degree {d} over {self.name} is not ported yet"
-        )
-
     def vadd(self, a, b):
         d = max(len(a), len(b))
         a, b = self.promote(a, d), self.promote(b, d)
@@ -76,17 +76,17 @@ class FieldBackend:
             return tuple(self.bmul(x, b[0]) for x in a)
         if len(a) == 1:
             return tuple(self.bmul(a[0], y) for y in b)
-        self._ext_unsupported(len(a))
+        return self.ext_mul(a, b)
 
     def vsquare(self, a):
         if len(a) == 1:
             return (self.bsquare(a[0]),)
-        self._ext_unsupported(len(a))
+        return self.ext_mul(a, a)
 
     def vinv(self, a):
         if len(a) == 1:
             return (self.b_batch_inv(a[0]),)
-        self._ext_unsupported(len(a))
+        return self.ext_inv(a)
 
     def vzeros(self, shape, d: int = 1, device="cpu"):
         return tuple(self.b_zeros(shape, device) for _ in range(d))
@@ -189,6 +189,93 @@ class FieldBackend:
             if length < n:
                 cur_pow = self.vsquare(cur_pow)
         return tuple(self.cmap(lambda l: l[:n], c) for c in out)
+
+    # -- extension arithmetic ------------------------------------------------
+
+    def ext_mul(self, a, b):
+        """JAX ``FieldBackend.ext_mul`` :239.  Schoolbook component product
+        and reduction by the extension polynomial (fieldspec reduction
+        constants), all in elementwise base ops."""
+        d = len(a)
+        assert len(b) == d
+        full = [None] * (2 * d - 1)
+        for i in range(d):
+            for j in range(d):
+                p = self.bmul(a[i], b[j])
+                k = i + j
+                full[k] = p if full[k] is None else self.badd(full[k], p)
+        return self._ext_reduce(full, d)
+
+    def _ext_reduce(self, full, d: int):
+        """JAX ``FieldBackend._ext_reduce`` :252.  Folds the coefficients of
+        x^d.. back with x^d = sum r_k x^k."""
+        if d == 2:
+            q1, q0 = self.spec.quad_reduce
+            reduce_rows = [[q0 % self.P, q1 % self.P]]
+        elif d == 3:
+            assert self.spec.cubic_reduce is not None, (
+                f"{self.name} has no cubic extension"
+            )
+            e2, e1, e0 = [v % self.P for v in self.spec.cubic_reduce]
+            # x^3 = e2 x^2 + e1 x + e0; x^4 = x * x^3 reduced
+            r4 = [
+                (e2 * e0) % self.P,
+                (e0 + e2 * e1) % self.P,
+                (e1 + e2 * e2) % self.P,
+            ]
+            reduce_rows = [[e0, e1, e2], r4]
+        else:
+            raise ValueError(f"unsupported extension degree {d}")
+        out = list(full[:d])
+        for k in range(d, 2 * d - 1):
+            row = reduce_rows[k - d]
+            for t in range(d):
+                if row[t] == 0:
+                    continue
+                c = self._bconst_like(row[t], full[k])
+                out[t] = self.badd(out[t], self.bmul(full[k], c))
+        return tuple(out)
+
+    def _bconst_like(self, v: int, like_comp):
+        """JAX ``FieldBackend._bconst_like`` :284.  The constant ``v`` as a
+        (1,)-shaped component on the device of ``like_comp``."""
+        return self.b_from_int(v, (1,), like_comp[0].device)
+
+    def ext_inv(self, a):
+        """JAX ``FieldBackend.ext_inv`` :288.  Quadratic: the conjugate over
+        the norm, from the reduction polynomial x^2 - q1 x - q0 (conj(x) =
+        q1 - x), on the device.  Cubic: a round trip through the host's
+        ``FieldSpec.finv``, as the JAX package does, for the tiny arrays that
+        need it (the DEEP point z); on a CUDA tensor more than
+        ``HOST_INV_MAX`` elements raise instead of running on the host."""
+        d = len(a)
+        if d == 2:
+            q1, q0 = [v % self.P for v in self.spec.quad_reduce]
+            a0, a1 = a
+            q1c = self._bconst_like(q1, a0)
+            q0c = self._bconst_like(q0, a0)
+            # conj = (a0 + q1*a1, -a1); N = a0^2 + q1 a0 a1 - q0 a1^2
+            conj0 = self.badd(a0, self.bmul(a1, q1c))
+            n_val = self.badd(
+                self.bsquare(a0),
+                self.bsub(
+                    self.bmul(self.bmul(a0, a1), q1c),
+                    self.bmul(self.bsquare(a1), q0c),
+                ),
+            )
+            ninv = self.b_batch_inv(n_val)
+            return (self.bmul(conj0, ninv), self.bneg(self.bmul(a1, ninv)))
+        count = a[0][0].numel()
+        if a[0][0].device.type != "cpu" and count > HOST_INV_MAX:
+            raise NotImplementedError(
+                f"a cubic inverse of {count} elements over {self.name} would run "
+                f"on the host (at most {HOST_INV_MAX} do)"
+            )
+        shape = a[0][0].shape
+        vals = self.limbs_to_elems(self.emap(lambda l: l.reshape(-1), a), d)
+        inv = [self.spec.finv(v) for v in vals]
+        out = self.elems_to_limbs(inv, d, a[0][0].device)
+        return self.emap(lambda l: l.reshape(shape), out)
 
     # -- conversions ----------------------------------------------------------
 

@@ -12,7 +12,8 @@ gl64/vec directly (the f64 big-trace path).  ``Felt(..., B=backend)`` holds
 one tuple of word planes per component and routes every operation through
 the ``FieldBackend`` (ops/backend.py), so the same AIR code runs on f128
 planes.  Goldilocks Felts take degree 1, 2 and 3 (ops/gl64_ext.py); limb
-Felts degree 1 (the backend refuses more).
+Felts take degree 1 and 2, and 3 over f62 (``FieldBackend.ext_mul``; f128 has
+no cubic extension).
 """
 
 from __future__ import annotations

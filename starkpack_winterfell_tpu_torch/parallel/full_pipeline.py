@@ -10,10 +10,13 @@ ops/cons_kernel.py).
   P1   main-trace commitment: interpolate, coset LDE, row words, BLAKE3
        leaves, Merkle levels (``sharded_segment_commit`` :118).
   P2   constraint evaluation over the ce domain, all instances combined
-       with final_coeff^i, in the constraint kernel
+       with final_coeff^i: at extension degree 1 in the constraint kernel
        (``pallas_constraint_phase`` :442; its frame slicing happens by index
-       inside the kernel).  Sequence assertions enter as (n, ce) tables,
-       evaluated on the device from their (n, m) coefficient stacks (:846).
+       inside the kernel), above it in eager tensor code, chunk by chunk of
+       the ce domain (``eager_constraint_phase``, the counterpart of
+       ``sharded_constraint_phase`` :325).  Sequence assertions enter as
+       (n, ce) tables, evaluated on the device from their (n, m) coefficient
+       stacks (:846).
   P3   composition polynomial: interpolate, split into columns, coset LDE
        coset by coset against an offsets table, commit
        (``sharded_lde_blocks`` :191).
@@ -24,10 +27,10 @@ ops/cons_kernel.py).
        (what ``MeshFriProver`` :1215 does on one device), and one gather of
        the queried rows.
 
-Ported: limb-field AIRs (f128, f62) at extension degree 1, main segment only,
-single-value and sequence boundary assertions, BLAKE3-256, BLAKE3-192 and
-SHA3-256.  Aux segments, extensions, other hashers and configs that would
-need the coset-streamed kernels raise NotImplementedError
+Ported: limb-field AIRs (f128, f62) at extension degree 1, 2 and (f62 only)
+3, main segment only, single-value and sequence boundary assertions,
+BLAKE3-256, BLAKE3-192 and SHA3-256.  Aux segments, other hashers and configs
+that would need the coset-streamed kernels raise NotImplementedError
 (``prover/device.py``, ``parallel/streamed.py``).  Proof bytes equal the JAX
 package's host pipeline.
 """
@@ -40,11 +43,13 @@ import time
 import torch
 
 from ..air.divisors import ConstraintDivisor
+from ..air.transition import EvaluationFrame
 from ..crypto.merkle import MerkleTree, build_levels
 from ..errors import ProverError
 from ..fri.prover import LimbFriProver
 from ..ops import cons_kernel
 from ..ops.backend import get_backend
+from ..ops.felt import Felt
 from ..prover.channel import ProverChannel
 from ..prover.domain import StarkDomain
 from ..prover.pipeline import finish_proof
@@ -53,6 +58,11 @@ from . import streamed
 # the phase records go to the logger chip_smoke.py and the CLI's --verbose
 # listen to, as prove_big's do
 logger = logging.getLogger("starkpack_winterfell_tpu_torch.prover.device")
+
+# instance points (instances x ce points) the eager constraint phase takes at
+# once: it bounds the peak of its temporaries (one f128 value over 2^20
+# points is 16 MB) and keeps each eager op long enough to cover its launch
+EAGER_POINTS = 1 << 20
 
 # per-config device tables (coset offsets, divisor and periodic tables):
 # they depend on the configuration, not on the traces or the transcript
@@ -134,7 +144,8 @@ def sharded_lde_blocks(B, comps, blowup: int, offset: int, hasher=None, deg=1):
 
 def _pcons_gate(plan, ext_deg, spec):
     """What the constraint kernel takes: main segment only, no field
-    extension, a limb field; single-value and sequence assertions."""
+    extension, a limb field; single-value and sequence assertions.  The
+    rest goes to ``eager_constraint_phase``."""
     return not plan["has_aux"] and ext_deg == 1 and spec.name in ("f62", "f128")
 
 
@@ -269,6 +280,56 @@ def pallas_constraint_phase(B, air0, domain, plan, main_rows, scal, seq_tabs=())
         domain.trace_to_lde_blowup, main_rows, plan["periodic_tabs"],
         plan["div_tables"], scal, seq_tabs,
     )
+
+
+def _felt_columns(comps, w, B):
+    """JAX ``_felt_columns`` :317: (n, w, pts) comps -> one Felt a column,
+    shaped (n, pts)."""
+    return [Felt(B.emap(lambda l: l[:, wi], comps), B=B) for wi in range(w)]
+
+
+def eager_constraint_phase(B, air0, domain, plan, main_rows, t_main, singles,
+                           seq_tabs, ccs, fp_stack):
+    """JAX ``sharded_constraint_phase`` :325 (with ``_frames_from_rows``
+    :298) on one device, as eager tensor code: the transition, the boundary
+    groups, the divisor tables and the cross-instance ``final_powers``
+    combination, at any extension degree.
+
+    main_rows: comps (n, w, L) LDE rows; t_main: comps (n, K) and ccs a list
+    of comps (n, 1), in the extension; singles: base comps (n, 1);
+    seq_tabs: one base component (n, ce) a sequence assertion; fp_stack:
+    comps (n,), final_coeff^i.  The current frame of ce point j is LDE row
+    j*shift, the next row j*shift + blowup (mod L: the d = 1 case of the JAX
+    ``ppermute``).  The ce domain goes in chunks of ``EAGER_POINTS`` //
+    n points; every step is pointwise in ce, so chunking changes no value.
+    Returns comps (ce,)."""
+    n, w, L = main_rows[0][0].shape
+    ce = domain.ce_size
+    shift = domain.ce_to_lde_blowup
+    blowup = domain.trace_to_lde_blowup
+    K = plan["K"]
+    device = main_rows[0][0].device
+    t_coefs = [B.emap(lambda l: l[:, k : k + 1], t_main) for k in range(K)]
+    fp = B.emap(lambda l: l[:, None], fp_stack)
+    chunk = min(ce, 1 << max(0, (EAGER_POINTS // n).bit_length() - 1))
+    parts = []
+    for j0 in range(0, ce, chunk):
+        pts = torch.arange(j0, j0 + chunk, device=device)
+        cur = B.emap(lambda l: l[:, :, j0 * shift : (j0 + chunk) * shift : shift],
+                     main_rows)
+        nxt_idx = (pts * shift + blowup) % L
+        nxt = B.emap(lambda l: l.index_select(2, nxt_idx), main_rows)
+        frame = EvaluationFrame(_felt_columns(cur, w, B), _felt_columns(nxt, w, B))
+        pv = [Felt((B.cmap(lambda l: l.index_select(0, pts % l.shape[0]), tab),), B=B)
+              for tab in plan["periodic_tabs"]]
+        seqs = [(B.cmap(lambda l: l[:, j0 : j0 + chunk], t),) for t in seq_tabs]
+        divs = [(B.cmap(lambda l: l[j0 : j0 + chunk], t),) for t in plan["div_tables"]]
+        acc = cons_kernel.eval_block(B, air0, plan["groups"], K, frame, pv, t_coefs,
+                                     singles, seqs, ccs, divs)
+        parts.append(B.vsum(B.vmul(acc, fp), axis=0))
+        del frame, pv, seqs, divs, acc
+    return tuple(tuple(torch.cat([p[c][l] for p in parts]) for l in range(len(parts[0][c])))
+                 for c in range(len(parts[0])))
 
 
 # ---------------------------------------------------------------------------
@@ -419,11 +480,10 @@ def prove_mesh(prover, n: int, traces, device):
          airs[0].periodic_cache_key(), str(device)),
         lambda: _build_plan(airs[0], boundary_list[0], domain, B, device),
     )
-    if not _pcons_gate(plan, ext_deg, spec):
+    if plan["has_aux"]:
         raise NotImplementedError(
-            f"config not ported yet (outside the constraint kernel: aux "
-            f"segments or an extension field; ROADMAP slice iii, rest): "
-            f"air={type(airs[0]).__name__}, field={spec.name}, "
+            f"config not ported yet (auxiliary trace segments, ROADMAP queue "
+            f"1(c)): air={type(airs[0]).__name__}, field={spec.name}, "
             f"extension degree={ext_deg}"
         )
     singles, seq_specs, ccs = _stack_group_values(boundary_list, domain, airs[0], B,
@@ -433,9 +493,14 @@ def prove_mesh(prover, n: int, traces, device):
     t_main = _stack_elems(B, [t.main_constraint_coef for t in tc_list], ext_deg, device)
     fp_stack = B.emap(lambda l: l[:, 0],
                       _stack_elems(B, [[p] for p in final_powers], ext_deg, device))
-    scal = cons_kernel.pack_scalar_bank(B, t_main, singles, ccs, fp_stack, n, plan["K"])
-    final_comb = pallas_constraint_phase(B, airs[0], domain, plan, lde_rows, scal,
-                                         seq_tabs)
+    if _pcons_gate(plan, ext_deg, spec):
+        scal = cons_kernel.pack_scalar_bank(B, t_main, singles, ccs, fp_stack, n,
+                                            plan["K"])
+        final_comb = pallas_constraint_phase(B, airs[0], domain, plan, lde_rows, scal,
+                                             seq_tabs)
+    else:
+        final_comb = eager_constraint_phase(B, airs[0], domain, plan, lde_rows, t_main,
+                                            singles, seq_tabs, ccs, fp_stack)
     del seq_tabs
     _mark("P2 constraint evaluation")
 

@@ -331,12 +331,14 @@ def prove_device(prover, n: int, traces, device="cuda"):
         )
 
     if traces[0].num_aux_segments() > 0:
-        refuse("auxiliary trace segments are not ported")
+        refuse("auxiliary trace segments are not ported, ROADMAP queue 1(c)")
     if field != "f64":
         if field not in ("f128", "f62"):
             refuse("no backend for this field")
-        if ext_deg != 1:
-            refuse("the limb pipeline is ported at extension degree 1")
+        if not air0.field_spec().supports_extension(ext_deg):
+            # the reference's own refusal (FieldSpec.fmul), raised before any
+            # work instead of at the OOD point: f128 has no cubic extension
+            raise AssertionError(f"{field} does not support degree {ext_deg}")
         if hname not in LIMB_HASHERS:
             refuse(f"the limb pipeline is ported with {', '.join(LIMB_HASHERS)}")
         from ..parallel.full_pipeline import prove_mesh

@@ -241,10 +241,11 @@ def test_plain_version_matches_the_kernel_body_on_lamport_agg_sequences():
 
 
 def five_bodies():
-    """The five AIR bodies the port's proves emit: (AIR, w, periodic
-    columns, K)."""
+    """The AIR bodies the port's proves emit (five, and merkle128's since
+    the limb extensions came): (AIR, w, periodic columns, K)."""
     from starkpack_winterfell_tpu_torch.models import lamport128 as t_lam
     from starkpack_winterfell_tpu_torch.models import lamport128_agg as t_agg
+    from starkpack_winterfell_tpu_torch.models import merkle128 as t_mk
 
     options = T.ProofOptions(*OPTIONS)
     airs = {
@@ -256,6 +257,8 @@ def five_bodies():
         "lamport128-agg": t_agg.Lamport128AggAir(
             T.TraceInfo(14, 512), t_agg.LamportAggInputs([9, 10, 11, 12], [[1, 2]] * 4),
             options),
+        "merkle128": t_mk.Merkle128Air(T.TraceInfo(t_mk.TRACE_WIDTH, 64),
+                                       t_mk.Merkle128Inputs([3, 4]), options),
     }
     return {name: (air, air.trace_info().width(), len(air.get_periodic_column_values()),
                    air.context.num_transition_constraints()) for name, air in airs.items()}
@@ -263,7 +266,7 @@ def five_bodies():
 
 @pytest.mark.parametrize("roles", ["rules", "one", "two", "rules, inputs held"])
 @pytest.mark.parametrize("body", ["rescue128", "fib-f128", "fib-f62", "lamport128",
-                                  "lamport128-agg"])
+                                  "lamport128-agg", "merkle128"])
 def test_scheduled_roles_evaluate_as_the_recorded_body(body, roles, monkeypatch):
     """The roles, each in its schedule, evaluated on python ints and summed:
     equal to sum t_coef[k] * ev[k] of ``eval_ops_int`` on the recorded list,

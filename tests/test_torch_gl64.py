@@ -117,16 +117,19 @@ def test_power_series_elem_matches_reference(n):
 
 
 def test_vec_refuses_unported_extension_degrees():
-    """Goldilocks takes degrees 2 and 3 (tests/test_torch_gl64_ext.py); the
-    limb fields' element operations still refuse them."""
+    """Goldilocks takes degrees 2 and 3 (tests/test_torch_gl64_ext.py), the
+    limb fields degree 2 (tests/test_torch_limb_ext.py); f128 refuses degree
+    3, which the reference does not have."""
     a = (tgl.zeros((2,)), tgl.zeros((2,)))
     assert len(tvec.vmul(a, a)) == len(tvec.vinv(a)) == 2
     B = get_backend("f128")
     b = (B.b_from_int(0, (2,), "cpu"),) * 2
-    with pytest.raises(NotImplementedError):
-        B.vmul(b, b)
-    with pytest.raises(NotImplementedError):
-        B.vinv(b)
+    assert len(B.vmul(b, b)) == len(B.vinv(b)) == 2
+    c = (B.b_from_int(1, (2,), "cpu"),) * 3
+    with pytest.raises(AssertionError, match="no cubic extension"):
+        B.vmul(c, c)
+    with pytest.raises(AssertionError, match="no cubic extension"):
+        B.vsquare(c)
 
 
 def test_rescue_transition_matches_reference_felt():

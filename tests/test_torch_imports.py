@@ -67,6 +67,8 @@ def _run(code, env_extra=None):
     "starkpack_winterfell_tpu_torch.models.lamport128_agg, "
     "starkpack_winterfell_tpu_torch.ops.keccak, "
     "starkpack_winterfell_tpu_torch.native",
+    # the limb extensions and the merkle128 model
+    "starkpack_winterfell_tpu_torch.models.merkle128",
     "chip_smoke",
     "profile_prove",
 ])
@@ -114,11 +116,11 @@ def test_cli_runs_on_the_cpu_and_refuses_the_default_device():
     r = subprocess.run(base + ["--device", "cpu"], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=SUBPROCESS_TIMEOUT)
     assert r.returncode == 0 and "Proof verified" in r.stdout, r.stderr
-    # an unported config (a limb field at quadratic) is named, not carried on with
+    # a config without a counterpart (f128 at cubic) is refused, not carried on with
     limb = base[:3] + ["rescue128-chain", "-n", "1", "-l", "16"]
-    r = subprocess.run(limb + ["--device", "cpu", "-e", "2"], cwd=ROOT, env=env,
+    r = subprocess.run(limb + ["--device", "cpu", "-e", "3"], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=SUBPROCESS_TIMEOUT)
-    assert r.returncode != 0 and "NotImplementedError" in r.stderr
+    assert r.returncode != 0 and "f128 does not support degree 3" in r.stderr
 
 
 @pytest.mark.parametrize("args", [
@@ -138,6 +140,18 @@ def test_small_trace_cli_runs_on_the_cpu(args):
     ["lamport128-agg", "-n", "1", "-l", "2048", "--hash", "blake3_192", "-q", "8"],
 ])
 def test_lamport_cli_runs_on_the_cpu(args):
+    base = [sys.executable, "-m", "starkpack_winterfell_tpu_torch.models.cli"] + args
+    env = dict(os.environ, PYTHONPATH=ROOT, **_torch_one_thread.ENV)
+    r = subprocess.run(base + ["--device", "cpu"], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=SUBPROCESS_TIMEOUT)
+    assert r.returncode == 0 and "Proof verified" in r.stdout, r.stderr
+
+
+@pytest.mark.parametrize("args", [
+    ["merkle128", "-n", "2", "-l", "64", "-e", "2", "--hash", "sha3_256"],
+    ["fib-f62", "-n", "2", "-l", "256", "-e", "3"],
+])
+def test_limb_extension_cli_runs_on_the_cpu(args):
     base = [sys.executable, "-m", "starkpack_winterfell_tpu_torch.models.cli"] + args
     env = dict(os.environ, PYTHONPATH=ROOT, **_torch_one_thread.ENV)
     r = subprocess.run(base + ["--device", "cpu"], cwd=ROOT, env=env,

@@ -33,6 +33,11 @@ from starkpack_winterfell_tpu_torch.models.lamport128_agg import (
     Lamport128AggAir,
     LamportAggInputs,
 )
+from starkpack_winterfell_tpu_torch.models.merkle128 import (
+    TRACE_WIDTH as MERKLE_WIDTH,
+    Merkle128Air,
+    Merkle128Inputs,
+)
 from starkpack_winterfell_tpu_torch.models.rescue128_chain import (
     Rescue128ChainAir,
     Rescue128ChainInputs,
@@ -243,10 +248,13 @@ extern "C" void host_cons_eval(const uint64_t* lde_lo, const uint64_t* lde_hi,
 
 def _cons_air(case):
     """(AIR, field) of a constraint-kernel rehearsal: the Lamport-agg body
-    with its three sequence tables (4 signatures at k = 15), the lamport128
-    and Rescue128 chain bodies (single values), or fib-f62 (one-word field,
-    a body too small to split)."""
+    with its three sequence tables (4 signatures at k = 15), the lamport128,
+    Rescue128 chain and merkle128 bodies (single values), or fib-f62
+    (one-word field, a body too small to split)."""
     options = T.ProofOptions(16, 8, 0, 1, 4, 31)
+    if case == "merkle128":
+        return Merkle128Air(T.TraceInfo(MERKLE_WIDTH, 64), Merkle128Inputs([3, 4]),
+                            options), "f128"
     if case == "lamport-agg":
         pub = LamportAggInputs([9, 10, 11, 12], [[1, 2], [3, 4], [5, 6], [7, 8]])
         return Lamport128AggAir(T.TraceInfo(14, 512), pub, options), "f128"
@@ -261,7 +269,7 @@ def _cons_air(case):
 
 
 @pytest.mark.parametrize("case", ["lamport-agg", "fib-f62", "rescue128", "lamport128",
-                                  "rescue128 two roles"])
+                                  "rescue128 two roles", "merkle128"])
 def test_constraint_kernel_source_matches_the_plain_version(tmp_path, monkeypatch, case):
     """The emitted body in its frame against ``constraint_eval_plain`` on
     random inputs: every thread of a block runs its role, then role 0's

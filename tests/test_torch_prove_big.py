@@ -112,14 +112,15 @@ def test_native_and_python_trace_builders_agree():
 @pytest.mark.parametrize("case", ["quadratic", "short", "trace_count"])
 def test_unsupported_configs_raise(case):
     """What the f64 paths take at every extension degree is held by
-    tests/test_torch_prove_ext.py; still refused: the limb fields at degree
-    > 1 (the 2^14-row Rescue128 chain at quadratic) and SHA3-256 on the f64
-    paths (a short chain at cubic)."""
+    tests/test_torch_prove_ext.py, what the limb path takes by
+    tests/test_torch_prove_limb_ext.py; still refused: f128 beyond quadratic
+    (the 2^14-row Rescue128 chain at cubic, which the reference does not
+    have) and SHA3-256 on the f64 paths (a short chain at cubic)."""
     hasher = T.Blake3_256
     if case == "quadratic":
         from starkpack_winterfell_tpu_torch.models import rescue128_chain as tr
 
-        options = T.ProofOptions(8, 8, 0, T.FieldExtension.QUADRATIC, 4, 31)
+        options = T.ProofOptions(8, 8, 0, T.FieldExtension.CUBIC, 4, 31)
         prover = tr.Rescue128ChainProver(options, hasher)
         trace, n = tr.build_rescue128_chain_trace([1, 2], ROWS // 8), 1
     else:
@@ -130,6 +131,7 @@ def test_unsupported_configs_raise(case):
             options, perms, n = T.ProofOptions(*CHEAP), (1 << 10) // 8, 2
         prover = trc.RescueChainProver(options, hasher)
         trace = trc.build_chain_trace([1] * 8, perms)
-    expected = T.ProverError if case == "trace_count" else NotImplementedError
+    expected = {"trace_count": T.ProverError, "quadratic": AssertionError}.get(
+        case, NotImplementedError)
     with pytest.raises(expected):
         prover.prove(n, [trace], device="cpu")

@@ -133,11 +133,15 @@ def test_trace_table_stages_f128_words():
 
 @pytest.mark.parametrize("case", ["quadratic", "streaming", "unequal"])
 def test_unsupported_limb_configs_raise(case, monkeypatch):
+    """f128 proves up to quadratic (tests/test_torch_prove_limb_ext.py): the
+    "quadratic" case asks for the degree above it, cubic, which f128 does
+    not have, and gets the reference's assertion."""
     options = T.ProofOptions(*CHEAP)
     traces = [tr.build_rescue128_chain_trace([1, 2], 8)]
     expected = NotImplementedError
     if case == "quadratic":
-        options = T.ProofOptions(8, 8, 0, T.FieldExtension.QUADRATIC, 4, 31)
+        options = T.ProofOptions(8, 8, 0, T.FieldExtension.CUBIC, 4, 31)
+        expected = AssertionError
     elif case == "streaming":
         monkeypatch.setattr(streamed, "budget_bytes", lambda device: 1 << 20)
     else:

@@ -152,12 +152,16 @@ def test_phase_walls_are_logged():
 @pytest.mark.parametrize("case", ["cubic", "sha3", "limb-b192"])
 def test_unported_configs_raise_naming_the_config(case):
     """SHA3-256 is ported on the limb path only; the limb path takes
-    BLAKE3-192 but no field extension yet (the f64 paths take both,
-    tests/test_torch_prove_ext.py)."""
+    BLAKE3-192 and the quadratic extension, and the cubic one over f62
+    (tests/test_torch_prove_limb_ext.py), but neither f128 at cubic, which
+    the reference does not have either (its assertion), nor an auxiliary
+    trace segment (here a fib-f62 trace that claims one)."""
+    expected = NotImplementedError
     if case == "cubic":
         _, prover_cls, build = tget_example("fib-f128")
         prover = prover_cls(T.ProofOptions(8, 8, 0, T.FieldExtension.CUBIC, 4, 31), T.Blake3_256)
-        trace, match = build(0, 64), "extension degree=3"
+        trace, match = build(0, 64), "f128 does not support degree 3"
+        expected = AssertionError
     elif case == "sha3":
         _, prover_cls, build = tget_example("do-work")
         prover = prover_cls(T.ProofOptions(8, 8, 0, 1, 4, 31), T.Sha3_256)
@@ -166,8 +170,9 @@ def test_unported_configs_raise_naming_the_config(case):
         _, prover_cls, build = tget_example("fib-f62")
         prover = prover_cls(T.ProofOptions(8, 8, 0, T.FieldExtension.QUADRATIC, 4, 31),
                             T.Blake3_192)
-        trace, match = build(0, 64), "extension degree=2"
-    with pytest.raises(NotImplementedError, match=match):
+        trace, match = build(0, 64), "auxiliary trace segments.*aux segments=1"
+        trace.num_aux_segments = lambda: 1
+    with pytest.raises(expected, match=match):
         prover.prove(1, [trace], device="cpu")
 
 
