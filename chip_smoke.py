@@ -96,6 +96,7 @@ from starkpack_winterfell_tpu_torch import (
     verify,
 )
 from starkpack_winterfell_tpu_torch import TraceInfo, native
+from starkpack_winterfell_tpu_torch.air.trace_info import TraceLayout
 from starkpack_winterfell_tpu_torch.fri import prover as fri_prover
 from starkpack_winterfell_tpu_torch.models.cli import get_example
 from starkpack_winterfell_tpu_torch.models.do_work import (
@@ -108,6 +109,12 @@ from starkpack_winterfell_tpu_torch.models import lamport128 as lam
 from starkpack_winterfell_tpu_torch.models import lamport128_agg as lagg
 from starkpack_winterfell_tpu_torch.models import merkle128 as mk
 from starkpack_winterfell_tpu_torch.models.fib_multifield import get_fib_family
+from starkpack_winterfell_tpu_torch.models.permutation import (
+    PermAir,
+    PermInputs,
+    PermProver,
+    build_perm_trace,
+)
 from starkpack_winterfell_tpu_torch.models.rescue128_chain import (
     Rescue128ChainAir,
     Rescue128ChainInputs,
@@ -127,6 +134,7 @@ from starkpack_winterfell_tpu_torch.ops import ntt4
 from starkpack_winterfell_tpu_torch.ops import ntt_kernel
 from starkpack_winterfell_tpu_torch.ops.backend import get_backend
 from starkpack_winterfell_tpu_torch.parallel import full_pipeline
+from starkpack_winterfell_tpu_torch.prover.domain import StarkDomain
 
 from kernel_times import (
     ProfilerDroppedRecords,
@@ -186,6 +194,15 @@ SMALL_TRACE_EXT_GOLDEN = {
         "do-work", 1, 64, (16, 8, 4, FieldExtension.QUADRATIC, 4, 31), "do_work_1x64_quad"),
     "small_trace_ext_golden_row4": (
         "fib", 2, 256, (16, 8, 0, FieldExtension.CUBIC, 16, 31), "fib_2x256_cubic"),
+}
+# the permutation AIR (one auxiliary segment) through prove_mesh on f64:
+# name -> (instances, rows, ProofOptions, pinned sha256 file or None).
+# aux_golden is row 5 of the golden transcript matrix; aux_cubic the perm at
+# the 128-bit options
+AUX_PATHS = {
+    "aux_main": (4, 1 << 20, QUAD_OPTIONS, None),
+    "aux_golden": (2, 64, (16, 8, 0, FieldExtension.QUADRATIC, 4, 31), "perm_2x64_quad"),
+    "aux_cubic": (2, 1 << 12, CUBIC128_OPTIONS, "perm_2x4096_cubic128"),
 }
 # the Lamport+ proves: name -> (signatures, message bits k); a signature is
 # 8 * (k + 1) rows.  lamport128_aggregated: that many StarkPack instances of
@@ -971,7 +988,7 @@ def observed_phase(path, prover, air_class, traces, kernel_rows, rng, device,
     function of the public inputs) pairs, each of whose results the verifier
     must reject.  ``side``: a dict that gets the counted prove's
     ``extension_side_launches``; ``expected``: the counts the counted prove
-    must show, derived beforehand (``extension_launches``).  ``extra`` goes
+    must show, derived beforehand (``extension_launches``, ``perm_launches``).  ``extra`` goes
     into the phase's line; with ``base_steady_prove_s`` the line also gives
     the steady prove over it.  Returns {"counted", "steady_prove_s",
     "phases_ms"} of the counted prove."""
@@ -997,8 +1014,8 @@ def observed_phase(path, prover, air_class, traces, kernel_rows, rng, device,
         side.update(+side_counts)
     if expected is not None:
         if dict(counted) != dict(expected):
-            raise RuntimeError(f"the {path} prove launched {counted}, derived from the "
-                               f"degree-1 prove were {dict(expected)}")
+            raise RuntimeError(f"the {path} prove launched {counted}, derived "
+                               f"were {dict(expected)}")
         fields["launches_as_derived"] = True
     if "base_steady_prove_s" in extra:
         fields["steady_over_base"] = seconds / extra["base_steady_prove_s"]
@@ -1302,6 +1319,97 @@ def small_trace_phases(kernel_rows, rng, device):
                    tampers=[("start", tamper_start)])
 
 
+# ---------------------------------------------------------------------------
+# auxiliary trace segments: the permutation AIR through prove_mesh on f64
+# ---------------------------------------------------------------------------
+
+
+def dit_keys(batch: int, n: int, comps: int, n_in: int = None, pre: bool = False,
+             scale: bool = False):
+    """``observed_counts`` keys of the kernel 2 and 3 launches that
+    ops/ntt.py makes for ``comps`` components of ``batch`` rows transformed
+    along their last axis: up to ``ntt_kernel.MAX_TILE_N`` points one
+    ``ntt_last`` a component (rows of ``n_in`` zero-padded to n, a
+    pre-multiply table, the inverse's scale), above it the four-step
+    split's two ``dit_axis1`` launches a component."""
+    if n <= ntt_kernel.MAX_TILE_N:
+        n_in = n if n_in is None else n_in
+        return [("dit", "last", batch, n, n_in, (n_in, 1), pre, scale)] * comps
+    n1 = 1 << ((n.bit_length() - 1) // 2)
+    return [("dit", "axis1", batch, n1, n // n1, False),
+            ("dit", "axis1", batch, n // n1, n1, True)] * comps
+
+
+def perm_launches(n: int, length: int, options) -> collections.Counter:
+    """Kernel 2 and 3 launches, by shape, of one prove of ``n`` perm traces
+    of ``length`` rows with ``options`` (prove_mesh through GL64Backend),
+    derived from the configuration: P1 interpolates the main trace (2
+    columns an instance) and extends it to the LDE domain; P1b the aux
+    column, once per extension component; P3 interpolates the composition
+    over the ce domain and extends its columns coset by coset; then the
+    DEEP polynomial coset by coset, one inverse transform of the folding
+    factor a row in each FRI layer's fold, and the remainder's
+    interpolation, all once per component.  No table build of the path
+    launches a transform, so the first prove and a later one agree."""
+    _, blowup, _, ext, folding, _ = options
+    d = int(ext)
+    opts = ProofOptions(*options)
+    air = PermAir(TraceInfo.new_multi_segment(TraceLayout(2, (1,), (1,)), length),
+                  PermInputs(1, 1), opts)
+    domain = StarkDomain(air)
+    ce, L = domain.ce_size, domain.lde_size
+    cols = air.context.num_constraint_composition_columns()
+
+    def interpolate(batch, size, comps):
+        return dit_keys(batch, size, comps, scale=True)
+
+    def lde(batch, comps):  # the coset LDE, offset multiply and padding in the launch
+        return dit_keys(batch, L, comps, n_in=length, pre=L <= ntt_kernel.MAX_TILE_N)
+
+    keys = interpolate(2 * n, length, 1) + lde(2 * n, 1)
+    keys += interpolate(n, length, d) + lde(n, d)
+    keys += interpolate(1, ce, d) + dit_keys(blowup * cols, length, d)
+    keys += dit_keys(blowup, length, d)
+    size = L
+    for _ in range(opts.to_fri_options().num_fri_layers(L)):
+        keys += interpolate(size // folding, folding, d)
+        size //= folding
+    keys += interpolate(1, size, d)
+    return collections.Counter(keys)
+
+
+def tamper_a0(pub):
+    return pub[:-1] + [PermInputs((pub[-1].a0 + 1) % gl.P, pub[-1].b0)]
+
+
+def aux_phases(kernel_rows, rng, device):
+    """StarkPack aggregation of permutation arguments, each trace with one
+    auxiliary segment (a grand product in the extension field): 4 x 2^20
+    rows at quadratic (aux_main, starts drawn from the run's seed), then
+    golden row 5 (2 x 64, quadratic) and 2 x 2^12 at the 128-bit options
+    (cubic) against their pins.  Every transform goes through kernels 2 and
+    3, whose launches by shape must equal ``perm_launches``; each new
+    shape is held against its plain version and timed.  Each proof is
+    verified and a tampered a0 rejected."""
+    for path, (n, rows, opts, pin) in AUX_PATHS.items():
+        starts = ([i + 3 for i in range(n)] if pin else
+                  [int(v) for v in rng.integers(1, gl.P, size=n, dtype=np.uint64)])
+        t0 = time.perf_counter()
+        traces = [build_perm_trace(s, rows) for s in starts]
+        trace_s = time.perf_counter() - t0
+        out = observed_phase(path, PermProver(ProofOptions(*opts), Blake3_256), PermAir,
+                             traces, kernel_rows, rng, device, ("dit",),
+                             golden=golden_pin(pin) if pin else None,
+                             tampers=[("a0", tamper_a0)],
+                             expected=perm_launches(n, rows, opts), options=list(opts),
+                             trace_build_s=trace_s)
+        emit(f"{path}_dit_shapes", shapes=[
+            {k: kernel_rows[key][k] for k in ("name", "device_ms", "bound_ms", "bound_by",
+                                                "bound_share", "plain_ms")}
+            | {"launches": count} for key, count in out["counted"].items()])
+        del traces
+
+
 def build_all():
     """Build every kernel library and host builder of the driven paths, one
     compiler process per library, all started together."""
@@ -1363,6 +1471,7 @@ def main(argv=None):
     phase_dit_kernels(rng, device)
     big_trace_phases(kernel_rows, rng, device)
     small_trace_phases(kernel_rows, rng, device)
+    aux_phases(kernel_rows, rng, device)
     limb_phases(kernel_rows, rng, device)
     limb_ext_phases(kernel_rows, rng, device)
     lamport_phases(kernel_rows, rng, device)

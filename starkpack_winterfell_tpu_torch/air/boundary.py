@@ -1,4 +1,4 @@
-# Copy of starkpack_winterfell_tpu/air/boundary.py; cut: the FieldBackend interpolation and the native barycentric tier; sequences interpolate, and evaluate at a point, on python ints of their field.
+# Copy of starkpack_winterfell_tpu/air/boundary.py; cut: the FieldBackend interpolation and the native barycentric tier; sequences interpolate, and evaluate at a point, on python ints of their field (extension values one component at a time).
 """Boundary constraints — equivalent of air/src/air/boundary/.
 
 Assertions are sorted by (stride, first_step, column), paired with
@@ -136,13 +136,18 @@ def _group_constraints(assertions, context, ccs, inv_g):
 def _interpolate_subgroup(values, field=None):
     """Inverse DFT of sequence/periodic values over the subgroup of size
     len(values) -> coefficients.  Host python ints (radix-2 recursion); the
-    inputs are short (periodic cycles, assertion sequences)."""
+    inputs are short (periodic cycles, assertion sequences).  Extension
+    values (tuples: an auxiliary segment's assertions) interpolate one
+    component at a time, as the transform is linear."""
     if field is None:
         from ..math.fieldspec import GL64_SPEC as field
     n = len(values)
     assert n & (n - 1) == 0, "number of values must be a power of two"
-    if not all(isinstance(v, int) for v in values):
-        raise NotImplementedError("extension-field sequences are not ported yet")
+    deg = max(field.deg_of(v) for v in values)
+    if deg > 1:
+        comps = [field.components(field.embed(v, deg)) for v in values]
+        cols = [_interpolate_subgroup([c[k] for c in comps], field) for k in range(deg)]
+        return [tuple(col[i] for col in cols) for i in range(n)]
     P = field.P
     if n == 1:
         return [values[0] % P]

@@ -2,9 +2,10 @@
 
 Counterpart of starkpack_winterfell_tpu/fri/prover.py cut to the three
 functions prover/device.py borrows for f64 — ``drp_inv_offsets`` (:146),
-``apply_drp_limbs`` (:160), ``fold_positions`` (:311) — and, for the limb
-fields, ``LimbFriProver`` (:175), ``limb_drp_inv_offsets`` (:288) and
-``limb_apply_drp`` (:302) on tensors: every layer (transpose, row hash,
+``apply_drp_limbs`` (:160), ``fold_positions`` (:311) — and, for
+parallel/full_pipeline.py on any field backend (the limb fields, and f64
+through ``GL64Backend``), ``LimbFriProver`` (:175), ``limb_drp_inv_offsets``
+(:288) and ``limb_apply_drp`` (:302) on tensors: every layer (transpose, row hash,
 Merkle levels, fold) runs on the device of the evaluations; only roots,
 alphas, the remainder and the queried rows reach the host.  The host
 ``FriProver`` class is not ported.
@@ -58,9 +59,10 @@ def fold_positions(positions, source_domain_size: int, folding_factor: int):
 
 
 class LimbFriProver:
-    """FRI prover over a limb field (f128), base-field evaluations.  All
-    arithmetic runs through the FieldBackend; evaluations are element tuples
-    (``ext_deg`` components, each a tuple of word planes shaped (L,))."""
+    """FRI prover over the field of a FieldBackend (f128, f62, or f64
+    through ``GL64Backend``).  All arithmetic runs through the backend;
+    evaluations are element tuples (``ext_deg`` components, each a tuple of
+    word planes shaped (L,))."""
 
     def __init__(self, options, hasher, B, ext_deg: int = 1):
         self.options = options

@@ -5,7 +5,8 @@ Counterpart of starkpack_winterfell_tpu/models/cli.py cut to the examples
 that reach a ported path: do-work, fib and rescue-chain (f64: the
 small-trace pipeline below 2^14 rows, the big-trace pipeline from there up),
 rescue128-chain, fib-f128, merkle128, lamport128 and lamport128-agg (f128)
-and fib-f62 (f62), limb pipeline.  ``-e 2`` (quadratic) reaches every
+and fib-f62 (f62), limb pipeline; perm (f64 with an auxiliary segment,
+parallel/full_pipeline.py).  ``-e 2`` (quadratic) reaches every
 example, ``-e 3`` (cubic) every one but the f128 examples, which have no
 cubic extension.
 
@@ -21,6 +22,7 @@ Usage:
   python -m starkpack_winterfell_tpu_torch.models.cli merkle128 -n 2 -l 64 -e 2 --hash sha3_256 --device cpu
   python -m starkpack_winterfell_tpu_torch.models.cli lamport128 -n 2 -l 128 --hash sha3_256 --device cpu
   python -m starkpack_winterfell_tpu_torch.models.cli lamport128-agg -n 1 -l 2048 --hash blake3_192 --device cpu
+  python -m starkpack_winterfell_tpu_torch.models.cli perm -n 2 -l 64 -e 2 --device cpu
 """
 
 from __future__ import annotations
@@ -109,6 +111,10 @@ def get_example(name: str):
 
         air, build, prover, _ = get_fib_family(name[4:])
         return air, prover, lambda i, l: build(l)
+    if name == "perm":
+        from .permutation import PermAir, PermProver, build_perm_trace
+
+        return PermAir, PermProver, lambda i, l: build_perm_trace(i + 3, l)
     raise SystemExit(f"unknown example {name}")
 
 
@@ -116,7 +122,8 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("example", choices=["do-work", "fib", "rescue-chain",
                                        "rescue128-chain", "fib-f128", "fib-f62",
-                                       "merkle128", "lamport128", "lamport128-agg"])
+                                       "merkle128", "lamport128", "lamport128-agg",
+                                       "perm"])
     p.add_argument("-n", "--num-traces", type=int, default=2)
     p.add_argument("-l", "--trace-length", type=int, default=2048,
                    help="the hash chains: CHAIN length (hashes), the trace has "

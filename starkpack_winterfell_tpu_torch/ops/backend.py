@@ -1,14 +1,17 @@
-"""Field-backend abstraction for the limb fields: one vectorized-element API
-over the base field of an AIR.
+"""Field-backend abstraction: one vectorized-element API over the base field
+of an AIR (f64, f62, f128).
 
 Counterpart of starkpack_winterfell_tpu/ops/backend.py (``FieldBackend`` :26,
-``LimbBackend`` :583).  An element array is a tuple of ``deg`` *components*
-(extension coordinates); each component is a tuple of int64 word planes —
-two planes ``(lo, hi)`` for f128, one for f62 (ops/limb_field.py).  The f64
-big-trace path keeps calling ops/gl64 and ops/vec directly, so ``GL64Backend`` is not
-carried over.  The extension products (``ext_mul``, ``ext_inv``) take degree 2
-on f128 and f62 and degree 3 on f62, as the JAX package's do; f128 has no cubic
-extension (math/fieldspec.py).
+``GL64Backend`` :431, ``LimbBackend`` :583).  An element array is a tuple of
+``deg`` *components* (extension coordinates); each component is a tuple of
+int64 word planes — two planes ``(lo, hi)`` for f128, one for f62
+(ops/limb_field.py) and one for f64 (ops/gl64.py).  ``GL64Backend`` delegates
+to the one-word Goldilocks ops (ops/gl64, ops/gl64_ext, ops/ntt, ops/vec),
+which the two f64 pipelines of prover/ call directly; ``parallel/
+full_pipeline.py:prove_mesh`` reaches them through it for the f64 proves with
+auxiliary trace segments.  The extension products (``ext_mul``, ``ext_inv``)
+take degree 2 on every field and degree 3 on f64 and f62, as the JAX
+package's do; f128 has no cubic extension (math/fieldspec.py).
 
 Every function runs on the device of the tensors it is given; functions that
 create tensors take ``device``.
@@ -16,9 +19,11 @@ create tensors take ``device``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ..math.fieldspec import FIELDS
+from ..math.fieldspec import FIELDS, GL64_SPEC
+from . import gl64 as gl, gl64_ext as ext, ntt, vec
 from .limb_field import FIELDS_BY_NAME
 
 # the most elements a cubic inverse takes through the host (JAX
@@ -152,6 +157,21 @@ class FieldBackend:
             comps = tuple(self.badd(c, s) for c, s in zip(comps, shifted))
             shift *= 2
         return comps
+
+    def prefix_products(self, a, axis=-1):
+        """Inclusive prefix products via Hillis-Steele doubling: log2(n)
+        full-width multiplies in place of n sequential ones."""
+        n = a[0][0].shape[axis]
+        axis = axis % a[0][0].dim()
+        shift = 1
+        while shift < n:
+            head = self.emap(lambda l: l.narrow(axis, 0, shift), a)
+            tail = self.vmul(self.emap(lambda l: l.narrow(axis, shift, n - shift), a),
+                             self.emap(lambda l: l.narrow(axis, 0, n - shift), a))
+            a = tuple(tuple(torch.cat([h, t], dim=axis) for h, t in zip(hc, tc))
+                      for hc, tc in zip(head, tail))
+            shift *= 2
+        return a
 
     def syn_div_binomial(self, p, z):
         """Divide coeff vector p by (x - z), p(z) == 0, via the parallel
@@ -318,8 +338,139 @@ class FieldBackend:
         shape = stacked.shape[:-3] + (stacked.shape[-3] * deg * nw,)
         return stacked.reshape(shape)
 
+    def b_batch_inv(self, comp):
+        """Montgomery batch inversion as a product tree along the last axis:
+        pairwise products up, ONE scalar inversion of each root on the host,
+        the inverses back down (3 multiplies per element instead of a Fermat
+        ladder per element).  Zero stays zero, as 0^(p-2) would give.  The
+        JAX package runs the same trick sequentially on python ints; inverses
+        are unique, so the values agree.  A last axis that is not a power of
+        two takes ``binv``."""
+        n = comp[0].shape[-1]
+        if n == 0 or n & (n - 1):
+            return self.binv(comp)
+        zero_mask = comp[0] == 0
+        for l in comp[1:]:
+            zero_mask = zero_mask & (l == 0)
+        one = self.b_ones((), comp[0].device)
+        vals = tuple(torch.where(zero_mask, o, l) for l, o in zip(comp, one))
+        levels = [vals]
+        while levels[-1][0].shape[-1] > 1:
+            cur = levels[-1]
+            levels.append(self.bmul(tuple(l[..., 0::2] for l in cur),
+                                    tuple(l[..., 1::2] for l in cur)))
+        root = levels[-1]
+        shape = root[0].shape
+        inv_ints = [pow(v, self.P - 2, self.P) for v in self.b_to_ints(root)]
+        inv = tuple(l.reshape(shape) for l in self.b_from_ints(inv_ints, comp[0].device))
+        for cur in reversed(levels[:-1]):
+            left = self.bmul(inv, tuple(l[..., 1::2] for l in cur))
+            right = self.bmul(inv, tuple(l[..., 0::2] for l in cur))
+            inv = tuple(torch.stack([a, b], dim=-1).reshape(cur[0].shape)
+                        for a, b in zip(left, right))
+        return tuple(torch.where(zero_mask, torch.zeros_like(l), l) for l in inv)
+
+    def pow_series_rows(self, bases, length: int):
+        """bases: a component shaped (..., 1) -> (..., length) power series
+        out[..., j] = base^j, via log-doubling (log2(length) multiplies)."""
+        cur = self.b_ones(bases[0].shape[:-1] + (1,), bases[0].device)
+        pw = bases
+        ln = 1
+        while ln < length:
+            nxt = self.bmul(cur, pw)
+            cur = tuple(torch.cat([x, y], dim=-1) for x, y in zip(cur, nxt))
+            ln *= 2
+            if ln < length:
+                pw = self.bsquare(pw)
+        return tuple(l[..., :length] for l in cur)
+
     def get_root_of_unity(self, log_n: int) -> int:
         return self.spec.get_root_of_unity(log_n)
+
+
+class GL64Backend(FieldBackend):
+    """Goldilocks through the one-word ops (JAX ``GL64Backend`` :431): a
+    component is ``(word,)``, one int64 plane, so each method unwraps its
+    components, calls ops/gl64, ops/gl64_ext, ops/ntt or ops/vec, and wraps
+    the result.  The JAX package's host shortcut for ``syn_div_binomial``
+    (the native ``gl_syndiv`` pass) has no counterpart: the generic series
+    and suffix scan run on the device of the tensors."""
+
+    def __init__(self):
+        super().__init__(GL64_SPEC)
+
+    @staticmethod
+    def _w(a):
+        """Element comps -> the tuple of component words ops/vec takes."""
+        return tuple(c[0] for c in a)
+
+    @staticmethod
+    def _c(words):
+        """The inverse of ``_w``."""
+        return tuple((w,) for w in words)
+
+    # base ops
+    def badd(self, a, b):
+        return (gl.add(a[0], b[0]),)
+
+    def bsub(self, a, b):
+        return (gl.sub(a[0], b[0]),)
+
+    def bneg(self, a):
+        return (gl.neg(a[0]),)
+
+    def bmul(self, a, b):
+        return (gl.mul(a[0], b[0]),)
+
+    def bsquare(self, a):
+        return (gl.square(a[0]),)
+
+    def binv(self, a):
+        return (gl.inv(a[0]),)
+
+    def b_zeros(self, shape, device="cpu"):
+        return (gl.zeros(shape, device),)
+
+    def b_ones(self, shape, device="cpu"):
+        return (gl.ones(shape, device),)
+
+    def b_from_int(self, v: int, shape=(), device="cpu"):
+        return (gl.from_int(v, shape, device),)
+
+    def b_from_ints(self, vals, device="cpu"):
+        return (gl.from_u64(np.array(vals, dtype=np.uint64).reshape(-1), device),)
+
+    def b_to_ints(self, comp):
+        return gl.to_u64(comp[0]).reshape(-1).tolist()
+
+    # extension arithmetic (ops/gl64_ext.py)
+    def ext_mul(self, a, b):
+        mul = ext.mul2 if len(a) == 2 else ext.mul3
+        return self._c(mul(self._w(a), self._w(b)))
+
+    def vsquare(self, a):
+        return self._c(vec.vsquare(self._w(a)))
+
+    def ext_inv(self, a):
+        """The norm's inverse through ``b_batch_inv`` (one host inversion
+        per row of the product tree) in place of a Fermat ladder."""
+        inv = ext.inv2 if len(a) == 2 else ext.inv3
+        return self._c(inv(self._w(a), base_inv=lambda x: self.b_batch_inv((x,))[0]))
+
+    # NTT (ops/ntt.py; kernels 2 and 3 on a CUDA tensor)
+    def interpolate_poly(self, comps):
+        return self._c(ntt.interpolate_poly(self._w(comps)))
+
+    def evaluate_poly_with_offset(self, comps, offset: int, blowup: int):
+        if offset == 1 and blowup == 1:
+            return self._c(ntt.evaluate_poly(self._w(comps)))
+        return self._c(ntt.evaluate_poly_with_offset(self._w(comps), offset, blowup))
+
+    def interpolate_poly_with_offset(self, comps, offset: int):
+        return self._c(ntt.interpolate_poly_with_offset(self._w(comps), offset))
+
+    def power_series(self, base: int, n: int, device="cpu"):
+        return (ntt.power_series(base, n, device),)
 
 
 class LimbBackend(FieldBackend):
@@ -346,38 +497,6 @@ class LimbBackend(FieldBackend):
 
     def binv(self, a):
         return self.F.exp_int(a, self.P - 2)
-
-    def b_batch_inv(self, comp):
-        """Montgomery batch inversion as a product tree along the last axis:
-        pairwise products up, ONE scalar inversion of each root on the host,
-        the inverses back down (3 multiplies per element instead of a Fermat
-        ladder per element).  Zero stays zero, as 0^(p-2) would give.  The
-        JAX package runs the same trick sequentially on python ints; inverses
-        are unique, so the values agree."""
-        F = self.F
-        n = comp[0].shape[-1]
-        if n == 0 or n & (n - 1):
-            return self.binv(comp)
-        zero_mask = comp[0] == 0
-        for l in comp[1:]:
-            zero_mask = zero_mask & (l == 0)
-        one = F.ones((), comp[0].device)
-        vals = tuple(torch.where(zero_mask, o, l) for l, o in zip(comp, one))
-        levels = [vals]
-        while levels[-1][0].shape[-1] > 1:
-            cur = levels[-1]
-            levels.append(F.mul(tuple(l[..., 0::2] for l in cur),
-                                tuple(l[..., 1::2] for l in cur)))
-        root = levels[-1]
-        shape = root[0].shape
-        inv_ints = [pow(v, self.P - 2, self.P) for v in F.to_ints(root)]
-        inv = tuple(l.reshape(shape) for l in F.from_ints(inv_ints, comp[0].device))
-        for cur in reversed(levels[:-1]):
-            left = F.mul(inv, tuple(l[..., 1::2] for l in cur))
-            right = F.mul(inv, tuple(l[..., 0::2] for l in cur))
-            inv = tuple(torch.stack([a, b], dim=-1).reshape(cur[0].shape)
-                        for a, b in zip(left, right))
-        return tuple(torch.where(zero_mask, torch.zeros_like(l), l) for l in inv)
 
     def b_zeros(self, shape, device="cpu"):
         return self.F.zeros(shape, device)
@@ -438,11 +557,10 @@ _BACKENDS = {}
 
 def get_backend(name: str) -> FieldBackend:
     if name not in _BACKENDS:
-        if name in FIELDS_BY_NAME:
+        if name == "f64":
+            _BACKENDS[name] = GL64Backend()
+        elif name in FIELDS_BY_NAME:
             _BACKENDS[name] = LimbBackend(FIELDS_BY_NAME[name], FIELDS[name])
         else:
-            raise NotImplementedError(
-                f"no field backend for {name!r} is ported (f128 and f62 are; f64 "
-                "proves through ops/gl64 and prover/device_big.py)"
-            )
+            raise NotImplementedError(f"no field backend for {name!r}")
     return _BACKENDS[name]

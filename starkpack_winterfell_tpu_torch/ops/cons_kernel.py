@@ -83,14 +83,26 @@ def reset_launch_counts():
 
 
 def eval_block(B, air0, plan_groups, K, frame, pv, t_coefs, singles, seqs,
-               ccs, div_vals):
+               ccs, div_vals, aux=None):
     """The constraint math on same-shaped (or broadcastable) element arrays:
-    returns acc comps (tuple over ext components of word-plane tuples)."""
+    returns acc comps (tuple over ext components of word-plane tuples).
+    ``aux``: (aux frame, random elements, aux t_coefs) of an AIR with
+    auxiliary segments, whose aux transition joins the combination and
+    whose aux groups read the aux frame (JAX ``sharded_constraint_phase``
+    :365-386); the kernel itself takes main-segment AIRs only."""
     t_result = [None] * K
     air0.evaluate_transition(frame, pv, t_result)
+    terms = list(zip(t_coefs, t_result))
+    aux_cur = None
+    if aux is not None:
+        aux_frame, rand, t_aux_coefs = aux
+        a_result = [None] * len(t_aux_coefs)
+        air0.evaluate_aux_transition(frame, aux_frame, pv, rand, a_result)
+        terms += zip(t_aux_coefs, a_result)
+        aux_cur = aux_frame.current()
     combined = None
-    for k_i, ev in enumerate(t_result):
-        term = B.vmul(t_coefs[k_i], ev.c)
+    for coef, ev in terms:
+        term = B.vmul(coef, ev.c)
         combined = term if combined is None else B.vadd(combined, term)
 
     columns = [combined]
@@ -99,8 +111,7 @@ def eval_block(B, air0, plan_groups, K, frame, pv, t_coefs, singles, seqs,
     for group in plan_groups:
         acc = None
         for seg, column, poly_len in group:
-            assert seg == "main"
-            state = cur_f[column].c
+            state = (cur_f if seg == "main" else aux_cur)[column].c
             if poly_len == 1:
                 value = singles[sv]
                 sv += 1

@@ -54,11 +54,12 @@ def frob2(a):
     return (gl.add(a[0], a[1]), gl.neg(a[1]))
 
 
-def inv2(a):
-    """Inverse via the norm: (u + v*phi)^-1 = conj / (u^2 + u*v + 2*v^2)."""
+def inv2(a, base_inv=gl.inv):
+    """Inverse via the norm: (u + v*phi)^-1 = conj / (u^2 + u*v + 2*v^2).
+    ``base_inv`` inverts the norm, a base-field word array."""
     u, v = a
     norm = gl.add(gl.add(gl.square(u), gl.mul(u, v)), gl.double(gl.square(v)))
-    return mul_base2(frob2(a), gl.inv(norm))
+    return mul_base2(frob2(a), base_inv(norm))
 
 
 # ---------------------------------------------------------------------------
@@ -107,11 +108,12 @@ def frob3(a):
     return (r0, r1, r2)
 
 
-def inv3(a):
+def inv3(a, base_inv=gl.inv):
     """Inverse via the norm N(a) = a * a^f * a^{f^2}, which lies in the base
-    field; so a^-1 = (a^f * a^{f^2}) * N(a)^-1."""
+    field; so a^-1 = (a^f * a^{f^2}) * N(a)^-1, ``base_inv`` inverting the
+    norm."""
     af = frob3(a)
     aff = frob3(af)
     conj_prod = mul3(af, aff)
     norm = mul3(a, conj_prod)  # components 1,2 are zero by theory
-    return mul_base3(conj_prod, gl.inv(norm[0]))
+    return mul_base3(conj_prod, base_inv(norm[0]))

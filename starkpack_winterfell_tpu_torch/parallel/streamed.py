@@ -1,4 +1,4 @@
-"""Device-memory plan of the one-shot limb pipeline.
+"""Device-memory plan of the one-shot pipeline of parallel/full_pipeline.py.
 
 Counterpart of starkpack_winterfell_tpu/parallel/streamed.py cut to the
 budget check: ``oneshot_peak_estimate`` (:65), ``should_stream`` (:73),
@@ -48,12 +48,13 @@ def should_stream(n, w, length, blowup, el_bytes, device) -> bool:
 
 def preflight_check(n, w, length, blowup, el_bytes, device):
     """Fail fast, before anything is allocated, when the one-shot pipeline
-    cannot fit the card."""
+    cannot fit the card.  ``w``: the main width plus each aux column once
+    per extension component."""
     if should_stream(n, w, length, blowup, el_bytes, device):
         demand = oneshot_peak_estimate(n, w, length, blowup, el_bytes)
         raise NotImplementedError(
             f"config not ported yet (needs the coset-streamed pipeline, "
-            f"ROADMAP slice iv): n={n}, width={w}, trace length={length}, "
+            f"ROADMAP queue 1(f)): n={n}, width={w}, trace length={length}, "
             f"blowup={blowup} projects ~{demand / 1e9:.1f} GB peak device "
             f"memory against a {budget_bytes(device) / 1e9:.1f} GB budget"
         )

@@ -2,12 +2,12 @@
 by the device pipelines.
 
 Counterpart of starkpack_winterfell_tpu/prover/device.py.  ``prove_device``
-(:400) routes a prove: a field other than f64 goes to the limb pipeline
-(parallel/full_pipeline.py ``prove_mesh``), an f64 config the big-trace
-pipeline supports goes to ``prove_big`` (prover/device_big.py), every other
-f64 config — traces shorter than 2^14 rows, sequence assertions — to the
-small-trace pipeline ``_generate_proof_device`` (:437) below; what is not
-ported raises.
+(:400) routes a prove: a trace with auxiliary segments, on any field, and
+every field other than f64 go to parallel/full_pipeline.py ``prove_mesh``
+(:410-418); an f64 config the big-trace pipeline supports goes to
+``prove_big`` (prover/device_big.py), every other f64 config — traces
+shorter than 2^14 rows, sequence assertions — to the small-trace pipeline
+``_generate_proof_device`` (:437) below; what is not ported raises.
 
 The small-trace pipeline keeps all instances stacked on a leading axis and
 every bulk array on the device; the Fiat-Shamir channel stays on the host,
@@ -31,6 +31,7 @@ import torch
 
 from ..air.divisors import ConstraintDivisor
 from ..air.transition import EvaluationFrame
+from ..errors import ProverError
 from ..math import scalar as fs
 from ..ops import gl64 as gl, ntt, vec
 from ..ops.felt import Felt
@@ -305,11 +306,13 @@ def fri_fold_kernel(transposed, alpha_l, offset: int, ext_deg: int):
 
 
 def prove_device(prover, n: int, traces, device="cuda"):
-    """Route a prove to the pipeline that supports its config: limb fields
-    to ``prove_mesh``, f64 to the big-trace pipeline where it applies and to
-    the small-trace pipeline otherwise.  A config none of them covers raises
-    NotImplementedError naming it (there is no host pipeline to fall back
-    to)."""
+    """Route a prove to the pipeline that supports its config: traces with
+    auxiliary segments and the limb fields to ``prove_mesh`` (with the
+    hashers of ``PORTED_HASHERS`` on f64, of ``LIMB_HASHERS`` on the limb
+    fields), other f64 traces to the big-trace pipeline where it applies and
+    to the small-trace pipeline otherwise.  A config none of them covers
+    raises NotImplementedError naming it (there is no host pipeline to fall
+    back to)."""
     from . import device_big
 
     dev = resolve_device(device)
@@ -321,31 +324,35 @@ def prove_device(prover, n: int, traces, device="cuda"):
     length = traces[0].length
     field = air0.field_spec().name
     hname = getattr(hasher, "NAME", None)
+    num_aux = traces[0].num_aux_segments()
 
     def refuse(why):
         raise NotImplementedError(
             f"config not ported yet ({why}): air={type(air0).__name__}, "
             f"field={field}, extension degree={ext_deg}, "
             f"hasher={hname or hasher}, trace length={length}, "
-            f"aux segments={traces[0].num_aux_segments()}"
+            f"aux segments={num_aux}"
         )
 
-    if traces[0].num_aux_segments() > 0:
-        refuse("auxiliary trace segments are not ported, ROADMAP queue 1(c)")
-    if field != "f64":
-        if field not in ("f128", "f62"):
-            refuse("no backend for this field")
-        if not air0.field_spec().supports_extension(ext_deg):
-            # the reference's own refusal (FieldSpec.fmul), raised before any
-            # work instead of at the OOD point: f128 has no cubic extension
-            raise AssertionError(f"{field} does not support degree {ext_deg}")
-        if hname not in LIMB_HASHERS:
-            refuse(f"the limb pipeline is ported with {', '.join(LIMB_HASHERS)}")
+    layout_aux = air0.trace_info().layout.num_aux_segments
+    if num_aux != layout_aux:
+        raise ProverError(
+            f"the trace builds {num_aux} auxiliary segments, its layout has "
+            f"{layout_aux}: air={type(air0).__name__}, field={field}")
+    if field not in ("f64", "f128", "f62"):
+        refuse("no backend for this field")
+    if not air0.field_spec().supports_extension(ext_deg):
+        # the reference's own refusal (FieldSpec.fmul), raised before any
+        # work instead of at the OOD point: f128 has no cubic extension
+        raise AssertionError(f"{field} does not support degree {ext_deg}")
+    hashers = PORTED_HASHERS if field == "f64" else LIMB_HASHERS
+    if hname not in hashers:
+        path = "the f64 pipelines are" if field == "f64" else "the limb pipeline is"
+        refuse(f"{path} ported with {', '.join(hashers)}")
+    if num_aux > 0 or field != "f64":
         from ..parallel.full_pipeline import prove_mesh
 
         return prove_mesh(prover, n, traces, dev)
-    if hname not in PORTED_HASHERS:
-        refuse(f"the f64 pipelines are ported with {', '.join(PORTED_HASHERS)}")
     if length >= device_big.MIN_TRACE_LENGTH:
         dummy_ccs = [0] * air0.context.num_assertions()
         bt = air0.get_boundary_constraints(None, dummy_ccs)

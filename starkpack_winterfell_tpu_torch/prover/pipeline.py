@@ -45,8 +45,8 @@ class Prover:
 
 
 def finish_proof(channel, airs, domain, options, ext_deg, B, spec,
-                 main_tree, constraint_tree, ood_fn, deep_fn, deep_lde_and_fri,
-                 query_rows_fn, mark=None):
+                 main_tree, aux_trees, constraint_tree, ood_fn, deep_fn,
+                 deep_lde_and_fri, query_rows_fn, mark=None):
     """Phases 4-8 of generate_proof (OOD + DEEP + FRI + queries + assembly,
     prover/src/lib.rs:476-603) for a pipeline that keeps its tables on the
     device and hands over four hooks:
@@ -55,9 +55,10 @@ def finish_proof(channel, airs, domain, options, ext_deg, B, spec,
     deep_fn(z, cc, ood_traces_states, ood_evaluations) -> DEEP coefficient
     comps; deep_lde_and_fri(deep_coeffs) runs the LDE and the FRI layer
     commits against ``channel`` and returns the FRI prover;
-    query_rows_fn(positions) -> (main rows per instance, composition rows),
-    holding ONLY the queried columns.  ``mark(phase name)`` is called as
-    each phase ends."""
+    query_rows_fn(positions) -> (main rows per instance, per aux segment its
+    rows per instance, composition rows), holding ONLY the queried columns;
+    ``aux_trees``: one commitment per aux segment.  ``mark(phase name)`` is
+    called as each phase ends."""
     from ..crypto.merkle import MerkleTree
     from .commitment import build_constraint_queries, build_segment_queries
 
@@ -87,12 +88,15 @@ def finish_proof(channel, airs, domain, options, ext_deg, B, spec,
 
     # Phase 8: proof assembly (lib.rs:585-603)
     MerkleTree.prefetch_trees(
-        [(main_tree, query_positions), (constraint_tree, query_positions)]
+        [(t, query_positions) for t in [main_tree, *aux_trees, constraint_tree]]
     )
     fri_proof = fri_prover.build_proof(query_positions)
-    main_rows, comp_rows = query_rows_fn(query_positions)
+    main_rows, aux_rows, comp_rows = query_rows_fn(query_positions)
     trace_queries = [
         build_segment_queries(main_rows, main_tree, query_positions, 1, B)
+    ] + [
+        build_segment_queries(rows, tree, query_positions, ext_deg, B)
+        for rows, tree in zip(aux_rows, aux_trees)
     ]
     constraint_queries = build_constraint_queries(
         comp_rows, constraint_tree, query_positions, ext_deg, B

@@ -1,10 +1,13 @@
 """Execution traces — equivalent of prover/src/trace/{mod,trace_table}.rs.
 
-Counterpart of starkpack_winterfell_tpu/prover/trace.py cut to the
-main-segment ``TraceTable``: column-major host staging filled by host
-builders, handed to the device with one copy.  f64 traces stage numpy uint64
-columns; f128 traces stage (lo, hi) uint64 planes (``from_u64_pairs``, or
-``init`` from python ints).  Not ported: ``validate`` and the device-builder
+Counterpart of starkpack_winterfell_tpu/prover/trace.py cut to
+``TraceTable``: column-major host staging filled by host builders, handed to
+the device with one copy.  f64 traces stage numpy uint64 columns; f128
+traces stage (lo, hi) uint64 planes (``from_u64_pairs``, or ``init`` from
+python ints).  A multi-segment trace (trace/mod.rs:41-77) overrides
+``get_info`` (``TraceInfo.new_multi_segment``), ``num_aux_segments`` and
+``build_aux_segment``, which builds its segment on the device of the prove
+(models/permutation.py).  Not ported: ``validate`` and the device-builder
 hooks (``set_device_builder`` / ``device_planes``).
 """
 
@@ -108,6 +111,13 @@ class TraceTable:
 
     def num_aux_segments(self) -> int:
         return 0
+
+    def build_aux_segment(self, seg_idx: int, rand_elements, backend, device):
+        """Auxiliary segment ``seg_idx`` built from the random elements drawn
+        for it (trace/mod.rs:60-77): element comps of ``backend`` shaped
+        (segment width, length) on ``device``.  Multi-segment traces
+        override it."""
+        raise NotImplementedError(f"{type(self).__name__} has no auxiliary segments")
 
     def read_row(self, step: int):
         return [self.get(c, step) for c in range(self.width)]

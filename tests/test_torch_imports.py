@@ -69,6 +69,8 @@ def _run(code, env_extra=None):
     "starkpack_winterfell_tpu_torch.native",
     # the limb extensions and the merkle128 model
     "starkpack_winterfell_tpu_torch.models.merkle128",
+    # auxiliary segments: the permutation AIR
+    "starkpack_winterfell_tpu_torch.models.permutation",
     "chip_smoke",
     "profile_prove",
 ])

@@ -273,5 +273,6 @@ def test_eager_phase_in_chunks_matches_the_plain_kernel_at_degree_one(case, monk
         B, air, groups, K, dom.ce_to_lde_blowup, dom.trace_to_lde_blowup, rows,
         plan["periodic_tabs"], plan["div_tables"], scal, seqs)
     monkeypatch.setattr(t_fp, "EAGER_POINTS", n * ce // 8)
-    got = t_fp.eager_constraint_phase(B, air, dom, plan, rows, t_main, singles, seqs, ccs, fp)
+    got = t_fp.eager_constraint_phase(B, air, dom, plan, rows, t_main, singles,
+                                      [(s,) for s in seqs], ccs, fp)
     assert all(torch.equal(g, x) for g, x in zip(got[0], want[0]))

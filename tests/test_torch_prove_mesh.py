@@ -151,5 +151,5 @@ def test_unsupported_limb_configs_raise(case, monkeypatch):
     with pytest.raises(expected) as err:
         prover.prove(len(traces), traces, device="cpu")
     if case == "streaming":
-        assert "slice iv" in str(err.value) and "Rescue128" not in str(err.value)
+        assert "queue 1(f)" in str(err.value) and "Rescue128" not in str(err.value)
         assert streamed.should_stream(1, 6, 64, 8, 16, "cpu")

@@ -153,9 +153,10 @@ def test_phase_walls_are_logged():
 def test_unported_configs_raise_naming_the_config(case):
     """SHA3-256 is ported on the limb path only; the limb path takes
     BLAKE3-192 and the quadratic extension, and the cubic one over f62
-    (tests/test_torch_prove_limb_ext.py), but neither f128 at cubic, which
-    the reference does not have either (its assertion), nor an auxiliary
-    trace segment (here a fib-f62 trace that claims one)."""
+    (tests/test_torch_prove_limb_ext.py), but not f128 at cubic, which the
+    reference does not have either (its assertion).  Auxiliary segments are
+    ported (tests/test_torch_prove_aux.py); a trace that claims one its AIR's
+    layout does not have (here a fib-f62 trace) is refused."""
     expected = NotImplementedError
     if case == "cubic":
         _, prover_cls, build = tget_example("fib-f128")
@@ -170,8 +171,9 @@ def test_unported_configs_raise_naming_the_config(case):
         _, prover_cls, build = tget_example("fib-f62")
         prover = prover_cls(T.ProofOptions(8, 8, 0, T.FieldExtension.QUADRATIC, 4, 31),
                             T.Blake3_192)
-        trace, match = build(0, 64), "auxiliary trace segments.*aux segments=1"
+        trace, match = build(0, 64), "builds 1 auxiliary segments, its layout has 0"
         trace.num_aux_segments = lambda: 1
+        expected = T.ProverError
     with pytest.raises(expected, match=match):
         prover.prove(1, [trace], device="cpu")
 
