@@ -53,10 +53,17 @@ with ProofOptions(28, 8, 16, NONE, 4, 31) and BLAKE3-256 unless named:
   signatures of 127-bit messages with SHA3-256 (lamport64); fib over f62,
   2 x 2^20 rows at ProofOptions(28, 8, 16, CUBIC, 4, 31) with Rp62_248
   (rp62_main).  The sponge kernel's launches by shape are derived from each
-  configuration (``sponge_launches``); after each counted prove its largest
+  configuration (``sponge_launches``), its proof-of-work search launches
+  from the proof's nonce; after each counted prove its largest
   launch of each (hasher, mode, row length) runs again on random rows at
   that row count, a strided sample of rows held against the plain version
-  (``compare_sponge_at_rows``).
+  (``compare_sponge_at_rows``); last, the kernel's proof-of-work search
+  against the host C search for both hashers at grinding 16 (the main
+  paths' seeds and three random ones) and every digest of one batch
+  against the plain version (sponge_search).  The sponge's six
+  instantiations must build without spills (ptxas), and its bound counts
+  the IMAD-pipe and ALU-pipe instructions that csrc/gl64_sass_count.py
+  counts in this run (``sponge_bound``).
 
 Builds the CUDA kernels from ``csrc/`` (one nvcc per library, all started
 together) and holds each against its plain PyTorch version on the card at
@@ -77,7 +84,7 @@ merkle128_aggregated_quad, limb_ext_golden_row10, limb_ext_golden_row12,
 limb_ext_f62, lamport_agg_golden, lamport_agg_64, lamport_agg_main,
 lamport128_aggregated, aux_main, aux_golden, aux_cubic, rp64_main,
 rp_golden_row6, rp_golden_row7, rp_golden_row8, rescue_pad, lamport64,
-rp62_main) prints one JSON line as it ends; any failure raises
+rp62_main, sponge_search) prints one JSON line as it ends; any failure raises
 and the run exits non-zero.  The last two lines are the per-kernel table
 and the ``{"ok": ...}`` summary.
 
@@ -91,6 +98,7 @@ import collections
 import concurrent.futures
 import contextlib
 import hashlib
+import importlib.util
 import json
 import os
 import random
@@ -376,18 +384,19 @@ def time_cuda(fn, reps: int):
     return statistics.median(times)
 
 
-def kernel_timing(fn, match, bound_ms, wrapper_module):
+def kernel_timing(fn, match, bound_ms, wrapper_module, counter="LAUNCHES"):
     """The timing keys of a kernel's row: ``call_ms``, CUDA events around one
     call of ``fn`` (host work of the wrapper included), during which the
-    wrapper's launch count (``wrapper_module.LAUNCHES``) must show a launch
-    every call; ``device_ms``, the device time of the kernels named by
-    ``match`` in one call (profiler, ``device_kernel_ms``); ``bound_share``.
+    wrapper's launch count (``wrapper_module.LAUNCHES``, or the attribute
+    ``counter``) must show a launch every call; ``device_ms``, the device
+    time of the kernels named by ``match`` in one call (profiler,
+    ``device_kernel_ms``); ``bound_share``.
     Where the profiler lost the records of too many calls in every session,
     ``device_ms`` and ``bound_share`` are null and ``ms`` is the call's time
     (``ms_source``)."""
-    before = wrapper_module.LAUNCHES
+    before = getattr(wrapper_module, counter)
     call_ms = time_cuda(fn, 7)
-    launched = wrapper_module.LAUNCHES - before
+    launched = getattr(wrapper_module, counter) - before
     if launched < 8:
         raise RuntimeError(f"{match}: {launched} launches counted in 8 calls")
     try:
@@ -622,31 +631,88 @@ def phase_dit_kernels(rng, device):
 # ---------------------------------------------------------------------------
 
 
-def sponge_bound(layout, rows: int, n_elems):
+# per-pipe instruction counts of the sponge's operations (``sponge_costs``),
+# from csrc/gl64_sass_count.py run by ``build_all``
+SPONGE_COSTS: dict = {}
+# NVIDIA H100 SXM dispatch rates, lanes a second: the IMAD pipe and the integer
+# ALU pipe (IADD3, LOP3, SHF, ISETP, SEL, LEA) 64 lanes a clock an SM each,
+# dispatch 4 x 32 lanes a clock an SM for all instructions together
+PEAK_IMAD_LANES_PER_S = PEAK_ALU_LANES_PER_S = 132 * 64 * 1.98e9
+PEAK_DISPATCH_LANES_PER_S = 132 * 128 * 1.98e9
+
+
+def sponge_costs(sass) -> dict:
+    """The per-pipe instruction counts ({"imad", "alu"}) the sponge bound
+    prices its operations at, by field: a multiply, an add and one row of
+    an MDS product with its round-constant add, each at the cheaper (fewer
+    instructions) of the kernel's own form and the field header's
+    (Goldilocks: ``gl64::mul``; a row as one reduction priced as a multiply
+    and its twelve small products and round-constant add priced as adds, or
+    the kernel's row; f62: ``fe_mul`` of csrc/f62.cuh or the Montgomery
+    multiply of csrc/f62_mont.cuh; a row as twelve multiplies and twelve
+    adds, or the lazy Montgomery row).  ``sass``: gl64_sass_count.py's
+    output."""
+    bp = sass["by_pipe"]
+
+    def comb(*terms):
+        return {k: sum(n * c[k] for n, c in terms) for k in ("imad", "alu")}
+
+    def least(*costs):
+        return min(costs, key=lambda c: c["imad"] + c["alu"])
+
+    gl_mul = bp["mul"]
+    f62_mul = least(bp["f62_mul"], bp["f62m_mul"])
+    return {
+        "gl64": {"mul": gl_mul, "add": bp["add"],
+                 "mds_row": least(bp["gl64_mds_row"], comb((1, gl_mul), (13, bp["add"])))},
+        "f62": {"mul": f62_mul, "add": bp["f62_add"],
+                "mds_row": least(bp["f62m_mds_row"], comb((12, f62_mul), (12, bp["f62_add"])))},
+    }
+
+
+def sponge_bound(layout, rows: int, n_elems, search: bool = False):
     """Least time (ms) of one sponge launch: the input words read once and
-    the digests written once against the memory rate, or its 32-bit
-    instructions against the integer rate.  A permutation is the S-box
-    multiplies, at the fewest known (``rescue_sponge.sbox_multiplies(least=
-    True)``: x^(1/alpha) by an addition chain of 72, where the kernel's
-    square-and-multiply takes 95 or 91), and two MDS products and
-    ARK additions a round: Goldilocks (small MDS entries) 144 small products
-    summed (counted as adds) and 12 reductions (counted as multiplies) an
-    MDS; f62 144 multiplies and 132 adds.  A hash adds its row's
-    absorptions.  Costs: csrc/gl64_sass_count.py."""
-    gl64_field = layout.field == "gl64"
-    cost = ({"mul": OPS_FIELD_MUL, "add": OPS_FIELD_ADD} if gl64_field
-            else OPS_LIMB["f62"])
-    rounds = rescue_sponge.ROUNDS
-    muls = rescue_sponge.sbox_multiplies(layout, least=True) + 2 * rounds * (12 if gl64_field else 144)
-    adds = 2 * rounds * ((144 if gl64_field else 132) + 12)
+    the digests written once against the memory rate, or its instructions
+    against the dispatch rates, pipe by pipe.  A permutation is the S-box
+    multiplies by the layouts' addition chains
+    (``rescue_sponge.sbox_multiplies``: 7 x 12 x (4 + 72) or (2 + 72)) and
+    two MDS products with their round-constant adds, 12 rows each; a hash
+    adds its row's absorptions.  Each operation is priced at
+    ``SPONGE_COSTS`` (IMAD-pipe and ALU-pipe instructions); the time is the
+    largest of the IMAD instructions over the IMAD rate, the ALU ones over
+    the ALU rate and both over the dispatch rate.  ``search``: a proof-of-work
+    search of ``rows`` nonces, which reads nothing and writes one word."""
+    cost = SPONGE_COSTS[layout.field]
     perms = rescue_sponge.permutations(layout, rows, n_elems)
-    ops = perms * (muls * cost["mul"] + adds * cost["add"])
-    words = rows * (2 * n_elems + 8) if n_elems is not None else rows * 24
-    if n_elems is not None:
-        ops += rows * n_elems * cost["add"]
+    ops = {}
+    for k in ("imad", "alu"):
+        per_perm = (rescue_sponge.sbox_multiplies(layout) * cost["mul"][k]
+                    + 2 * rescue_sponge.ROUNDS * 12 * cost["mds_row"][k])
+        ops[k] = perms * per_perm + (rows * n_elems * cost["add"][k] if n_elems else 0)
+    if search:
+        words = 1
+    else:
+        words = rows * (2 * n_elems + 8) if n_elems is not None else rows * 24
     t_bytes = 8 * words / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_INT32_OPS_PER_S * 1e3
+    t_ops = max(ops["imad"] / PEAK_IMAD_LANES_PER_S, ops["alu"] / PEAK_ALU_LANES_PER_S,
+                (ops["imad"] + ops["alu"]) / PEAK_DISPATCH_LANES_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+SPONGE_PTXAS: dict = {}
+
+
+def sponge_ptxas(layout_name: str, mode: str):
+    """ptxas's report (registers, spills, stack) of the sponge kernel's
+    instantiation for a layout and mode (hash, merge, search), from the
+    build of this run."""
+    layout = {"rp64_256": "Rp64Layout", "rp62_248": "Rp62Layout"}[layout_name]
+    arg = {"hash": "Li0E", "merge": "Li1E", "search": "Li2E"}[mode]
+    hits = [v for k, v in SPONGE_PTXAS.items() if layout in k and arg in k]
+    if len(hits) != 1:
+        raise RuntimeError(f"no single ptxas report for the sponge's {layout_name} {mode}: "
+                           f"{sorted(SPONGE_PTXAS)}")
+    return hits[0]
 
 
 def sponge_inputs(key, rng, device):
@@ -701,6 +767,7 @@ def compare_sponge(key, rng, device, used_by):
         "used_by": [used_by], "launches": 0, "launches_by_path": {},
         "permutations_compared": rescue_sponge.permutations(rescue_sponge.LAYOUTS[name], R,
                                                             n_elems),
+        "ptxas": sponge_ptxas(name, mode),
         "max_abs_err": err, **timing,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,
@@ -770,9 +837,17 @@ def compare_sponge_at_rows(key, rng, device):
             "rows_compared": int(idx.numel()), "mismatching_words": 0}
 
 
-def check_sponge(path, got, expected, rng, device):
+# the search mode's launches in each counted prove: hasher -> {path: launches}
+SEARCH_LAUNCHES_BY_PATH: dict = {}
+
+
+def check_sponge(path, got, expected, rng, device, search=None):
     """The sponge launches of a counted prove, by (hasher, mode, rows,
-    elements a row), must be the derived ones; the largest launch of each
+    elements a row), must be the derived ones; with ``search`` (the search
+    mode's launches by hasher read just after the prove, the proof, its
+    grinding factor, the hasher's name) the proof-of-work search must have
+    launched the kernel's search once per NONCE_BATCH_CARD nonces up to
+    the proof's nonce (none at grinding 0); the largest launch of each
     (hasher, mode, elements a row) is then compared at its own row count
     (``compare_sponge_at_rows``; the prove's counts were read before).
     Returns the phase line's fields: launches, permutations, the least time
@@ -781,6 +856,17 @@ def check_sponge(path, got, expected, rng, device):
     if got != expected:
         raise RuntimeError(f"the {path} prove launched the sponge {dict(got)}, "
                            f"derived were {dict(expected)}")
+    fields = {}
+    if search is not None:
+        seen, proof, grinding, name = search
+        batch = prover_channel.NONCE_BATCH_CARD
+        want = {name: (proof.pow_nonce - 1) // batch + 1} if grinding > 0 else {}
+        if seen != want:
+            raise RuntimeError(f"the {path} prove launched the sponge's search {seen}, "
+                               f"derived from nonce {proof.pow_nonce} were {want}")
+        for k, v in seen.items():
+            SEARCH_LAUNCHES_BY_PATH.setdefault(k, {})[path] = v
+        fields = {"search_launches": sum(seen.values()), "search_launches_as_derived": True}
     perms = bound_ms = 0
     largest = {}
     for (name, mode, rows, n), v in got.items():
@@ -791,7 +877,7 @@ def check_sponge(path, got, expected, rng, device):
     t0 = time.perf_counter()
     compared = [compare_sponge_at_rows((name, mode, rows, n), rng, device)
                 for (name, mode, n), rows in sorted(largest.items())]
-    return {"sponge_launches": sum(got.values()), "sponge_permutations": perms,
+    return {**fields, "sponge_launches": sum(got.values()), "sponge_permutations": perms,
             "sponge_bound_ms": bound_ms, "sponge_launches_as_derived": True,
             "sponge_compared_at_path_rows": compared,
             "sponge_compare_at_path_rows_s": time.perf_counter() - t0}
@@ -799,8 +885,9 @@ def check_sponge(path, got, expected, rng, device):
 
 @contextlib.contextmanager
 def nonce_search_timer():
-    """Records the nonce and the wall seconds of each proof-of-work search
-    (``ProverChannel._find_nonce``) run inside; the last one stays."""
+    """Records the nonce, the wall seconds and the seed (hex) of each
+    proof-of-work search (``ProverChannel._find_nonce``) run inside; the
+    last one stays."""
     found = {}
     search = prover_channel.ProverChannel._find_nonce
 
@@ -808,7 +895,7 @@ def nonce_search_timer():
         t0 = time.perf_counter()
         nonce = search(self, grinding_factor)
         found.update(nonce=nonce, seconds=time.perf_counter() - t0,
-                     grinding_factor=grinding_factor)
+                     grinding_factor=grinding_factor, seed=self.public_coin.seed.hex())
         return nonce
 
     prover_channel.ProverChannel._find_nonce = timed
@@ -962,6 +1049,7 @@ def big_phase(path, kernel_rows, rng, device, traces, hasher=Blake3_256, **extra
     resident = torch.cuda.memory_allocated()
     proof, steady_s, phases, total, launches, sponge = counted_prove(
         path, prover, traces, kernel_rows, seen, new_rows, required)
+    search = dict(rescue_sponge.SEARCH_LAUNCHES_BY_LAYOUT)
     peak = torch.cuda.max_memory_allocated()
     data, verify_s = verified_bytes(prover, proof, traces)
     fields = dict(extra)
@@ -969,7 +1057,7 @@ def big_phase(path, kernel_rows, rng, device, traces, hasher=Blake3_256, **extra
         air0 = RescueChainAir(traces[0].get_info(), prover.get_pub_inputs(traces[0]),
                               prover.options())
         fields.update(check_sponge(path, sponge, sponge_launches(hasher, air0, n, options),
-                                   rng, device))
+                                   rng, device, (search, proof, options[2], hasher.NAME)))
     if "base_steady_prove_s" in extra:
         fields["steady_over_base"] = steady_s / extra["base_steady_prove_s"]
     pub = [prover.get_pub_inputs(t) for t in traces]
@@ -1014,6 +1102,7 @@ def big_trace_phases(kernel_rows, rng, device):
     with nonce_search_timer() as nonce:
         big_phase("rp64_main", kernel_rows, rng, device, main_traces, hasher=Rp64_256,
                   trace_build_s=trace_s, base_steady_prove_s=base_s, nonce_search=nonce)
+    MAIN_SEEDS[Rp64_256.NAME] = nonce["seed"]
     big_phase("ext_cubic_main", kernel_rows, rng, device, main_traces, trace_build_s=trace_s,
               base_steady_prove_s=base_s)
     del main_traces
@@ -1283,10 +1372,12 @@ def observed_phase(path, prover, air_class, traces, kernel_rows, rng, device,
         proof, seconds, phases = timed_prove(prover, traces)
     peak = torch.cuda.max_memory_allocated()
     sponge_seen = collections.Counter(rescue_sponge.LAUNCHES_BY_SHAPE)
+    search_seen = dict(rescue_sponge.SEARCH_LAUNCHES_BY_LAYOUT)
     counted = record_observed(path, seen, new_rows, kernel_rows, required)
     fields = dict(extra)
     if sponge is not None:
-        fields.update(check_sponge(path, sponge_seen, sponge, rng, device))
+        search = (search_seen, proof, prover.options().grinding_factor, hasher.NAME)
+        fields.update(check_sponge(path, sponge_seen, sponge, rng, device, search))
     if side is not None:
         side.update(+side_counts)
     if expected is not None:
@@ -1773,7 +1864,99 @@ def rp_phases(kernel_rows, rng, device):
                        ("ntt", "sponge"), tampers=[("result", tamper_result)],
                        sponge=sponge_launches(Rp62_248, air0, n, opts), options=list(opts),
                        trace_build_s=trace_s, nonce_search=nonce)
+    MAIN_SEEDS[Rp62_248.NAME] = nonce["seed"]
     del traces
+
+
+# the proof-of-work seeds of the main paths' counted proves (hex), by hasher
+MAIN_SEEDS: dict = {}
+SEARCH_BITS = 16
+SEARCH_RANDOM_SEEDS = 3
+
+
+def random_seed(hasher, rng) -> bytes:
+    """A random seed digest: Rp64_256 four canonical elements, Rp62_248 31
+    random bytes (its unpacked values may lie in [p, 2^62))."""
+    if hasher is Rp64_256:
+        return b"".join(int(v).to_bytes(8, "little")
+                        for v in rng.integers(0, gl.P, size=4, dtype=np.uint64))
+    return bytes(rng.integers(0, 256, size=31, dtype=np.uint8))
+
+
+def search_nonce(hasher, seed: bytes, batch: int, device) -> int:
+    """The lowest nonce >= 1 at SEARCH_BITS, in ascending batches, as
+    ``ProverChannel._find_nonce`` asks for it."""
+    nonce = 1
+    while (found := hasher.first_merge_with_int(seed, nonce, batch, SEARCH_BITS,
+                                                device)) is None:
+        nonce += batch
+    return found
+
+
+def sponge_search_phase(kernel_rows, rng, device):
+    """The sponge kernel's proof-of-work search against the host C search
+    (``first_merge_with_int`` of the byte API) for both hashers at grinding
+    16: the main paths' seeds (``MAIN_SEEDS``) and three random ones, equal
+    nonces required; for the main seed every digest of one batch of
+    NONCE_BATCH_CARD nonces held against the plain version (0 mismatching
+    words); then the kernel's times at that batch.  Its launches on the
+    main paths were counted by ``check_sponge``."""
+    batch = prover_channel.NONCE_BATCH_CARD
+    results = []
+    for hasher in (Rp64_256, Rp62_248):
+        layout = hasher.LAYOUT
+        seeds = [bytes.fromhex(MAIN_SEEDS[hasher.NAME])]
+        seeds += [random_seed(hasher, rng) for _ in range(SEARCH_RANDOM_SEEDS)]
+        for k, seed in enumerate(seeds):
+            t0 = time.perf_counter()
+            host = search_nonce(hasher, seed, 1 << 12, "cpu")
+            host_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            card = search_nonce(hasher, seed, batch, device)
+            card_s = time.perf_counter() - t0
+            if card != host:
+                raise RuntimeError(f"{hasher.NAME}: the card's search found nonce {card}, "
+                                   f"the host's {host} (seed {seed.hex()})")
+            results.append({"hasher": hasher.NAME, "seed": "main" if k == 0 else "random",
+                            "nonce": card, "card_s": card_s, "host_s": host_s})
+        elems = hasher.seed_elements(seeds[0])
+        nonce, got = rescue_sponge.first_merge_with_int(layout, elems, 1, batch, SEARCH_BITS,
+                                                        device, digests=True)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain_nonce, want = rescue_sponge.first_merge_with_int_plain(
+            layout, elems, 1, batch, SEARCH_BITS, device)
+        end.record()
+        torch.cuda.synchronize()
+        mism = int((got != want).sum())
+        if mism or nonce != plain_nonce:
+            raise RuntimeError(f"{hasher.NAME}: the search disagrees with its plain version "
+                               f"({mism} digest words, nonce {nonce} against {plain_nonce})")
+        bound_ms, bound_by = sponge_bound(layout, batch, None, search=True)
+        timing = kernel_timing(
+            lambda: rescue_sponge.first_merge_with_int(layout, elems, 1, batch, SEARCH_BITS,
+                                                       device),
+            "rescue_sponge_kernel", bound_ms, rescue_sponge, counter="SEARCH_LAUNCHES")
+        by_path = SEARCH_LAUNCHES_BY_PATH.get(hasher.NAME, {})
+        kernel_rows[("sponge_search", hasher.NAME)] = {
+            "name": f"rescue_sponge[{hasher.NAME} search nonces={batch} bits={SEARCH_BITS}]",
+            "route": "cuda", "source": "starkpack_winterfell_tpu_torch/csrc/rescue_sponge.cu",
+            "replaces": ("no Pallas kernel: starkpack_winterfell_tpu/prover/channel.py:114 "
+                         "_find_nonce (the host C sponge)"),
+            "used_by": sorted(by_path), "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "permutations_compared": batch,
+            "ptxas": sponge_ptxas(hasher.NAME, "search"),
+            "max_abs_err": float((got - want).abs().max()), **timing,
+            "plain_ms": start.elapsed_time(end), "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+        }
+        del got, want
+    for name in ("rp64_256", "rp62_248"):
+        if not SEARCH_LAUNCHES_BY_PATH.get(name):
+            raise RuntimeError(f"no counted prove launched the {name} search")
+    emit("sponge_search", bits=SEARCH_BITS, batch=batch, searches=results,
+         nonces_equal=True, digests_compared=2 * batch, mismatching_words=0,
+         search_launches_by_path=SEARCH_LAUNCHES_BY_PATH)
 
 
 def build_all():
@@ -1785,6 +1968,7 @@ def build_all():
         "ntt_dit": ntt_kernel._lib,
         "limb_ntt_tile": limb_ntt._lib,
         "rescue_sponge": rescue_sponge._lib,
+        "sass_counts": lambda: SPONGE_COSTS.update(sponge_costs(sass_count())),
         "rescue_perm_host": lambda: (Rp64_256.merge(bytes(32), bytes(32)),
                                      Rp62_248.merge(bytes(31), bytes(31))),
         "trace_builder": native.get_builders,
@@ -1812,7 +1996,26 @@ def build_all():
                   + limb_ntt.kernel_sources() + rescue_sponge.kernel_sources() + emitted],
          emitted_lines={os.path.relpath(p, root): open(p).read().count("\n")
                         for p in emitted},
-         ptxas={name: ptxas_report(native.BUILD_LOGS, name) for name in native.BUILD_LOGS})
+         ptxas={name: ptxas_report(native.BUILD_LOGS, name) for name in native.BUILD_LOGS},
+         sponge_costs=SPONGE_COSTS)
+    report = ptxas_report(native.BUILD_LOGS, rescue_sponge.kernel_source()[0])
+    if report is None:
+        raise RuntimeError("the sponge library was not built by this run: no ptxas report")
+    SPONGE_PTXAS.update(report["kernels"])
+    spilled = {k: v for k, v in SPONGE_PTXAS.items()
+               if v.get("spill_store_bytes") or v.get("spill_load_bytes")}
+    if len(SPONGE_PTXAS) != 6 or spilled:
+        raise RuntimeError(f"the sponge kernel's six instantiations must not spill: {SPONGE_PTXAS}")
+
+
+def sass_count() -> dict:
+    """csrc/gl64_sass_count.py's counts (nvcc and cuobjdump of this run)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "starkpack_winterfell_tpu_torch", "csrc", "gl64_sass_count.py")
+    spec = importlib.util.spec_from_file_location("gl64_sass_count", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.count()
 
 
 def main(argv=None):
@@ -1845,6 +2048,7 @@ def main(argv=None):
     limb_ext_phases(kernel_rows, rng, device)
     lamport_phases(kernel_rows, rng, device)
     rp_phases(kernel_rows, rng, device)
+    sponge_search_phase(kernel_rows, rng, device)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": list(kernel_rows.values())}), flush=True)

@@ -44,8 +44,11 @@ measurement:
 * ``sponge`` (only with ``--only sponge``): one steady prove of each of the
   smoke's algebraic-hasher main paths (the 2^20 x 12 chain with Rp64_256,
   fib-f62 2 x 2^20 at cubic with Rp62_248) under ``torch.profiler``: the
-  Rescue sponge kernel's launches and device time in the prove, the device
-  time of everything else, the wall (``time_sponge``).
+  Rescue sponge kernel's launches and device time in the prove (its search
+  mode apart), the device time of everything else, the wall and the
+  proof-of-work search's wall (``time_sponge``); with ``--variants`` (this
+  checkout only) first the kernel at each S-box group size
+  (``time_sponge_groups``): ptxas's registers and spills, device ms.
 
 ``--only`` times the NTT kernels alone (``ntt``), kernel 5 alone (``cons``)
 or the eager extension-field steps alone (``ext`` on f64, ``limb_ext`` on
@@ -564,13 +567,18 @@ def time_limb_ext(label, dev):
 def time_sponge(label, dev):
     """The Rescue sponge kernel's share of a whole prove: one warm-up prove,
     then one under the profiler, for the 2^20 x 12 Rescue chain with
-    Rp64_256 (bench options) and fib-f62 2 x 2^20 with Rp62_248 at cubic."""
+    Rp64_256 (bench options) and fib-f62 2 x 2^20 with Rp62_248 at cubic.
+    The search mode's launches (a template argument of 2 in the kernel's
+    name) are counted apart from the hashes and merges; the proof-of-work
+    search's wall (``ProverChannel._find_nonce``) is timed in the profiled
+    prove."""
     from starkpack_winterfell_tpu_torch import FieldExtension, ProofOptions
     from starkpack_winterfell_tpu_torch.crypto.rescue import Rp64_256
     from starkpack_winterfell_tpu_torch.crypto.rescue62 import Rp62_248
     from starkpack_winterfell_tpu_torch.models.fib_multifield import get_fib_family
     from starkpack_winterfell_tpu_torch.models.rescue_chain import (
         RescueChainProver, build_chain_trace)
+    from starkpack_winterfell_tpu_torch.prover import channel
 
     _, fib_build, fib_prover, _ = get_fib_family("f62")
     configs = {
@@ -581,17 +589,88 @@ def time_sponge(label, dev):
             fib_prover(ProofOptions(28, 8, 16, FieldExtension.CUBIC, 4, 31), Rp62_248),
             lambda: [fib_build(1 << 20) for _ in range(2)]),
     }
-    for name, (prover, build) in configs.items():
-        traces = build()
-        per_call, walls = profile_calls(lambda: prover.prove(len(traces), traces), reps=1)
-        if not per_call:
-            raise ProfilerDroppedRecords(f"{name}: the prove was not recorded")
-        hits, other = split_call(per_call[-1], ("rescue_sponge_kernel",))
-        emit("sponge", root=label, prove=name, wall_s=walls[-1], sponge_launches=len(hits),
-             sponge_device_ms=sum(hits) / 1e3, other_device_ms=other / 1e3,
-             other_device_kernels=len(per_call[-1]) - len(hits))
-        del traces
-        torch.cuda.empty_cache()
+    search = channel.ProverChannel._find_nonce
+    found = {}
+
+    def timed(self, grinding_factor):
+        t0 = time.perf_counter()
+        nonce = search(self, grinding_factor)
+        found.update(nonce=nonce, seconds=time.perf_counter() - t0)
+        return nonce
+
+    channel.ProverChannel._find_nonce = timed
+    try:
+        for name, (prover, build) in configs.items():
+            traces = build()
+            per_call, walls = profile_calls(lambda: prover.prove(len(traces), traces), reps=1)
+            if not per_call:
+                raise ProfilerDroppedRecords(f"{name}: the prove was not recorded")
+            events = per_call[-1]
+            searches = [e for e in events if "rescue_sponge_kernel" in e[0] and ", 2>" in e[0]]
+            hits, other = split_call([e for e in events if e not in searches],
+                                     ("rescue_sponge_kernel",))
+            emit("sponge", root=label, prove=name, wall_s=walls[-1], sponge_launches=len(hits),
+                 sponge_device_ms=sum(hits) / 1e3, search_launches=len(searches),
+                 search_device_ms=sum(d for _, _, d in searches) / 1e3,
+                 nonce=found.get("nonce"), nonce_search_s=found.get("seconds"),
+                 other_device_ms=other / 1e3,
+                 other_device_kernels=len(events) - len(hits) - len(searches))
+            del traces
+            torch.cuda.empty_cache()
+    finally:
+        channel.ProverChannel._find_nonce = search
+
+
+# S-box group sizes of the sponge kernel timed by ``--only sponge --variants``
+SPONGE_GROUPS = (12, 6, 4, 3, 2)
+
+
+def time_sponge_groups(label, dev):
+    """The sponge kernel built with each S-box group size of SPONGE_GROUPS
+    (ops/rescue_sponge.py SBOX_GROUP; the builds run together): ptxas's
+    registers and spills of each instantiation, then each (hasher, mode) at
+    2^16 + 37 rows (hashes of 12 elements, merges, a search) held against
+    the plain version and its device ms."""
+    from starkpack_winterfell_tpu_torch import native
+    from starkpack_winterfell_tpu_torch.ops import rescue_sponge as rsp
+
+    with concurrent.futures.ThreadPoolExecutor(len(SPONGE_GROUPS)) as pool:
+        list(pool.map(rsp._lib, SPONGE_GROUPS))
+    rng = np.random.default_rng(0)
+    R = (1 << 16) + 37
+    cases = {}
+    for layout in (rsp.RP64_256, rsp.RP62_248):
+        vals = rng.integers(0, layout.P, size=(R, 12), dtype=np.uint64)
+        words = torch.from_numpy(np.stack([vals & np.uint64(0xFFFFFFFF), vals >> np.uint64(32)],
+                                          axis=-1).reshape(R, 24).astype(np.int64)).to(dev)
+        cur = torch.from_numpy(rng.integers(0, 1 << 32, size=(2 * R, 8)).astype(np.int64)).to(dev)
+        seed = [int(v) for v in rng.integers(0, layout.P, size=4, dtype=np.uint64)]
+        cases[(layout.name, "hash 12")] = (
+            lambda l=layout, w=words: rsp.rescue_sponge(l, w, 12),
+            lambda l=layout, w=words: rsp.rescue_sponge_plain(l, w, 12))
+        cases[(layout.name, "merge")] = (
+            lambda l=layout, c=cur: rsp.rescue_sponge(l, c[0::2], y=c[1::2]),
+            lambda l=layout, c=cur: rsp.rescue_sponge_plain(l, c[0::2], y=c[1::2]))
+        cases[(layout.name, "search")] = (
+            lambda l=layout, sd=seed: rsp.first_merge_with_int(l, sd, 1, R, 16, dev, True)[1],
+            lambda l=layout, sd=seed: rsp.first_merge_with_int_plain(l, sd, 1, R, 16, dev)[1])
+    old = rsp.SBOX_GROUP
+    try:
+        for group in SPONGE_GROUPS:
+            rsp.SBOX_GROUP = group
+            lib = rsp.kernel_source(group)[0]
+            report = ptxas_report(native.BUILD_LOGS, lib)
+            for (name, mode), (fn, plain) in cases.items():
+                mism = int((fn() != plain()).sum())
+                if mism:
+                    raise RuntimeError(f"group {group}: {name} {mode} disagrees with the plain "
+                                       f"version in {mism} words")
+                emit("sponge_group", root=label, group=group, hasher=name, mode=mode, rows=R,
+                     device_ms=device_kernel_ms(fn, "rescue_sponge_kernel"),
+                     mismatching_words=0)
+            emit("sponge_group_ptxas", root=label, group=group, ptxas=report)
+    finally:
+        rsp.SBOX_GROUP = old
 
 
 def emit(kind, **fields):
@@ -609,7 +688,8 @@ def main(argv=None):
                         "extension-field steps (f64, or f128), or only the Rescue "
                         "sponge's share of the algebraic hashers' main proves")
     p.add_argument("--variants", action="store_true",
-                   help="also time kernel 5 with the emitter's rules varied (this checkout)")
+                   help="also time kernel 5 with the emitter's rules varied, or with --only "
+                        "sponge the sponge kernel at each S-box group size (this checkout)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times.py needs a CUDA device: torch.cuda.is_available() is False")
@@ -636,6 +716,8 @@ def main(argv=None):
         time_limb_ext(label, dev)
         return 0
     if args.only == "sponge":
+        if args.variants and root == here:
+            time_sponge_groups(label, dev)
         time_sponge(label, dev)
         return 0
     if args.only != "ntt":

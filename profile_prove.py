@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Device-side profile of one steady prove of the PyTorch/CUDA port.
 
-    python3 profile_prove.py [--config do-work|rescue-small|rescue-big] [--seed N]
+    python3 profile_prove.py [--config do-work|rescue-small|rescue-big|rp64-main|rp62-main]
+                             [--seed N]
 
 Proves once to warm up (kernel builds, cached tables), then proves again
 under ``torch.profiler`` with only the CUDA activity recorded, and prints
@@ -14,7 +15,11 @@ device time.  The proof of the profiled run is verified.
 
 Configs (BLAKE3-256, ProofOptions(28, 8, 16, NONE, 4, 31)): ``do-work`` 32 x
 1024 rows and ``rescue-small`` 64 x 2^13 rows (small-trace path),
-``rescue-big`` 1 x 2^16 rows (big-trace path).
+``rescue-big`` 1 x 2^16 rows (big-trace path).  The algebraic hashers'
+main paths of chip_smoke.py: ``rp64-main`` the 2^20 x 12 Rescue chain with
+Rp64_256 (same options, big-trace path), ``rp62-main`` fib over f62, 2 x
+2^20 rows with Rp62_248 at ProofOptions(28, 8, 16, CUBIC, 4, 31) (mesh
+path).
 
 Needs a CUDA device (exits non-zero without one) and no network.
 """
@@ -31,6 +36,9 @@ import numpy as np
 import torch
 
 from starkpack_winterfell_tpu_torch import Blake3_256, FieldExtension, ProofOptions, verify
+from starkpack_winterfell_tpu_torch.crypto.rescue import Rp64_256
+from starkpack_winterfell_tpu_torch.crypto.rescue62 import Rp62_248
+from starkpack_winterfell_tpu_torch.models.fib_multifield import get_fib_family
 from starkpack_winterfell_tpu_torch.models.do_work import (
     DoWorkAir,
     DoWorkProver,
@@ -47,11 +55,18 @@ OPTIONS = (28, 8, 16, FieldExtension.NONE, 4, 31)
 TOP = 12
 # the port's hand-written kernels, by the names nvcc gives them
 PORT_KERNELS = ("ntt_tile_kernel", "ntt_last", "ntt_dit_axis1_kernel",
-                "limb_ntt_tile_kernel", "cons_eval_kernel")
+                "limb_ntt_tile_kernel", "cons_eval_kernel", "rescue_sponge_kernel")
 
 
 def build(config: str, rng):
     options = ProofOptions(*OPTIONS)
+    if config == "rp64-main":
+        return (RescueChainAir, RescueChainProver(options, Rp64_256),
+                [build_chain_trace([7] * 8, (1 << 20) // 8)])
+    if config == "rp62-main":
+        air, fib_build, fib_prover, _ = get_fib_family("f62")
+        cubic = ProofOptions(28, 8, 16, FieldExtension.CUBIC, 4, 31)
+        return air, fib_prover(cubic, Rp62_248), [fib_build(1 << 20) for _ in range(2)]
     if config == "do-work":
         traces = [build_do_work_trace(i + 1, 1024) for i in range(32)]
         return DoWorkAir, DoWorkProver(options, Blake3_256), traces
@@ -73,7 +88,8 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--config", default="do-work",
-                   choices=["do-work", "rescue-small", "rescue-big"])
+                   choices=["do-work", "rescue-small", "rescue-big", "rp64-main",
+                            "rp62-main"])
     p.add_argument("--seed", type=int, default=0, help="numpy seed of the chain seeds")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -89,7 +105,7 @@ def main(argv=None):
     _, plain_s = timed(prover, traces)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         proof, profiled_s = timed(prover, traces)
-    verify(air, proof, [prover.get_pub_inputs(t) for t in traces], Blake3_256)
+    verify(air, proof, [prover.get_pub_inputs(t) for t in traces], prover.hasher)
 
     events = [e for e in prof.key_averages() if e.device_time_total > 0]
     if not events:
@@ -100,6 +116,7 @@ def main(argv=None):
     port = [e for e in events if any(k in e.key for k in PORT_KERNELS)]
     print(json.dumps({
         "config": args.config, "n": len(traces), "rows": traces[0].length,
+        "hasher": prover.hasher.NAME,
         "nvidia_smi": smi, "torch": torch.__version__,
         "steady_prove_s": plain_s, "profiled_prove_s": profiled_s,
         "device_kernels": launches, "device_busy_s": device_s,

@@ -18,6 +18,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 from ..math import scalar as fs
 from ..ops import rescue_sponge as rsp
@@ -158,11 +159,24 @@ class Rp64_256:
         return _digest_bytes(apply_permutation_ints(state))
 
     @staticmethod
-    def first_merge_with_int(seed: bytes, start: int, count: int, bits: int):
+    def seed_elements(seed: bytes):
+        """The four digest elements of a 32-byte seed, as ``merge_with_int``
+        places them."""
+        return _bytes_to_elems(seed)
+
+    @classmethod
+    def first_merge_with_int(cls, seed: bytes, start: int, count: int, bits: int,
+                             device="cpu"):
         """The lowest nonce in [start, start + count) whose
         ``merge_with_int(seed, nonce)`` has ``bits`` trailing zero bits in
-        its first 8 bytes read little-endian, or None (one C sponge batch)."""
-        return _native()["sponge"].first_merge_with_int(_bytes_to_elems(seed), start, count, bits)
+        its first 8 bytes read little-endian, or None: one C sponge batch,
+        or on a CUDA ``device`` one launch of the sponge kernel's search
+        (ops/rescue_sponge.py)."""
+        if torch.device(device).type == "cuda":
+            return rsp.first_merge_with_int(cls.LAYOUT, cls.seed_elements(seed), start, count,
+                                            bits, device)[0]
+        return _native()["sponge"].first_merge_with_int(cls.seed_elements(seed), start, count,
+                                                        bits)
 
     @classmethod
     def hash_elements_many(cls, element_lists, elem_bytes: int = 8):

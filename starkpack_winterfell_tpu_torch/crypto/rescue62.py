@@ -17,6 +17,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 from ..ops import rescue_sponge as rsp
 from ..ops.limb_field import F62
@@ -155,13 +156,24 @@ class Rp62_248:
         return digest_to_bytes31(state[:DIGEST_SIZE])
 
     @staticmethod
-    def first_merge_with_int(seed: bytes, start: int, count: int, bits: int):
+    def seed_elements(seed: bytes):
+        """The four digest values of a 31-byte seed (masked to 62 bits, not
+        reduced), as ``merge_with_int`` places them."""
+        return digest_from_bytes31(seed[:31])
+
+    @classmethod
+    def first_merge_with_int(cls, seed: bytes, start: int, count: int, bits: int,
+                             device="cpu"):
         """The lowest nonce in [start, start + count) whose
         ``merge_with_int(seed, nonce)`` has ``bits`` trailing zero bits in
         its first 8 bytes read little-endian (the packed word v1 | v2 << 62),
-        or None (one C sponge batch)."""
+        or None: one C sponge batch, or on a CUDA ``device`` one launch of
+        the sponge kernel's search (ops/rescue_sponge.py)."""
+        if torch.device(device).type == "cuda":
+            return rsp.first_merge_with_int(cls.LAYOUT, cls.seed_elements(seed), start, count,
+                                            bits, device)[0]
         return _native()["sponge"].first_merge_with_int(
-            digest_from_bytes31(seed[:31]), start, count, bits,
+            cls.seed_elements(seed), start, count, bits,
             head=lambda d: d[:, 0] | (d[:, 1] << np.uint64(62)))
 
     @classmethod

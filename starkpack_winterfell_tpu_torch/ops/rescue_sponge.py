@@ -1,5 +1,6 @@
 """The Rescue-Prime sponge of the algebraic hashers on one hand-written CUDA
-kernel: the words API of ``Rp64_256`` (Goldilocks) and ``Rp62_248`` (f62).
+kernel: the words API of ``Rp64_256`` (Goldilocks) and ``Rp62_248`` (f62),
+and their proof-of-work search.
 
 Counterpart of what ``hash_words`` / ``merge_words`` of
 starkpack_winterfell_tpu/crypto/rescue.py (:211-261) and crypto/rescue62.py
@@ -10,29 +11,36 @@ full-width prove (a Goldilocks multiply is ~40 tensor ops, one Rp64_256
 permutation ~28k), so the sponge is the kernel ``rescue_sponge`` of
 csrc/rescue_sponge.cu, one thread a row, the state in registers.
 
-One function, two modes, for a ``SpongeLayout`` (field, positions of the
-rate, tag and digest, S-box exponents, constants, digest packing):
+Three modes of one kernel, for a ``SpongeLayout`` (field, positions of the
+rate, tag and digest, S-box chains, constants, digest packing):
 
 * hash: ``x`` (R, >= 2*n_elems) u32 words in int64, each row n_elems
   canonical LE u64 elements -> the sponge of the row, the element count as
   the tag (``hash_elements``);
 * merge: ``x`` and ``y`` (R, 8) digest words -> the 2-to-1 merge of each
-  pair, tag 2 * digest size (``merge``).
+  pair, tag 2 * digest size (``merge``);
+* search (``first_merge_with_int``): a seed's four digest elements and a
+  range of nonces -> the lowest nonce whose ``merge_with_int(seed, nonce)``
+  digest has ``bits`` trailing zeros in its first 8 bytes (the seed
+  elements, the nonce after them, tag digest size + 1; the host C search of
+  crypto/_native_perm.py builds the same states).
 
-Both return (R, 8) digest words: four LE u64 elements (Rp64_256), or four
+Hash and merge return (R, 8) digest words: four LE u64 elements (Rp64_256), or four
 62-bit values bit-packed into 31 bytes with a zero top byte (Rp62_248,
 rescue62.py:digest_to_bytes31); a merge unpacks them masked to 62 bits, not
 reduced mod p, as the reference does.
 
 ``rescue_sponge_plain`` is the same function in plain PyTorch, with the 12
 state words stacked as ONE (12, R) tensor so one field op covers the whole
-state.  ``rescue_sponge`` takes it only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises.
+state (``merge_with_int_plain`` / ``first_merge_with_int_plain`` for the
+search).  ``rescue_sponge`` and ``first_merge_with_int`` take it only for
+tensors on the CPU; on a CUDA device they launch the kernel or raise.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 from typing import NamedTuple
 
@@ -45,28 +53,38 @@ from . import gl64 as gl
 from .limb_field import F62
 
 MASK32 = 0xFFFFFFFF
+MASK64 = (1 << 64) - 1
 _M62 = (1 << 62) - 1
 ROUNDS = 7
 WIDTH = 12
 THREADS = 128  # threads a block of the kernel, one row each
+# words a pass of the kernel's S-box raises together (csrc/rescue_sponge.cu
+# SBOX_GROUP; a divisor of the width), chosen from ptxas's spills and the
+# measured times (kernel_times.py --only sponge --variants; PERF.md)
+SBOX_GROUP = 4
 
 # launches of the kernel made by ``rescue_sponge`` (and nowhere else): the
-# total, and by (layout name, mode, rows, elements a row or 0 for a merge)
+# total, and by (layout name, mode, rows, elements a row or 0 for a merge);
+# and of its search mode, made by ``first_merge_with_int``, by layout name
 LAUNCHES = 0
 LAUNCHES_BY_SHAPE: dict = {}
+SEARCH_LAUNCHES = 0
+SEARCH_LAUNCHES_BY_LAYOUT: dict = {}
 
 
 def reset_launch_counts():
-    global LAUNCHES
-    LAUNCHES = 0
+    global LAUNCHES, SEARCH_LAUNCHES
+    LAUNCHES = SEARCH_LAUNCHES = 0
     LAUNCHES_BY_SHAPE.clear()
+    SEARCH_LAUNCHES_BY_LAYOUT.clear()
 
 
 class SpongeLayout(NamedTuple):
     """One Rescue-Prime sponge: field, state geometry, S-box exponents and
     constants.  ``field`` is ``"gl64"`` or ``"f62"``; ``packed31`` marks
-    Rp62_248's bit-packed 31-byte digests; ``inv_chain`` is an addition
-    chain for x^(1/alpha) (``INV_CHAIN_*``)."""
+    Rp62_248's bit-packed 31-byte digests; ``alpha_chain`` and
+    ``inv_chain`` are addition chains for x^alpha and x^(1/alpha)
+    (``ALPHA_CHAIN_*``, ``INV_CHAIN_*``)."""
 
     name: str
     field: str
@@ -82,6 +100,7 @@ class SpongeLayout(NamedTuple):
     ark1: tuple
     ark2: tuple
     packed31: bool
+    alpha_chain: tuple
     inv_chain: tuple
 
 
@@ -99,16 +118,22 @@ INV_CHAIN_RP64 = ((0, 1, None), (1, 1, None), (2, 3, 2), (3, 6, 3), (4, 12, 4), 
                   (6, 31, 6), (7, 1, 6), (8, 2, None), (1, 0, 2), (10, 0, 0), (9, 0, 11))
 INV_CHAIN_RP62 = ((0, 1, None), (1, 0, 0), (1, 2, 1), (3, 2, 1), (4, 2, 1), (5, 8, 5),
                   (6, 4, 0), (7, 2, 0), (8, 16, 6), (9, 16, 6), (10, 6, 4), (11, 2, 2))
+# x^alpha: x^7 = x^4 * x^2 * x (four multiplies; the same steps end
+# INV_CHAIN_RP64, whose t[11] is x^7), x^3 = x^2 * x (two)
+ALPHA_CHAIN_RP64 = ((0, 1, None), (1, 1, None), (1, 0, 2), (3, 0, 0))
+ALPHA_CHAIN_RP62 = ((0, 1, None), (1, 0, 0))
 
 # capacity first: tag in state[0], rate state[4..12], digest state[4..8]
 RP64_256 = SpongeLayout(
     "rp64_256", "gl64", gl.P, 4, 8, 0, 4, 4, 7, 10540996611094048183,
-    _freeze(c64.MDS), _freeze(c64.ARK1), _freeze(c64.ARK2), False, INV_CHAIN_RP64)
+    _freeze(c64.MDS), _freeze(c64.ARK1), _freeze(c64.ARK2), False, ALPHA_CHAIN_RP64,
+    INV_CHAIN_RP64)
 # the legacy rate-first layout: rate state[0..8], digest state[0..4], tag in
 # state[11]
 RP62_248 = SpongeLayout(
     "rp62_248", "f62", F62.P, 0, 8, 11, 0, 4, 3, 3074416663688030891,
-    _freeze(c62.MDS62), _freeze(c62.ARK1_62), _freeze(c62.ARK2_62), True, INV_CHAIN_RP62)
+    _freeze(c62.MDS62), _freeze(c62.ARK1_62), _freeze(c62.ARK2_62), True, ALPHA_CHAIN_RP62,
+    INV_CHAIN_RP62)
 LAYOUTS = {RP64_256.name: RP64_256, RP62_248.name: RP62_248}
 
 
@@ -125,21 +150,13 @@ def chain_multiplies(chain) -> int:
     return sum(n + (b is not None) for _, n, b in chain)
 
 
-def _square_and_multiply(e: int) -> int:
-    return e.bit_length() - 1 + bin(e).count("1") - 1
-
-
-def sbox_multiplies(layout: SpongeLayout, least: bool = False) -> int:
+def sbox_multiplies(layout: SpongeLayout) -> int:
     """Field multiplies of the S-boxes of one permutation, on every state
-    word of every round.  By default what the kernel and the plain version
-    do: x^alpha and x^(1/alpha) by square-and-multiply (bits - 1 squarings,
-    popcount - 1 multiplies: 95 for Rp64_256's x^(1/alpha), 91 for
-    Rp62_248's).  ``least``: the fewest known, x^(1/alpha) by the layout's
-    addition chain (72 both), what the host C sponge does and the smoke's
-    bound counts."""
-    inv = (chain_multiplies(layout.inv_chain) if least
-           else _square_and_multiply(layout.inv_alpha))
-    return ROUNDS * WIDTH * (_square_and_multiply(layout.alpha) + inv)
+    word of every round: x^alpha and x^(1/alpha) by the layout's addition
+    chains (4 + 72 for Rp64_256, 2 + 72 for Rp62_248), what the kernel, the
+    plain version and the host C sponge's x^(1/alpha) do."""
+    return ROUNDS * WIDTH * (chain_multiplies(layout.alpha_chain)
+                             + chain_multiplies(layout.inv_chain))
 
 
 def permutations(layout: SpongeLayout, rows: int, n_elems: int = None) -> int:
@@ -157,7 +174,8 @@ def permutations(layout: SpongeLayout, rows: int, n_elems: int = None) -> int:
 
 
 class _Field:
-    """add / mul / pow of one field on one-word int64 tensors."""
+    """add / mul of one field on one-word int64 tensors, and powers by an
+    addition chain."""
 
     def __init__(self, layout):
         self.gl = layout.field == "gl64"
@@ -168,15 +186,15 @@ class _Field:
     def mul(self, a, b):
         return gl.mul(a, b) if self.gl else F62.mul((a,), (b,))[0]
 
-    def pow(self, a, e: int):
-        result, base = None, a
-        while e:
-            if e & 1:
-                result = base if result is None else self.mul(result, base)
-            e >>= 1
-            if e:
-                base = self.mul(base, base)
-        return result
+    def chain(self, x, chain):
+        """x raised to ``chain_exponent(chain)``."""
+        t = [x]
+        for a, n, b in chain:
+            v = t[a]
+            for _ in range(n):
+                v = self.mul(v, v)
+            t.append(self.mul(v, t[b]) if b is not None else v)
+        return t[-1]
 
 
 _TABLES: dict = {}
@@ -226,9 +244,9 @@ def permute_plain(layout: SpongeLayout, s):
     F = _Field(layout)
     t = _tables(layout, s.device)
     for r in range(ROUNDS):
-        s = F.pow(s, layout.alpha)
+        s = F.chain(s, layout.alpha_chain)
         s = F.add(_mds_plain(layout, F, t, s), t["ark1"][r])
-        s = F.pow(s, layout.inv_alpha)
+        s = F.chain(s, layout.inv_chain)
         s = F.add(_mds_plain(layout, F, t, s), t["ark2"][r])
     return s
 
@@ -287,11 +305,38 @@ def rescue_sponge_plain(layout: SpongeLayout, x, n_elems: int = None, y=None):
     return _digest_words(layout, s)
 
 
+def merge_with_int_plain(layout: SpongeLayout, seed_elems, nonces):
+    """``merge_with_int(seed, nonce)`` digests as (R, 8) words for an (R,)
+    int64 tensor of nonces below p (one element each; read as u64): the
+    seed's four digest elements at the digest's place, the nonce after
+    them, tag digest size + 1, one permutation."""
+    s = torch.zeros((WIDTH, nonces.shape[0]), dtype=torch.int64, device=nonces.device)
+    at, ds = layout.digest_start, layout.digest_size
+    s[at: at + ds] = torch.tensor([gl._wrap(int(v)) for v in seed_elems], dtype=torch.int64,
+                                  device=nonces.device).unsqueeze(-1)
+    s[at + ds] = nonces
+    s[layout.tag_index] = ds + 1
+    return _digest_words(layout, permute_plain(layout, s))
+
+
+def first_merge_with_int_plain(layout: SpongeLayout, seed_elems, start: int, count: int,
+                               bits: int, device="cpu"):
+    """Plain version of the kernel's search: (the lowest nonce in [start,
+    start + count) whose digest has ``bits`` trailing zeros in its first 8
+    bytes, or None; the (count, 8) digest words)."""
+    # the nonces as int64 (u64 read as two's complement)
+    nonces = torch.arange(count, dtype=torch.int64, device=device) + gl._wrap(start)
+    d = merge_with_int_plain(layout, seed_elems, nonces)
+    head = d[:, 0] | (d[:, 1] << 32)  # the digest's first 8 bytes, little-endian
+    ok = torch.nonzero((head & ((1 << bits) - 1)) == 0)
+    return (int(nonces[ok[0, 0]]) & MASK64 if ok.numel() else None), d
+
+
 # ---------------------------------------------------------------------------
 # the kernel wrapper
 # ---------------------------------------------------------------------------
 
-_FNS = None
+_FNS: dict = {}
 
 
 def kernel_sources():
@@ -299,24 +344,68 @@ def kernel_sources():
     return [os.path.join(d, "rescue_sponge.cu")]
 
 
+def kernel_prelude(group: int = None) -> str:
+    """The definitions csrc/rescue_sponge.cu is built with: the S-box group
+    and the layouts' addition chains as X-macros, step K (a, n, b) as
+    ``S(K, a, n, b)`` (b = -1 for no multiply).  The chains are
+    ``ALPHA_CHAIN_*`` / ``INV_CHAIN_*``, the tuples the plain version and
+    the host C sponge run."""
+    lines = ["// generated by ops/rescue_sponge.py:kernel_prelude",
+             f"#define SBOX_GROUP {SBOX_GROUP if group is None else group}"]
+    for name, chain in (("RP64_ALPHA", ALPHA_CHAIN_RP64), ("RP64_INV", INV_CHAIN_RP64),
+                        ("RP62_ALPHA", ALPHA_CHAIN_RP62), ("RP62_INV", INV_CHAIN_RP62)):
+        steps = " ".join(f"S({k}, {a}, {n}, {-1 if b is None else b})"
+                         for k, (a, n, b) in enumerate(chain, 1))
+        lines += [f"#define {name}_CHAIN(S) {steps}", f"#define {name}_CHAIN_LEN {len(chain)}"]
+    return "\n".join(lines) + "\n"
+
+
+def kernel_source(group: int = None):
+    """(library name, path) of the generated source that defines
+    ``kernel_prelude(group)`` and includes csrc/rescue_sponge.cu, written
+    under the build directory when missing or different; the name carries
+    a hash of both."""
+    from ..native import BUILD_DIR
+
+    src = kernel_prelude(group) + '#include "rescue_sponge.cu"\n'
+    with open(kernel_sources()[0]) as f:
+        body = f.read()
+    tag = hashlib.sha256((src + body).encode()).hexdigest()[:12]
+    path = os.path.join(BUILD_DIR, f"rescue_sponge_{tag}.cu")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    if not os.path.exists(path) or open(path).read() != src:
+        with open(path, "w") as f:
+            f.write(src)
+    return f"starkrescue_{tag}", path
+
+
 def kernel_constants(layout: SpongeLayout) -> np.ndarray:
     """MDS (144), ARK1 (84) and ARK2 (84) words of a layout, the table the
-    kernel keeps in constant memory."""
-    return np.array([v for t in (layout.mds, layout.ark1, layout.ark2)
-                     for row in t for v in row], dtype=np.uint64)
+    kernel keeps in constant memory: Goldilocks words (the MDS entries must
+    be below 2^32, as the kernel multiplies them with 32-bit halves), f62
+    words in Montgomery form (x * 2^64 mod p)."""
+    vals = [v for t in (layout.mds, layout.ark1, layout.ark2) for row in t for v in row]
+    if layout.field == "f62":
+        vals = [(v << 64) % layout.P for v in vals]
+    elif any(v >> 32 for row in layout.mds for v in row):
+        raise ValueError(f"{layout.name}: the kernel takes MDS entries below 2^32")
+    return np.array(vals, dtype=np.uint64)
 
 
-def _lib():
-    """Build (first use) and load the kernel library and copy both layouts'
-    constants to the current device; raises on failure."""
-    global _FNS
-    if _FNS is None:
+def _lib(group: int = None):
+    """Build (first use) and load the kernel library with S-box group
+    ``group`` (default ``SBOX_GROUP``) and copy both layouts' constants to
+    the current device; raises on failure."""
+    group = SBOX_GROUP if group is None else group
+    if group not in _FNS:
         from ..native import load_kernels
 
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fns = load_kernels("starkrescue", kernel_sources(), "rescue_sponge_init", {
+        p, i, ll, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint64
+        name, path = kernel_source(group)
+        fns = load_kernels(name, [path], "rescue_sponge_init", {
             "rescue_sponge_set_constants": [i, p],
             "rescue_sponge_launch": [i, i, p, p, p, ll, ll, ll, i, i, p],
+            "rescue_sponge_search": [i, p, u64, ll, i, p, p, i, p],
         })
         for slot, layout in enumerate((RP64_256, RP62_248)):
             consts = kernel_constants(layout)
@@ -324,8 +413,8 @@ def _lib():
             if rc != 0:
                 raise RuntimeError(f"rescue_sponge: copying the {layout.name} "
                                    f"constants failed with cudaError {rc}")
-        _FNS = fns
-    return _FNS
+        _FNS[group] = fns
+    return _FNS[group]
 
 
 def _check(name, t, cols):
@@ -369,7 +458,8 @@ def rescue_sponge(layout: SpongeLayout, x, n_elems: int = None, y=None):
         return out
     rc = launch(
         _lib()["rescue_sponge_launch"], x.device, int(layout.field == "f62"), int(merge),
-        x.data_ptr(), y.data_ptr() if merge else None, out.data_ptr(), x.stride(0), y.stride(0) if merge else 0, R, 0 if merge else n_elems, THREADS,
+        x.data_ptr(), y.data_ptr() if merge else None, out.data_ptr(), x.stride(0),
+        y.stride(0) if merge else 0, R, 0 if merge else n_elems, THREADS,
     )
     if rc != 0:
         raise RuntimeError(
@@ -379,3 +469,47 @@ def rescue_sponge(layout: SpongeLayout, x, n_elems: int = None, y=None):
     key = (layout.name, "merge" if merge else "hash", R, 0 if merge else n_elems)
     LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
     return out
+
+
+def first_merge_with_int(layout: SpongeLayout, seed_elems, start: int, count: int, bits: int,
+                         device="cpu", digests: bool = False):
+    """The proof-of-work search over nonces [start, start + count): (the
+    lowest nonce whose ``merge_with_int(seed, nonce)`` digest has ``bits``
+    trailing zeros in its first 8 bytes read little-endian, or None; with
+    ``digests`` the (count, 8) digest words, else None).  ``seed_elems``:
+    the seed's four digest elements (Rp62_248: unpacked, masked to 62 bits,
+    not reduced).  The nonces must lie in [1, p), one element each.
+
+    On the CPU, ``first_merge_with_int_plain``.  On a CUDA device, one launch
+    of the kernel's search mode on the current stream, then one
+    synchronisation to read the nonce; or a raise."""
+    global SEARCH_LAUNCHES
+    if start < 1 or count < 1 or start + count > layout.P:
+        raise ValueError(f"nonces [{start}, {start + count}) must lie in [1, p)")
+    if not 0 <= bits <= 63:
+        raise ValueError(f"bits must lie in [0, 63], got {bits}")
+    device = torch.device(device)
+    if device.type == "cpu":
+        nonce, d = first_merge_with_int_plain(layout, seed_elems, start, count, bits)
+        return nonce, d if digests else None
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    from ..native import launch
+
+    found = torch.full((1,), -1, dtype=torch.int64, device=device)  # u64 max
+    out = torch.empty((count, 8), dtype=torch.int64, device=device) if digests else None
+    seed = np.array([int(v) for v in seed_elems], dtype=np.uint64)
+    if seed.shape != (4,):
+        raise ValueError(f"the seed is four digest elements, got {seed.shape}")
+    rc = launch(_lib()["rescue_sponge_search"], device, int(layout.field == "f62"),
+                seed.ctypes.data_as(ctypes.c_void_p), start, count, bits, found.data_ptr(),
+                out.data_ptr() if digests else None, THREADS)
+    if rc != 0:
+        raise RuntimeError(f"rescue_sponge search launch failed: cudaError {rc} "
+                           f"({layout.name}, start={start}, count={count}, bits={bits})")
+    SEARCH_LAUNCHES += 1
+    SEARCH_LAUNCHES_BY_LAYOUT[layout.name] = SEARCH_LAUNCHES_BY_LAYOUT.get(layout.name, 0) + 1
+    v = int(found.item()) & MASK64
+    return (None if v == MASK64 else v), out
+
+

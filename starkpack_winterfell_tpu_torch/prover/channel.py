@@ -1,4 +1,4 @@
-# Copy of starkpack_winterfell_tpu/prover/channel.py; cut: nothing; the batched BLAKE3 nonce search runs on tensors (device of the prove), the other hashers' search on batches of their host sponge.
+# Copy of starkpack_winterfell_tpu/prover/channel.py; cut: nothing; the batched BLAKE3 nonce search runs on tensors (device of the prove), the Rescue hashers' search on the sponge kernel (CUDA) or batches of their host sponge (CPU), SHA3's one nonce at a time.
 """Prover-side Fiat-Shamir channel — equivalent of prover/src/channel.rs.
 
 The exact transcript order (SURVEY.md §3.1) is driven from here; every
@@ -18,6 +18,10 @@ import torch
 from ..air.proof import Commitments, Context, OodFrame, StarkProof
 from ..crypto.random_coin import RandomCoin
 from ..ops import blake3 as b3
+
+# nonces a launch of the sponge kernel's proof-of-work search tries: at
+# grinding 16 one launch finds a nonce with probability 1 - 1/e
+NONCE_BATCH_CARD = 1 << 16
 
 
 class ProverChannel:
@@ -121,17 +125,19 @@ class ProverChannel:
         seed is one digest of the transcript hasher: 32 bytes, or 24
         (BLAKE3-192) or 31 (Rp62_248).  The nonces are tried in ascending
         blocks: BLAKE3 as tensors on the prove's device; a hasher with
-        ``first_merge_with_int`` (Rp64_256, Rp62_248) as one batch of its
-        C sponge a block; any other (SHA3-256) one ``merge_with_int`` at a
-        time."""
+        ``first_merge_with_int`` (Rp64_256, Rp62_248) as one launch of the
+        sponge kernel's search on a CUDA device (NONCE_BATCH_CARD nonces),
+        one batch of its C sponge (4096) on the CPU; any other (SHA3-256)
+        one ``merge_with_int`` at a time."""
         if grinding_factor == 0:
             return 1  # (1..).find(|_| trailing_zeros >= 0) == 1
         seed = self.public_coin.seed
         mask = (1 << grinding_factor) - 1
         first = getattr(self.hasher, "first_merge_with_int", None)
         if first is not None:
-            nonce, batch = 1, 1 << 12
-            while (found := first(seed, nonce, batch, grinding_factor)) is None:
+            batch = NONCE_BATCH_CARD if torch.device(self.device).type == "cuda" else 1 << 12
+            nonce = 1
+            while (found := first(seed, nonce, batch, grinding_factor, self.device)) is None:
                 nonce += batch
             return found
         if not self.hasher.NAME.startswith("blake3"):

@@ -225,58 +225,117 @@ HARNESS_SPONGE = """
 extern "C" void host_sponge_constants(int slot, const uint64_t* c) {
   std::memcpy(&kConsts[slot], c, sizeof(SpongeConsts));
 }
+template <class L>
+static void run_rows(int mode, const SpongeArgs& a) {
+  blockDim.x = 1;
+  for (long long r = 0; r < a.rows; ++r) {
+    blockIdx.x = (unsigned)r;
+    if (mode == MODE_HASH) rescue_sponge_kernel<L, MODE_HASH>(a);
+    else if (mode == MODE_MERGE) rescue_sponge_kernel<L, MODE_MERGE>(a);
+    else rescue_sponge_kernel<L, MODE_SEARCH>(a);
+  }
+}
+static void run(int field, int mode, const SpongeArgs& a) {
+  if (field == 0) run_rows<Rp64Layout>(mode, a);
+  else run_rows<Rp62Layout>(mode, a);
+}
 extern "C" void host_sponge(int field, int merge, const uint64_t* x, const uint64_t* y,
                             uint64_t* out, long long xs, long long ys, long long rows,
                             int n_elems) {
-  const SpongeArgs a{x, y, out, xs, ys, rows, n_elems};
-  blockDim.x = 1;
-  for (long long r = 0; r < rows; ++r) {
-    blockIdx.x = (unsigned)r;
-    if (field == 0) {
-      if (merge) rescue_sponge_kernel<Rp64Layout, true>(a);
-      else rescue_sponge_kernel<Rp64Layout, false>(a);
-    } else {
-      if (merge) rescue_sponge_kernel<Rp62Layout, true>(a);
-      else rescue_sponge_kernel<Rp62Layout, false>(a);
-    }
-  }
+  SpongeArgs a{};
+  a.x = x; a.y = y; a.out = out; a.x_stride = xs; a.y_stride = ys; a.rows = rows;
+  a.n_elems = n_elems;
+  run(field, merge ? MODE_MERGE : MODE_HASH, a);
+}
+extern "C" void host_sponge_search(int field, const uint64_t* seed, uint64_t start,
+                                   long long count, int bits, unsigned long long* found,
+                                   uint64_t* digests) {
+  SpongeArgs a{};
+  for (int k = 0; k < 4; ++k) a.seed[k] = seed[k];
+  a.start = start; a.rows = count; a.bits = bits; a.found = found; a.out = digests;
+  run(field, MODE_SEARCH, a);
+}
+"""
+
+# the Montgomery f62 arithmetic of the sponge (csrc/f62_mont.cuh) on the host
+HARNESS_F62M = """
+#include "f62_mont.cuh"
+extern "C" uint64_t host_f62m_mul(uint64_t a, uint64_t b) { return f62m::mul(a, b); }
+extern "C" uint64_t host_f62m_to_mont(uint64_t x) { return f62m::to_mont(x); }
+extern "C" uint64_t host_f62m_from_mont(uint64_t x) { return f62m::from_mont(x); }
+extern "C" uint64_t host_f62m_row(const uint64_t* m, const uint64_t* s, int n) {
+  uint64_t lo = 0, hi = 0;
+  for (int j = 0; j < n; ++j) f62m::mul_acc(m[j], s[j], lo, hi);
+  return f62m::redc(lo, hi);
+}
+"""
+
+
+def _host_lib(tmp_path_factory, name, harness, body=None):
+    """A harness built with the host C++ compiler against the stub
+    ``cuda_runtime.h`` (``body``: the kernels of a csrc source, included as
+    ``sponge_body.inc``)."""
+    cxx = next((c for c in ("g++", "c++", "clang++") if shutil.which(c)), None)
+    assert cxx is not None, "no host C++ compiler"
+    d = tmp_path_factory.mktemp(name)
+    (d / "cuda_runtime.h").write_text(STUB + SPONGE_STUB)
+    if body is not None:
+        (d / "sponge_body.inc").write_text(body)
+    (d / f"{name}.cpp").write_text(harness)
+    so = d / f"lib{name}.so"
+    r = subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", str(d), "-I", CSRC,
+                        "-o", str(so), str(d / f"{name}.cpp")], capture_output=True, text=True)
+    assert r.returncode == 0, r.stderr
+    return ctypes.CDLL(str(so))
+
+
+SPONGE_STUB = """
+#define __constant__
+inline unsigned long long atomicMin(unsigned long long* a, unsigned long long v) {
+  const unsigned long long old = *a;
+  if (v < old) *a = v;
+  return old;
 }
 """
 
 
 @pytest.fixture(scope="module")
 def host_sponge(tmp_path_factory):
-    """csrc/rescue_sponge.cu's kernels built with the host compiler, both
-    layouts' constants copied into the kernel's constant table."""
-    cxx = next((c for c in ("g++", "c++", "clang++") if shutil.which(c)), None)
-    assert cxx is not None, "no host C++ compiler"
-    d = tmp_path_factory.mktemp("sponge")
-    (d / "cuda_runtime.h").write_text(STUB + "#define __constant__\n")
-    (d / "sponge_body.inc").write_text(_kernels_only("rescue_sponge.cu"))
-    (d / "sponge.cpp").write_text(HARNESS_SPONGE)
-    so = d / "libsponge.so"
-    r = subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", str(d), "-I", CSRC,
-                        "-o", str(so), str(d / "sponge.cpp")], capture_output=True, text=True)
-    assert r.returncode == 0, r.stderr
-    lib = ctypes.CDLL(str(so))
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    """csrc/rescue_sponge.cu's kernels built with the host compiler, with
+    the definitions ops/rescue_sponge.py builds them with (the addition
+    chains), both layouts' constants copied into the kernel's constant
+    table."""
+    lib = _host_lib(tmp_path_factory, "sponge", HARNESS_SPONGE,
+                    rsp.kernel_prelude() + _kernels_only("rescue_sponge.cu"))
+    p, i, ll, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint64
     lib.host_sponge_constants.argtypes = [i, p]
     lib.host_sponge.argtypes = [i, i, p, p, p, ll, ll, ll, i]
+    lib.host_sponge_search.argtypes = [i, p, u64, ll, i, p, p]
     for slot, layout in enumerate((rsp.RP64_256, rsp.RP62_248)):
         lib.host_sponge_constants(slot, rsp.kernel_constants(layout).ctypes.data_as(p))
     return lib
 
 
+def _edge_elements(rng, P, rows, n):
+    """(rows, n) elements: random, with 0, 1 and p - 1 among them."""
+    vals = rng.integers(0, P, size=(rows, n), dtype=np.uint64)
+    edges = np.array([0, 1, P - 1], dtype=np.uint64)
+    vals.reshape(-1)[: min(vals.size, 3 * rows)] = np.resize(edges, min(vals.size, 3 * rows))
+    return vals
+
+
 @pytest.mark.parametrize("name", ["rp64_256", "rp62_248"])
 def test_sponge_kernel_source_matches_the_plain_version(host_sponge, name):
     """Row hashes of 0 ... 24 elements (rows wider than they hash, as the
-    wrapper's row stride allows) and merges of random words read through a
-    Merkle level's row stride, for both layouts."""
+    wrapper's row stride allows; elements at 0, 1 and p - 1 among random
+    ones) and merges of random words read through a Merkle level's row
+    stride, for both layouts; Rp62_248 merges also of digests whose four
+    words all lie in [p, 2^62)."""
     layout = rsp.LAYOUTS[name]
     field = int(layout.field == "f62")
     rng = np.random.default_rng(field + 17)
-    for n in (0, 1, 7, 8, 9, 12, 24):
-        vals = rng.integers(0, layout.P, size=(5, n + 2), dtype=np.uint64)
+    for n in (0, 1, 7, 8, 9, 12, 16, 23, 24):
+        vals = _edge_elements(rng, layout.P, 5, n + 2)
         x = tgl.from_u64(np.stack([vals & np.uint64(0xFFFFFFFF), vals >> np.uint64(32)],
                                   axis=-1).reshape(5, -1))
         want = rsp.rescue_sponge_plain(layout, x, n)
@@ -284,12 +343,73 @@ def test_sponge_kernel_source_matches_the_plain_version(host_sponge, name):
         host_sponge.host_sponge(field, 0, _ptr(x), None, _ptr(got), x.stride(0), 0, 5, n)
         assert torch.equal(got, want), n
     cur = torch.from_numpy(rng.integers(0, 1 << 32, size=(10, 8)).astype(np.int64))
+    if field:  # packed digests of four values in [p, 2^62)
+        v = [int(a) for a in rng.integers(layout.P, 1 << 62, size=40, dtype=np.uint64)]
+        packed = [sum(v[4 * r + k] << (62 * k) for k in range(4)) for r in range(10)]
+        cur[5:] = torch.tensor([[(w >> (32 * j)) & 0xFFFFFFFF for j in range(8)]
+                                for w in packed[5:]], dtype=torch.int64)
     left, right = cur[0::2], cur[1::2]
     want = rsp.rescue_sponge_plain(layout, left, None, right)
     got = torch.zeros((5, 8), dtype=torch.int64)
     host_sponge.host_sponge(field, 1, _ptr(left), _ptr(right), _ptr(got), left.stride(0),
                             right.stride(0), 5, 0)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["rp64_256", "rp62_248"])
+def test_sponge_kernel_search_mode_matches_the_plain_version(host_sponge, name):
+    """The search mode: every digest of a range of nonces and the lowest
+    nonce with 4 trailing zero bits, against ``first_merge_with_int_plain``;
+    a range with no such nonce leaves the found word as it was."""
+    layout = rsp.LAYOUTS[name]
+    field = int(layout.field == "f62")
+    rng = np.random.default_rng(field + 29)
+    top = 1 << 62 if field else layout.P  # Rp62_248 seeds: masked, not reduced
+    seed = [int(v) for v in rng.integers(0, top, size=4, dtype=np.uint64)]
+    for start, count, bits in ((1, 96, 4), (layout.P - 40, 40, 3), (7, 3, 12)):
+        want_nonce, want = rsp.first_merge_with_int_plain(layout, seed, start, count, bits)
+        found = np.array([np.iinfo(np.uint64).max], dtype=np.uint64)
+        got = torch.zeros((count, 8), dtype=torch.int64)
+        host_sponge.host_sponge_search(field, np.array(seed, dtype=np.uint64).ctypes.data,
+                                       start, count, bits, found.ctypes.data, _ptr(got))
+        assert torch.equal(got, want), (start, count)
+        assert (None if found[0] == np.iinfo(np.uint64).max else int(found[0])) == want_nonce
+
+
+@pytest.fixture(scope="module")
+def host_f62m(tmp_path_factory):
+    lib = _host_lib(tmp_path_factory, "f62m", HARNESS_F62M)
+    u64, p = ctypes.c_uint64, ctypes.c_void_p
+    for fn, args in (("host_f62m_mul", [u64, u64]), ("host_f62m_to_mont", [u64]),
+                     ("host_f62m_from_mont", [u64]), ("host_f62m_row", [p, p, ctypes.c_int])):
+        getattr(lib, fn).argtypes = args
+        getattr(lib, fn).restype = u64
+    return lib
+
+
+def test_f62_montgomery_reduction_matches_python_ints(host_f62m):
+    """csrc/f62_mont.cuh against python ints at the edges: a multiply of
+    lazy values (below 2p) stays below 2p and is a*b/R mod p; to_mont maps
+    any 64-bit word (digest words in [p, 2^62) among them) to x*R mod p
+    below 2p; from_mont is canonical; a row of twelve products of values
+    below p, at their largest, reduces to below 4p."""
+    P, R = rsp.RP62_248.P, 1 << 64
+    rinv = pow(R, -1, P)
+    edges = [0, 1, 2, P - 1, P, P + 1, 2 * P - 1, (1 << 62) - 1, 12345678901234567]
+    for a in edges:
+        for b in edges:
+            got = host_f62m.host_f62m_mul(a, b)
+            assert got < 2 * P and got % P == a * b * rinv % P, (a, b)
+    for x in edges + [(1 << 64) - 1, 1 << 63]:
+        got = host_f62m.host_f62m_to_mont(x)
+        assert got < 2 * P and got % P == x * R % P, x
+    for x in [0, 1, P - 1, P, P + 1, 2 * P - 1]:
+        assert host_f62m.host_f62m_from_mont(x) == x * rinv % P, x
+    for m, s in (([P - 1] * 12, [P - 1] * 12), ([0] * 12, [P - 1] * 12),
+                 (list(range(1, 13)), [P - 1 - k for k in range(12)])):
+        ma, sa = np.array(m, dtype=np.uint64), np.array(s, dtype=np.uint64)
+        got = host_f62m.host_f62m_row(ma.ctypes.data, sa.ctypes.data, 12)
+        assert got < 4 * P and got % P == sum(x * y for x, y in zip(m, s)) * rinv % P
 
 
 HARNESS_CONS = """

@@ -185,15 +185,15 @@ def test_wrapper_refuses_other_devices_and_bad_shapes():
 
 
 def test_launch_rule_counts():
-    """The permutation and multiply counts the smoke's bound uses."""
+    """The permutation and multiply counts the smoke's bound uses: the
+    S-boxes by the layouts' addition chains, what the kernel, the plain
+    version and the host C sponge do."""
     assert rsp.permutations(rsp.RP64_256, 10, 12) == 20
     assert rsp.permutations(rsp.RP64_256, 10, 8) == 10
     assert rsp.permutations(rsp.RP62_248, 10, 0) == 0
     assert rsp.permutations(rsp.RP62_248, 10) == 10
-    assert rsp.sbox_multiplies(rsp.RP64_256) == 7 * 12 * (4 + 95)
-    assert rsp.sbox_multiplies(rsp.RP62_248) == 7 * 12 * (2 + 91)
-    assert rsp.sbox_multiplies(rsp.RP64_256, least=True) == 7 * 12 * (4 + 72)
-    assert rsp.sbox_multiplies(rsp.RP62_248, least=True) == 7 * 12 * (2 + 72)
+    assert rsp.sbox_multiplies(rsp.RP64_256) == 7 * 12 * (4 + 72)
+    assert rsp.sbox_multiplies(rsp.RP62_248) == 7 * 12 * (2 + 72)
 
 
 @pytest.mark.parametrize("name", ["rp64_256", "rp62_248"])
@@ -203,6 +203,7 @@ def test_inverse_sbox_chain_reaches_the_exponent(name):
     on random elements."""
     layout = rsp.LAYOUTS[name]
     assert rsp.chain_exponent(layout.inv_chain) == layout.inv_alpha
+    assert rsp.chain_exponent(layout.alpha_chain) == layout.alpha
     assert layout.alpha * layout.inv_alpha % (layout.P - 1) == 1
     rng = np.random.default_rng(3)
     for x in rng.integers(1, layout.P, size=4, dtype=np.uint64).tolist():
@@ -211,3 +212,77 @@ def test_inverse_sbox_chain_reaches_the_exponent(name):
             v = pow(t[a], 1 << n, layout.P)
             t.append(v * t[b] % layout.P if b is not None else v)
         assert pow(t[-1], layout.alpha, layout.P) == x
+
+
+def _seed_bytes(name, rng):
+    """A random seed digest: Rp64_256 four canonical elements; Rp62_248 31
+    random bytes, whose unpacked values may lie in [p, 2^62)."""
+    if name == "rp64_256":
+        return b"".join(int(v).to_bytes(8, "little")
+                        for v in rng.integers(0, P64, size=4, dtype=np.uint64))
+    return _rand_bytes(rng, 31)
+
+
+def _digest_bytes(name, words):
+    return words.numpy().astype("<u4").tobytes()[:PAIRS[name][1].DIGEST_BYTES]
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_merge_with_int_plain_matches_jax(name):
+    """The plain version of the kernel's search mode: each nonce's digest
+    against the JAX package's byte-API ``merge_with_int``, nonces below
+    2^32 and up to p - 1."""
+    J, H, P = PAIRS[name]
+    rng = np.random.default_rng(31)
+    for seed in (_seed_bytes(name, rng), _seed_bytes(name, rng)):
+        nonces = [1, 2, 77, (1 << 32) - 1, 1 << 32, (1 << 40) + 3, P - 2, P - 1]
+        t = torch.tensor([v - (1 << 64) if v >= 1 << 63 else v for v in nonces],
+                         dtype=torch.int64)
+        got = rsp.merge_with_int_plain(H.LAYOUT, H.seed_elements(seed), t)
+        for v, row in zip(nonces, got):
+            assert _digest_bytes(name, row.unsqueeze(0)) == J.merge_with_int(seed, v), v
+
+
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("bits", [4, 8])
+def test_search_plain_finds_the_host_sponges_nonce(name, bits):
+    """The lowest nonce of the plain search (the CPU branch of the wrapper,
+    what ``ProverChannel._find_nonce`` asks on the card) equals the host C
+    sponge's ``first_merge_with_int`` and the JAX ``merge_with_int`` loop;
+    a range past it finds the next one or None."""
+    J, H, _ = PAIRS[name]
+    seed = _seed_bytes(name, np.random.default_rng(bits))
+    want = H.first_merge_with_int(seed, 1, 1024, bits)
+    got, digests = rsp.first_merge_with_int(H.LAYOUT, H.seed_elements(seed), 1, 1024, bits,
+                                            digests=True)
+    assert got == want is not None
+    assert int.from_bytes(J.merge_with_int(seed, got)[:8], "little") % (1 << bits) == 0
+    assert _digest_bytes(name, digests[got - 1: got]) == J.merge_with_int(seed, got)
+    nxt = H.first_merge_with_int(seed, got + 1, 64, bits)
+    assert rsp.first_merge_with_int(H.LAYOUT, H.seed_elements(seed), got + 1, 64, bits)[0] == nxt
+
+
+def test_search_wrapper_refuses_nonces_at_p_and_bad_bits():
+    elems = [1, 2, 3, 4]
+    for layout in (rsp.RP64_256, rsp.RP62_248):
+        with pytest.raises(ValueError, match="must lie in"):
+            rsp.first_merge_with_int(layout, elems, layout.P - 3, 4, 8)
+        with pytest.raises(ValueError, match="must lie in"):
+            rsp.first_merge_with_int(layout, elems, 0, 4, 8)
+        with pytest.raises(ValueError, match="bits"):
+            rsp.first_merge_with_int(layout, elems, 1, 4, 64)
+    with pytest.raises(ValueError, match="unsupported device"):
+        rsp.first_merge_with_int(rsp.RP64_256, elems, 1, 4, 8, device="meta")
+
+
+def test_rp62_merges_of_unreduced_digest_words_match_jax():
+    """Rp62_248 digests whose four 62-bit words all lie in [p, 2^62): the
+    merge maps each to the residue it denotes, as the reference does."""
+    J, H, P = PAIRS["rp62_248"]
+    rng = np.random.default_rng(41)
+    v = [int(a) for a in rng.integers(P, 1 << 62, size=24, dtype=np.uint64)]
+    words = np.array([[(sum(v[4 * r + k] << (62 * k) for k in range(4)) >> (32 * j)) & 0xFFFFFFFF
+                       for j in range(8)] for r in range(6)], dtype=np.uint32)
+    want = np.asarray(J.merge_words(words[0::2], words[1::2])).astype(np.int64)
+    t = torch.from_numpy(words.astype(np.int64))
+    assert np.array_equal(H.merge_words(t[0::2], t[1::2]).numpy(), want)
