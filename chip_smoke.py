@@ -43,9 +43,10 @@ with ProofOptions(28, 8, 16, NONE, 4, 31) and BLAKE3-256 unless named:
   rows 10 (rescue128-chain) and 12 (merkle128) of the golden transcript
   matrix, SHA3-256 at quadratic, against pinned digests (limb_ext_golden_*);
   fib over f62 2 x 512 at cubic against a pinned digest (limb_ext_f62);
-* the algebraic hashers, every Merkle tree on the Rescue sponge kernel: the
-  2^20-row chain again with Rp64_256 (rp64_main, right after the BLAKE3
-  prove of the same trace, the proof-of-work search timed); rows 6-8 of the
+* the algebraic hashers, every Merkle tree on the sponge kernel: the
+  2^20-row chain again with Rp64_256, RpJive64_256 and GriffinJive64_256
+  (rp64_main, rpjive_main, griffin_main, right after the BLAKE3 prove of
+  the same trace, each proof-of-work search timed); rows 6-8 of the
   golden transcript matrix (rescue-chain with Rp64_256, fib-f62 with
   Rp62_248 at degree 1 and at cubic) against pinned digests
   (rp_golden_row6/7/8); the canonical-bucket chain, 100 live permutations
@@ -58,12 +59,14 @@ with ProofOptions(28, 8, 16, NONE, 4, 31) and BLAKE3-256 unless named:
   launch of each (hasher, mode, row length) runs again on random rows at
   that row count, a strided sample of rows held against the plain version
   (``compare_sponge_at_rows``); last, the kernel's proof-of-work search
-  against the host C search for both hashers at grinding 16 (the main
+  against the host C search for the four hashers at grinding 16 (the main
   paths' seeds and three random ones) and every digest of one batch
-  against the plain version (sponge_search).  The sponge's six
-  instantiations must build without spills (ptxas), and its bound counts
-  the IMAD-pipe and ALU-pipe instructions that csrc/gl64_sass_count.py
-  counts in this run (``sponge_bound``).
+  against the plain version (sponge_search).  The sponge's twelve
+  instantiations (four layouts x hash, merge, search) must build without
+  spills (ptxas).  Every kernel's bound counts the IMAD-pipe and ALU-pipe
+  instructions that csrc/gl64_sass_count.py counts in this run
+  (``sponge_bound``, ``op_bound``; kernels 1-5 also at one pipe, the count
+  the earlier bounds used, ``bound_ms_one_pipe``).
 
 Builds the CUDA kernels from ``csrc/`` (one nvcc per library, all started
 together) and holds each against its plain PyTorch version on the card at
@@ -83,7 +86,7 @@ limb_ext_main, limb_aggregated, merkle128_aggregated,
 merkle128_aggregated_quad, limb_ext_golden_row10, limb_ext_golden_row12,
 limb_ext_f62, lamport_agg_golden, lamport_agg_64, lamport_agg_main,
 lamport128_aggregated, aux_main, aux_golden, aux_cubic, rp64_main,
-rp_golden_row6, rp_golden_row7, rp_golden_row8, rescue_pad, lamport64,
+rpjive_main, griffin_main, rp_golden_row6, rp_golden_row7, rp_golden_row8, rescue_pad, lamport64,
 rp62_main, sponge_search) prints one JSON line as it ends; any failure raises
 and the run exits non-zero.  The last two lines are the per-kernel table
 and the ``{"ok": ...}`` summary.
@@ -121,8 +124,10 @@ from starkpack_winterfell_tpu_torch import (
 )
 from starkpack_winterfell_tpu_torch import TraceInfo, native
 from starkpack_winterfell_tpu_torch.air.trace_info import TraceLayout
+from starkpack_winterfell_tpu_torch.crypto.griffin import GriffinJive64_256
 from starkpack_winterfell_tpu_torch.crypto.rescue import Rp64_256
 from starkpack_winterfell_tpu_torch.crypto.rescue62 import Rp62_248
+from starkpack_winterfell_tpu_torch.crypto.rescue_jive import RpJive64_256
 from starkpack_winterfell_tpu_torch.fri import prover as fri_prover
 from starkpack_winterfell_tpu_torch.models.cli import get_example
 from starkpack_winterfell_tpu_torch.models.do_work import (
@@ -195,6 +200,8 @@ COMPOSITION_COLUMNS = 7
 PATHS = {"small": (14, 1, BENCH_OPTIONS), "main": (20, 1, BENCH_OPTIONS),
          "aggregated": (16, 4, BENCH_OPTIONS),
          "rp64_main": (20, 1, BENCH_OPTIONS),
+         "rpjive_main": (20, 1, BENCH_OPTIONS),
+         "griffin_main": (20, 1, BENCH_OPTIONS),
          "ext_cubic_main": (20, 1, CUBIC128_OPTIONS),
          "ext_cubic_golden": (14, 1, CUBIC128_OPTIONS),
          "ext_quad_aggregated": (16, 4, QUAD_OPTIONS)}
@@ -246,8 +253,9 @@ AUX_PATHS = {
 LAMPORT_PATHS = {"lamport_agg_golden": (4, 15), "lamport_agg_64": (64, 127),
                  "lamport_agg_main": (1024, 127), "lamport128_aggregated": (4, 127)}
 
-# the algebraic hashers (the Rescue sponge kernel): rp64_main is the main
-# path's chain proved again with Rp64_256 (in PATHS); rp62_main fib over f62
+# the algebraic hashers (the sponge kernel): rp64_main, rpjive_main and
+# griffin_main are the main path's chain proved again with Rp64_256,
+# RpJive64_256 and GriffinJive64_256 (in PATHS); rp62_main fib over f62
 # at golden row 8's options with Rp62_248: (instances, rows, ProofOptions);
 # golden rows 6-8: name -> (example, instances, -l as the CLI takes it,
 # ProofOptions, hasher, pin); rescue_pad: (live permutations, bucket);
@@ -286,6 +294,66 @@ OPS_FIELD_SUB = 8
 # words, f62 on one word
 OPS_LIMB = {"f128": {"mul": 130, "sqr": 114, "add": 25, "sub": 20},
             "f62": {"mul": 78, "sqr": 74, "add": 8, "sub": 8}}
+
+
+# the same costs split by pipe ({"imad", "alu"}), field -> operation, from
+# csrc/gl64_sass_count.py's "by_pipe" of this run (``build_all``): the
+# bounds of kernels 1-5 count their instructions pipe by pipe, as the
+# sponge's do (``op_bound``); the one-pipe counts above stay beside them
+PIPE_COSTS: dict = {}
+ONE_PIPE = {"gl64": {"mul": OPS_FIELD_MUL, "add": OPS_FIELD_ADD, "sub": OPS_FIELD_SUB},
+            **OPS_LIMB}
+# NVIDIA H100 SXM dispatch rates, lanes a second: the IMAD pipe and the integer
+# ALU pipe (IADD3, LOP3, SHF, ISETP, SEL, LEA) 64 lanes a clock an SM each,
+# dispatch 4 x 32 lanes a clock an SM for all instructions together
+PEAK_IMAD_LANES_PER_S = PEAK_ALU_LANES_PER_S = 132 * 64 * 1.98e9
+PEAK_DISPATCH_LANES_PER_S = 132 * 128 * 1.98e9
+
+
+def pipe_costs(sass) -> dict:
+    """``PIPE_COSTS`` from gl64_sass_count.py's output."""
+    bp = sass["by_pipe"]
+    limb = ("mul", "sqr", "add", "sub")
+    return {"gl64": {op: bp[op] for op in ("mul", "add", "sub")},
+            "f128": {op: bp[f"f128_{op}"] for op in limb},
+            "f62": {op: bp[f"f62_{op}"] for op in limb}}
+
+
+def pipe_ms(ops) -> float:
+    """Least milliseconds of {"imad", "alu"} instructions: the larger of
+    the IMAD ones over the IMAD rate, the ALU ones over the ALU rate and
+    both over the dispatch rate."""
+    return max(ops["imad"] / PEAK_IMAD_LANES_PER_S, ops["alu"] / PEAK_ALU_LANES_PER_S,
+               (ops["imad"] + ops["alu"]) / PEAK_DISPATCH_LANES_PER_S) * 1e3
+
+
+def op_bound(nbytes: int, counts: dict, field: str) -> dict:
+    """The least time (ms) of a kernel that moves ``nbytes`` and does
+    ``counts`` field operations ({"mul", "sqr", "add", "sub"}: how many):
+    the bytes against the memory rate or the operations against the
+    integer rates, whichever is larger.  ``bound_ms`` prices each
+    operation pipe by pipe (``PIPE_COSTS``, ``pipe_ms``);
+    ``bound_ms_one_pipe`` at its instructions all on one 64-lane pipe
+    (``ONE_PIPE``, ``PEAK_INT32_OPS_PER_S``), the count the earlier
+    bounds of these kernels used."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_one = sum(n * ONE_PIPE[field][op] for op, n in counts.items()) \
+        / PEAK_INT32_OPS_PER_S * 1e3
+    t_pipe = pipe_ms({k: sum(n * PIPE_COSTS[field][op][k] for op, n in counts.items())
+                      for k in ("imad", "alu")})
+
+    def pick(t_ops):
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+    (ms, by), (ms1, by1) = pick(t_pipe), pick(t_one)
+    return {"bound_ms": ms, "bound_by": by, "bound_ms_one_pipe": ms1, "bound_by_one_pipe": by1}
+
+
+def bound_fields(bound: dict, timing: dict) -> dict:
+    """A row's bound keys: ``op_bound``'s, with the share of each bound in
+    the kernel's device time (null where the profiler gave none)."""
+    dev = timing.get("device_ms")
+    return {**bound, "bound_share_one_pipe": bound["bound_ms_one_pipe"] / dev if dev else None}
 
 
 def golden_pin(name: str) -> str:
@@ -411,26 +479,20 @@ def kernel_timing(fn, match, bound_ms, wrapper_module, counter="LAUNCHES"):
 
 def tile_bound(dif: bool, B: int, n: int, lanes: int, epilogue: bool,
                interleave: int = 1, pre: bool = False, transposed: bool = False):
-    """Least time (ms) the card could take for one tile transform: every
-    input read once and the output written once against the memory rate, or
-    its field operations against the integer rate, whichever is larger.  A
-    zero-interleaved input counts the rows read (n / interleave) and the
-    stages after the log2(interleave) that only copy; each table multiply 28
-    instructions per word it multiplies.  The store's layout costs nothing."""
+    """Least time (ms) the card could take for one tile transform
+    (``op_bound``): every input read once and the output written once, a
+    butterfly (a multiply, an add and a subtract) per two words and stage.
+    A zero-interleaved input counts the rows read (n / interleave) and the
+    stages after the log2(interleave) that only copy; each table multiply a
+    multiply per word it multiplies.  The store's layout costs nothing."""
     words = B * n * lanes
     words_in = words // interleave
     nbytes = 8 * (words_in + words + n // 2 + (n * lanes if epilogue else 0)
                   + (n // interleave * lanes if pre else 0))
     stages = n.bit_length() - interleave.bit_length()
-    butterfly = OPS_FIELD_MUL + OPS_FIELD_ADD + OPS_FIELD_SUB  # per two words
-    ops = words * stages * butterfly // 2
-    if epilogue:
-        ops += words * OPS_FIELD_MUL
-    if pre:
-        ops += words_in * OPS_FIELD_MUL
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_INT32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    butterflies = words * stages // 2
+    muls = butterflies + (words if epilogue else 0) + (words_in if pre else 0)
+    return op_bound(nbytes, {"mul": muls, "add": butterflies, "sub": butterflies}, "gl64")
 
 
 def tile_name(key):
@@ -486,9 +548,9 @@ def phase_kernels(rng, device):
         if key in used:
             err = float((got - want).abs().max())
             del got, want
-            bound_ms, bound_by = tile_bound(*key)
-            timing = kernel_timing(lambda: ntt4.ntt_tile(*args), "ntt_tile_kernel", bound_ms,
-                                   ntt4)
+            bound = tile_bound(*key)
+            timing = kernel_timing(lambda: ntt4.ntt_tile(*args), "ntt_tile_kernel",
+                                   bound["bound_ms"], ntt4)
             plain_ms = time_cuda(lambda: ntt4.ntt_tile_plain(*args), 2)
             rows[key] = {
                 "name": tile_name(key),
@@ -501,8 +563,7 @@ def phase_kernels(rng, device):
                 "max_abs_err": err,
                 **timing,
                 "plain_ms": plain_ms,
-                "bound_ms": bound_ms,
-                "bound_by": bound_by,
+                **bound_fields(bound, timing),
                 "library_ms": None,
             }
         del args
@@ -511,7 +572,8 @@ def phase_kernels(rng, device):
          tolerance="exact (modular integer arithmetic)",
          compared=compared, mismatching_words=mismatching,
          shapes=[{k: r[k] for k in ("name", "used_by", "device_ms", "call_ms", "plain_ms",
-                                    "bound_ms", "bound_by", "bound_share")}
+                                    "bound_ms", "bound_by", "bound_share",
+                                    "bound_ms_one_pipe", "bound_share_one_pipe")}
                  for r in rows.values()])
     return rows
 
@@ -553,16 +615,15 @@ def dit_mismatches(key, rng, device, inverse=False):
 
 
 def last_bound(rows: int, n: int, n_in: int, pre: bool, scale: bool):
-    """Least time (ms) of one ``ntt_last`` launch: the input rows read once,
-    the output written once; the stages after the log2(n / n_in) that a
-    zero-padded row only copies, 28 instructions a word and table multiply."""
+    """Least time (ms) of one ``ntt_last`` launch (``op_bound``): the input
+    rows read once, the output written once; the stages after the
+    log2(n / n_in) that a zero-padded row only copies, a multiply a word
+    and table multiply."""
     nbytes = 8 * (rows * n_in + rows * n + n // 2 + (n_in if pre else 0))
     stages = n.bit_length() - (n // n_in).bit_length()
-    ops = rows * n * stages * (OPS_FIELD_MUL + OPS_FIELD_ADD + OPS_FIELD_SUB) // 2
-    ops += OPS_FIELD_MUL * ((rows * n_in if pre else 0) + (rows * n if scale else 0))
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_INT32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    butterflies = rows * n * stages // 2
+    muls = butterflies + (rows * n_in if pre else 0) + (rows * n if scale else 0)
+    return op_bound(nbytes, {"mul": muls, "add": butterflies, "sub": butterflies}, "gl64")
 
 
 def compare_dit(key, rng, device, used_by):
@@ -576,14 +637,14 @@ def compare_dit(key, rng, device, used_by):
                 f"{' +pre' if has_pre else ''}{' +scale' if has_scale else ''}]")
         replaces = "starkpack_winterfell_tpu/ops/pallas/ntt_kernel.py:91"
         match = "ntt_last"
-        bound_ms, bound_by = last_bound(rows, n, n_in, has_pre, has_scale)
+        bound = last_bound(rows, n, n_in, has_pre, has_scale)
     else:
         B, n, lanes, has_pre = key[1:]
         name = f"ntt_dit_axis1[B={B} n={n} lanes={lanes}{' +pre' if has_pre else ''}]"
         replaces = "starkpack_winterfell_tpu/ops/pallas/ntt_kernel.py:224"
         match = "ntt_dit_axis1_kernel"
-        bound_ms, bound_by = tile_bound(False, B, n, lanes, has_pre)
-    timing = kernel_timing(lambda: fn(*args), match, bound_ms, ntt_kernel)
+        bound = tile_bound(False, B, n, lanes, has_pre)
+    timing = kernel_timing(lambda: fn(*args), match, bound["bound_ms"], ntt_kernel)
     plain_ms = time_cuda(lambda: plain(*args), 1)
     del args
     torch.cuda.empty_cache()
@@ -593,7 +654,7 @@ def compare_dit(key, rng, device, used_by):
         "replaces": replaces,
         "used_by": [used_by], "launches": 0, "launches_by_path": {},
         "max_abs_err": err, **timing,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "plain_ms": plain_ms, **bound_fields(bound, timing),
         "library_ms": None,
     }
 
@@ -634,11 +695,6 @@ def phase_dit_kernels(rng, device):
 # per-pipe instruction counts of the sponge's operations (``sponge_costs``),
 # from csrc/gl64_sass_count.py run by ``build_all``
 SPONGE_COSTS: dict = {}
-# NVIDIA H100 SXM dispatch rates, lanes a second: the IMAD pipe and the integer
-# ALU pipe (IADD3, LOP3, SHF, ISETP, SEL, LEA) 64 lanes a clock an SM each,
-# dispatch 4 x 32 lanes a clock an SM for all instructions together
-PEAK_IMAD_LANES_PER_S = PEAK_ALU_LANES_PER_S = 132 * 64 * 1.98e9
-PEAK_DISPATCH_LANES_PER_S = 132 * 128 * 1.98e9
 
 
 def sponge_costs(sass) -> dict:
@@ -648,7 +704,7 @@ def sponge_costs(sass) -> dict:
     instructions) of the kernel's own form and the field header's
     (Goldilocks: ``gl64::mul``; a row as one reduction priced as a multiply
     and its twelve small products and round-constant add priced as adds, or
-    the kernel's row; f62: ``fe_mul`` of csrc/f62.cuh or the Montgomery
+    the kernel's row; the same at width 8 as ``mds_row8``; f62: ``fe_mul`` of csrc/f62.cuh or the Montgomery
     multiply of csrc/f62_mont.cuh; a row as twelve multiplies and twelve
     adds, or the lazy Montgomery row).  ``sass``: gl64_sass_count.py's
     output."""
@@ -664,7 +720,8 @@ def sponge_costs(sass) -> dict:
     f62_mul = least(bp["f62_mul"], bp["f62m_mul"])
     return {
         "gl64": {"mul": gl_mul, "add": bp["add"],
-                 "mds_row": least(bp["gl64_mds_row"], comb((1, gl_mul), (13, bp["add"])))},
+                 "mds_row": least(bp["gl64_mds_row"], comb((1, gl_mul), (13, bp["add"]))),
+                 "mds_row8": least(bp["gl64_mds_row8"], comb((1, gl_mul), (9, bp["add"])))},
         "f62": {"mul": f62_mul, "add": bp["f62_add"],
                 "mds_row": least(bp["f62m_mds_row"], comb((12, f62_mul), (12, bp["f62_add"])))},
     }
@@ -673,29 +730,37 @@ def sponge_costs(sass) -> dict:
 def sponge_bound(layout, rows: int, n_elems, search: bool = False):
     """Least time (ms) of one sponge launch: the input words read once and
     the digests written once against the memory rate, or its instructions
-    against the dispatch rates, pipe by pipe.  A permutation is the S-box
-    multiplies by the layouts' addition chains
-    (``rescue_sponge.sbox_multiplies``: 7 x 12 x (4 + 72) or (2 + 72)) and
-    two MDS products with their round-constant adds, 12 rows each; a hash
-    adds its row's absorptions.  Each operation is priced at
-    ``SPONGE_COSTS`` (IMAD-pipe and ALU-pipe instructions); the time is the
-    largest of the IMAD instructions over the IMAD rate, the ALU ones over
-    the ALU rate and both over the dispatch rate.  ``search``: a proof-of-work
-    search of ``rows`` nonces, which reads nothing and writes one word."""
+    against the dispatch rates, pipe by pipe (``pipe_ms``).  A Rescue-Prime
+    permutation is the S-box multiplies by the layouts' addition chains
+    (``rescue_sponge.sbox_multiplies``: 7 x width x (4 + 72) or (2 + 72))
+    and two MDS products with their round-constant adds, a row a word; a
+    Griffin one 7 x (72 + 4 + 3 x 6) multiplies, 7 x 28 adds (the running
+    (i - 1) s0, l_i and the quadratic of each of the six words: 3 for the
+    first, 5 for each other) and one MDS product a round.  A hash adds its
+    row's absorptions, a Jive merge or search its Jive sum (12 adds).  Each
+    operation is priced at ``SPONGE_COSTS`` (IMAD-pipe and ALU-pipe
+    instructions; MDS rows at the layout's width).  ``search``: a
+    proof-of-work search of ``rows`` nonces, which reads nothing and writes
+    one word."""
     cost = SPONGE_COSTS[layout.field]
+    W = layout.width
+    row = cost["mds_row" if W == 12 else f"mds_row{W}"]
     perms = rescue_sponge.permutations(layout, rows, n_elems)
+    rounds = rescue_sponge.ROUNDS
+    mds_rows = rounds * W * (1 if layout.griffin else 2)
+    adds = rounds * (3 + 5 * (W - 3)) if layout.griffin else 0
+    jive_adds = 3 * layout.digest_size if layout.jive and n_elems is None else 0
     ops = {}
     for k in ("imad", "alu"):
         per_perm = (rescue_sponge.sbox_multiplies(layout) * cost["mul"][k]
-                    + 2 * rescue_sponge.ROUNDS * 12 * cost["mds_row"][k])
+                    + mds_rows * row[k] + (adds + jive_adds) * cost["add"][k])
         ops[k] = perms * per_perm + (rows * n_elems * cost["add"][k] if n_elems else 0)
     if search:
         words = 1
     else:
         words = rows * (2 * n_elems + 8) if n_elems is not None else rows * 24
     t_bytes = 8 * words / PEAK_BYTES_PER_S * 1e3
-    t_ops = max(ops["imad"] / PEAK_IMAD_LANES_PER_S, ops["alu"] / PEAK_ALU_LANES_PER_S,
-                (ops["imad"] + ops["alu"]) / PEAK_DISPATCH_LANES_PER_S) * 1e3
+    t_ops = pipe_ms(ops)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -706,7 +771,8 @@ def sponge_ptxas(layout_name: str, mode: str):
     """ptxas's report (registers, spills, stack) of the sponge kernel's
     instantiation for a layout and mode (hash, merge, search), from the
     build of this run."""
-    layout = {"rp64_256": "Rp64Layout", "rp62_248": "Rp62Layout"}[layout_name]
+    layout = {"rp64_256": "Rp64Layout", "rp62_248": "Rp62Layout",
+              "rp_jive64_256": "RpJiveLayout", "griffin_jive64_256": "GriffinLayout"}[layout_name]
     arg = {"hash": "Li0E", "merge": "Li1E", "search": "Li2E"}[mode]
     hits = [v for k, v in SPONGE_PTXAS.items() if layout in k and arg in k]
     if len(hits) != 1:
@@ -730,6 +796,14 @@ def sponge_inputs(key, rng, device):
                 .to(device), n_elems)
     cur = torch.from_numpy(rng.integers(0, 1 << 32, size=(2 * R, 8)).astype(np.int64)).to(device)
     return layout, cur[0::2], None, cur[1::2]
+
+
+# what the sponge kernel's rows replace, by hasher: no Pallas kernel, XLA code
+SPONGE_REPLACES = {
+    name: f"no Pallas kernel: starkpack_winterfell_tpu/crypto/{where} (XLA)"
+    for name, where in (("rp64_256", "rescue.py:92"), ("rp62_248", "rescue62.py:128"),
+                        ("rp_jive64_256", "rescue_jive.py:67"),
+                        ("griffin_jive64_256", "griffin.py:78"))}
 
 
 def compare_sponge(key, rng, device, used_by):
@@ -761,9 +835,7 @@ def compare_sponge(key, rng, device, used_by):
         "name": f"rescue_sponge[{name} {mode} rows={R}"
                 f"{f' elems={n_elems}' if n_elems is not None else ''}]",
         "route": "cuda", "source": "starkpack_winterfell_tpu_torch/csrc/rescue_sponge.cu",
-        "replaces": ("no Pallas kernel: starkpack_winterfell_tpu/crypto/rescue.py:92 (XLA)"
-                     if name == "rp64_256" else
-                     "no Pallas kernel: starkpack_winterfell_tpu/crypto/rescue62.py:128 (XLA)"),
+        "replaces": SPONGE_REPLACES[name],
         "used_by": [used_by], "launches": 0, "launches_by_path": {},
         "permutations_compared": rescue_sponge.permutations(rescue_sponge.LAYOUTS[name], R,
                                                             n_elems),
@@ -1089,9 +1161,10 @@ def big_phase(path, kernel_rows, rng, device, traces, hasher=Blake3_256, **extra
 def big_trace_phases(kernel_rows, rng, device):
     """The f64 big-trace path: 2^14 rows against its pinned digest, the
     2^20-row chain with the bench options and then, on the same trace, with
-    the 128-bit options (cubic), 4 x 2^16 rows aggregated; then the 128-bit
-    options at 2^14 rows against their pin, and 4 x 2^16 rows at
-    quadratic."""
+    Rp64_256, RpJive64_256 and GriffinJive64_256 (the sponge kernel's three
+    Goldilocks layouts) and with the 128-bit options (cubic), 4 x 2^16 rows
+    aggregated; then the 128-bit options at 2^14 rows against their pin,
+    and 4 x 2^16 rows at quadratic."""
     chain = lambda seeds, rows: [build_chain_trace([int(v) for v in s], rows // 8)
                                  for s in seeds]
     big_phase("small", kernel_rows, rng, device, chain([[7] * 8], 1 << PATHS["small"][0]))
@@ -1099,10 +1172,12 @@ def big_trace_phases(kernel_rows, rng, device):
     main_traces = chain([[7] * 8], 1 << PATHS["main"][0])
     trace_s = time.perf_counter() - t0
     base_s = big_phase("main", kernel_rows, rng, device, main_traces, trace_build_s=trace_s)
-    with nonce_search_timer() as nonce:
-        big_phase("rp64_main", kernel_rows, rng, device, main_traces, hasher=Rp64_256,
-                  trace_build_s=trace_s, base_steady_prove_s=base_s, nonce_search=nonce)
-    MAIN_SEEDS[Rp64_256.NAME] = nonce["seed"]
+    for path, hasher in (("rp64_main", Rp64_256), ("rpjive_main", RpJive64_256),
+                         ("griffin_main", GriffinJive64_256)):
+        with nonce_search_timer() as nonce:
+            big_phase(path, kernel_rows, rng, device, main_traces, hasher=hasher,
+                      trace_build_s=trace_s, base_steady_prove_s=base_s, nonce_search=nonce)
+        MAIN_SEEDS[hasher.NAME] = nonce["seed"]
     big_phase("ext_cubic_main", kernel_rows, rng, device, main_traces, trace_build_s=trace_s,
               base_steady_prove_s=base_s)
     del main_traces
@@ -1145,17 +1220,12 @@ def mismatching(got, want):
 
 def limb_tile_bound(field: str, n: int, B: int, lanes: int, has_pre: bool):
     """Least time (ms) for one limb tile transform; see ``tile_bound``."""
-    cost = OPS_LIMB[field]
     elems = B * n * lanes
     el_bytes = get_backend(field).ELEMENT_BYTES
     nbytes = el_bytes * (2 * elems + n // 2 + (n * lanes if has_pre else 0))
-    stages = n.bit_length() - 1
-    ops = elems * stages * (cost["mul"] + cost["add"] + cost["sub"]) // 2
-    if has_pre:
-        ops += elems * cost["mul"]
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_INT32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    butterflies = elems * (n.bit_length() - 1) // 2
+    muls = butterflies + (elems if has_pre else 0)
+    return op_bound(nbytes, {"mul": muls, "add": butterflies, "sub": butterflies}, field)
 
 
 def compare_limb_tile(key, rng, device, used_by):
@@ -1181,9 +1251,9 @@ def compare_limb_tile(key, rng, device, used_by):
     x = random_limb(field, (B, n, lanes), rng, device)
     pt = random_limb(field, (n, lanes), rng, device) if has_pre else None
     tw = limb_ntt.tile_twiddles(F, n, inverse, device)
-    bound_ms, bound_by = limb_tile_bound(field, n, B, lanes, has_pre)
+    bound = limb_tile_bound(field, n, B, lanes, has_pre)
     timing = kernel_timing(lambda: limb_ntt._tile_launch(F, x, tw, pt, inverse),
-                           "limb_ntt_tile_kernel", bound_ms, limb_ntt)
+                           "limb_ntt_tile_kernel", bound["bound_ms"], limb_ntt)
     plain_ms = time_cuda(lambda: limb_ntt.tile_plain(F, x, tw, pt), 1)
     torch.cuda.empty_cache()
     return {
@@ -1194,7 +1264,7 @@ def compare_limb_tile(key, rng, device, used_by):
         "replaces": "starkpack_winterfell_tpu/ops/pallas/limb_kernel.py:151",
         "used_by": [used_by], "launches": 0, "launches_by_path": {},
         "max_abs_err": err, **timing,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "plain_ms": plain_ms, **bound_fields(bound, timing),
         "library_ms": None,
     }
 
@@ -1203,7 +1273,7 @@ def compare_cons(key, air0, rng, device, used_by):
     """Kernel 5 at one launched shape (AIR, n, w, ce, sequence tables) on
     random inputs: kernel against ``constraint_eval_plain``, then its time."""
     field, air_name, n, w, ce, n_seq = key
-    cost, el_bytes = OPS_LIMB[field], get_backend(field).ELEMENT_BYTES
+    el_bytes = get_backend(field).ELEMENT_BYTES
     w_air, n_per, K, groups = cons_config(air0)
     assert w_air == w and cons_kernel.seq_count(groups) == n_seq
     args = cons_args(air0, n, ce, BLOWUP, rng, device)
@@ -1219,16 +1289,14 @@ def compare_cons(key, air0, rng, device, used_by):
     mul = counts["mul"] + K + 1 + len(groups) + n_ccs + 1
     add = counts["add"] + (K - 1) + len(groups) + n_ccs + 1
     sub = counts["sub"] + counts["neg"] + n_ccs
-    ops = n * ce * (mul * cost["mul"] + counts["sqr"] * cost["sqr"]
-                    + add * cost["add"] + sub * cost["sub"])
     nbytes = (el_bytes * (n * w * L + sum(periods) + (1 + len(groups)) * ce
                           + n_seq * n * ce + ce)
               + 8 * scal.numel())
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_INT32_OPS_PER_S * 1e3
-    bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    points = n * ce
+    bound = op_bound(nbytes, {"mul": points * mul, "sqr": points * counts["sqr"],
+                              "add": points * add, "sub": points * sub}, field)
     timing = kernel_timing(lambda: cons_kernel.constraint_eval(*args), "cons_eval_kernel",
-                           bound_ms, cons_kernel)
+                           bound["bound_ms"], cons_kernel)
     plain_ms = time_cuda(lambda: cons_kernel.constraint_eval_plain(*args), 1)
     lib_name, path = cons_kernel.kernel_source(air0, w, n_per, K, groups)
     design = cons_kernel.design(body, results)
@@ -1254,7 +1322,7 @@ def compare_cons(key, air0, rng, device, used_by):
         "replaces": "starkpack_winterfell_tpu/ops/pallas/cons_kernel.py:137",
         "used_by": [used_by], "launches": 0, "launches_by_path": {},
         "max_abs_err": err, **timing,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "plain_ms": plain_ms, **bound_fields(bound, timing),
         "library_ms": None,
     }
     return row
@@ -1875,9 +1943,9 @@ SEARCH_RANDOM_SEEDS = 3
 
 
 def random_seed(hasher, rng) -> bytes:
-    """A random seed digest: Rp64_256 four canonical elements, Rp62_248 31
-    random bytes (its unpacked values may lie in [p, 2^62))."""
-    if hasher is Rp64_256:
+    """A random seed digest: the Goldilocks hashers four canonical elements,
+    Rp62_248 31 random bytes (its unpacked values may lie in [p, 2^62))."""
+    if hasher is not Rp62_248:
         return b"".join(int(v).to_bytes(8, "little")
                         for v in rng.integers(0, gl.P, size=4, dtype=np.uint64))
     return bytes(rng.integers(0, 256, size=31, dtype=np.uint8))
@@ -1893,17 +1961,20 @@ def search_nonce(hasher, seed: bytes, batch: int, device) -> int:
     return found
 
 
+SEARCH_HASHERS = (Rp64_256, Rp62_248, RpJive64_256, GriffinJive64_256)
+
+
 def sponge_search_phase(kernel_rows, rng, device):
     """The sponge kernel's proof-of-work search against the host C search
-    (``first_merge_with_int`` of the byte API) for both hashers at grinding
-    16: the main paths' seeds (``MAIN_SEEDS``) and three random ones, equal
-    nonces required; for the main seed every digest of one batch of
-    NONCE_BATCH_CARD nonces held against the plain version (0 mismatching
-    words); then the kernel's times at that batch.  Its launches on the
-    main paths were counted by ``check_sponge``."""
+    (``first_merge_with_int`` of the byte API) for the four hashers at
+    grinding 16: the main paths' seeds (``MAIN_SEEDS``) and three random
+    ones, equal nonces required; for the main seed every digest of one
+    batch of NONCE_BATCH_CARD nonces held against the plain version (0
+    mismatching words); then the kernel's times at that batch.  Its
+    launches on the main paths were counted by ``check_sponge``."""
     batch = prover_channel.NONCE_BATCH_CARD
     results = []
-    for hasher in (Rp64_256, Rp62_248):
+    for hasher in SEARCH_HASHERS:
         layout = hasher.LAYOUT
         seeds = [bytes.fromhex(MAIN_SEEDS[hasher.NAME])]
         seeds += [random_seed(hasher, rng) for _ in range(SEARCH_RANDOM_SEEDS)]
@@ -1951,11 +2022,11 @@ def sponge_search_phase(kernel_rows, rng, device):
             "library_ms": None,
         }
         del got, want
-    for name in ("rp64_256", "rp62_248"):
-        if not SEARCH_LAUNCHES_BY_PATH.get(name):
-            raise RuntimeError(f"no counted prove launched the {name} search")
+    for hasher in SEARCH_HASHERS:
+        if not SEARCH_LAUNCHES_BY_PATH.get(hasher.NAME):
+            raise RuntimeError(f"no counted prove launched the {hasher.NAME} search")
     emit("sponge_search", bits=SEARCH_BITS, batch=batch, searches=results,
-         nonces_equal=True, digests_compared=2 * batch, mismatching_words=0,
+         nonces_equal=True, digests_compared=len(SEARCH_HASHERS) * batch, mismatching_words=0,
          search_launches_by_path=SEARCH_LAUNCHES_BY_PATH)
 
 
@@ -1968,9 +2039,11 @@ def build_all():
         "ntt_dit": ntt_kernel._lib,
         "limb_ntt_tile": limb_ntt._lib,
         "rescue_sponge": rescue_sponge._lib,
-        "sass_counts": lambda: SPONGE_COSTS.update(sponge_costs(sass_count())),
+        "sass_counts": sass_costs,
         "rescue_perm_host": lambda: (Rp64_256.merge(bytes(32), bytes(32)),
-                                     Rp62_248.merge(bytes(31), bytes(31))),
+                                     Rp62_248.merge(bytes(31), bytes(31)),
+                                     RpJive64_256.merge(bytes(32), bytes(32))),
+        "griffin_perm_host": lambda: GriffinJive64_256.merge(bytes(32), bytes(32)),
         "trace_builder": native.get_builders,
         "rescue128_builder": native.get_rescue128,
     }
@@ -1997,15 +2070,23 @@ def build_all():
          emitted_lines={os.path.relpath(p, root): open(p).read().count("\n")
                         for p in emitted},
          ptxas={name: ptxas_report(native.BUILD_LOGS, name) for name in native.BUILD_LOGS},
-         sponge_costs=SPONGE_COSTS)
+         sponge_costs=SPONGE_COSTS, pipe_costs=PIPE_COSTS)
     report = ptxas_report(native.BUILD_LOGS, rescue_sponge.kernel_source()[0])
     if report is None:
         raise RuntimeError("the sponge library was not built by this run: no ptxas report")
     SPONGE_PTXAS.update(report["kernels"])
     spilled = {k: v for k, v in SPONGE_PTXAS.items()
                if v.get("spill_store_bytes") or v.get("spill_load_bytes")}
-    if len(SPONGE_PTXAS) != 6 or spilled:
-        raise RuntimeError(f"the sponge kernel's six instantiations must not spill: {SPONGE_PTXAS}")
+    if len(SPONGE_PTXAS) != 3 * len(rescue_sponge.LAYOUTS) or spilled:
+        raise RuntimeError(f"the sponge kernel's {3 * len(rescue_sponge.LAYOUTS)} "
+                           f"instantiations (layout x mode) must not spill: {SPONGE_PTXAS}")
+
+
+def sass_costs():
+    """``SPONGE_COSTS`` and ``PIPE_COSTS`` from one run of the counter."""
+    sass = sass_count()
+    SPONGE_COSTS.update(sponge_costs(sass))
+    PIPE_COSTS.update(pipe_costs(sass))
 
 
 def sass_count() -> dict:

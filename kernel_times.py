@@ -43,9 +43,10 @@ measurement:
   (``time_limb_ext``).
 * ``sponge`` (only with ``--only sponge``): one steady prove of each of the
   smoke's algebraic-hasher main paths (the 2^20 x 12 chain with Rp64_256,
-  fib-f62 2 x 2^20 at cubic with Rp62_248) under ``torch.profiler``: the
-  Rescue sponge kernel's launches and device time in the prove (its search
-  mode apart), the device time of everything else, the wall and the
+  RpJive64_256 and GriffinJive64_256, fib-f62 2 x 2^20 at cubic with
+  Rp62_248; the Jive hashers only where the checkout has them) under
+  ``torch.profiler``: the sponge kernel's launches and device time in the
+  prove (its search mode apart), the device time of everything else, the wall and the
   proof-of-work search's wall (``time_sponge``); with ``--variants`` (this
   checkout only) first the kernel at each S-box group size
   (``time_sponge_groups``): ptxas's registers and spills, device ms.
@@ -565,14 +566,16 @@ def time_limb_ext(label, dev):
 
 
 def time_sponge(label, dev):
-    """The Rescue sponge kernel's share of a whole prove: one warm-up prove,
-    then one under the profiler, for the 2^20 x 12 Rescue chain with
-    Rp64_256 (bench options) and fib-f62 2 x 2^20 with Rp62_248 at cubic.
-    The search mode's launches (a template argument of 2 in the kernel's
-    name) are counted apart from the hashes and merges; the proof-of-work
-    search's wall (``ProverChannel._find_nonce``) is timed in the profiled
-    prove."""
+    """The sponge kernel's share of a whole prove: one warm-up prove, then
+    one under the profiler, for the 2^20 x 12 Rescue chain with Rp64_256,
+    RpJive64_256 and GriffinJive64_256 (bench options; one trace for the
+    three, the Jive hashers where the checkout has them) and fib-f62 2 x
+    2^20 with Rp62_248 at cubic.  The search mode's launches (a template
+    argument of 2 in the kernel's name) are counted apart from the hashes
+    and merges; the proof-of-work search's wall
+    (``ProverChannel._find_nonce``) is timed in the profiled prove."""
     from starkpack_winterfell_tpu_torch import FieldExtension, ProofOptions
+    from starkpack_winterfell_tpu_torch.crypto.hashers import HASHERS
     from starkpack_winterfell_tpu_torch.crypto.rescue import Rp64_256
     from starkpack_winterfell_tpu_torch.crypto.rescue62 import Rp62_248
     from starkpack_winterfell_tpu_torch.models.fib_multifield import get_fib_family
@@ -581,14 +584,21 @@ def time_sponge(label, dev):
     from starkpack_winterfell_tpu_torch.prover import channel
 
     _, fib_build, fib_prover, _ = get_fib_family("f62")
-    configs = {
-        "rp64_main 2^20 x 12": (
-            RescueChainProver(ProofOptions(28, 8, 16, FieldExtension.NONE, 4, 31), Rp64_256),
-            lambda: [build_chain_trace([7] * 8, (1 << 20) // 8)]),
-        "rp62_main 2 x 2^20 cubic": (
-            fib_prover(ProofOptions(28, 8, 16, FieldExtension.CUBIC, 4, 31), Rp62_248),
-            lambda: [fib_build(1 << 20) for _ in range(2)]),
-    }
+    chain = []
+
+    def chain_trace():
+        if not chain:
+            chain.append(build_chain_trace([7] * 8, (1 << 20) // 8))
+        return chain
+
+    bench = ProofOptions(28, 8, 16, FieldExtension.NONE, 4, 31)
+    configs = {"rp64_main 2^20 x 12": (RescueChainProver(bench, Rp64_256), chain_trace)}
+    for path, name in (("rpjive_main", "rp_jive64_256"), ("griffin_main", "griffin_jive64_256")):
+        if name in HASHERS:
+            configs[f"{path} 2^20 x 12"] = (RescueChainProver(bench, HASHERS[name]), chain_trace)
+    configs["rp62_main 2 x 2^20 cubic"] = (
+        fib_prover(ProofOptions(28, 8, 16, FieldExtension.CUBIC, 4, 31), Rp62_248),
+        lambda: [fib_build(1 << 20) for _ in range(2)])
     search = channel.ProverChannel._find_nonce
     found = {}
 
@@ -609,7 +619,8 @@ def time_sponge(label, dev):
             searches = [e for e in events if "rescue_sponge_kernel" in e[0] and ", 2>" in e[0]]
             hits, other = split_call([e for e in events if e not in searches],
                                      ("rescue_sponge_kernel",))
-            emit("sponge", root=label, prove=name, wall_s=walls[-1], sponge_launches=len(hits),
+            emit("sponge", root=label, prove=name, hasher=prover.hasher.NAME, wall_s=walls[-1],
+                 sponge_launches=len(hits),
                  sponge_device_ms=sum(hits) / 1e3, search_launches=len(searches),
                  search_device_ms=sum(d for _, _, d in searches) / 1e3,
                  nonce=found.get("nonce"), nonce_search_s=found.get("seconds"),
@@ -627,10 +638,11 @@ SPONGE_GROUPS = (12, 6, 4, 3, 2)
 
 def time_sponge_groups(label, dev):
     """The sponge kernel built with each S-box group size of SPONGE_GROUPS
-    (ops/rescue_sponge.py SBOX_GROUP; the builds run together): ptxas's
-    registers and spills of each instantiation, then each (hasher, mode) at
-    2^16 + 37 rows (hashes of 12 elements, merges, a search) held against
-    the plain version and its device ms."""
+    (ops/rescue_sponge.py SBOX_GROUP; the builds run together; a width-8
+    layout takes the greatest common divisor): ptxas's registers and spills
+    of each instantiation, then each (hasher, mode) at 2^16 + 37 rows
+    (hashes of 12 elements, merges, a search) held against the plain
+    version and its device ms."""
     from starkpack_winterfell_tpu_torch import native
     from starkpack_winterfell_tpu_torch.ops import rescue_sponge as rsp
 
@@ -639,7 +651,7 @@ def time_sponge_groups(label, dev):
     rng = np.random.default_rng(0)
     R = (1 << 16) + 37
     cases = {}
-    for layout in (rsp.RP64_256, rsp.RP62_248):
+    for layout in rsp.LAYOUTS.values():
         vals = rng.integers(0, layout.P, size=(R, 12), dtype=np.uint64)
         words = torch.from_numpy(np.stack([vals & np.uint64(0xFFFFFFFF), vals >> np.uint64(32)],
                                           axis=-1).reshape(R, 24).astype(np.int64)).to(dev)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Device-side profile of one steady prove of the PyTorch/CUDA port.
 
-    python3 profile_prove.py [--config do-work|rescue-small|rescue-big|rp64-main|rp62-main]
+    python3 profile_prove.py [--config do-work|rescue-small|rescue-big|rp64-main|rpjive-main|
+                                        griffin-main|rp62-main]
                              [--seed N]
 
 Proves once to warm up (kernel builds, cached tables), then proves again
@@ -16,8 +17,9 @@ device time.  The proof of the profiled run is verified.
 Configs (BLAKE3-256, ProofOptions(28, 8, 16, NONE, 4, 31)): ``do-work`` 32 x
 1024 rows and ``rescue-small`` 64 x 2^13 rows (small-trace path),
 ``rescue-big`` 1 x 2^16 rows (big-trace path).  The algebraic hashers'
-main paths of chip_smoke.py: ``rp64-main`` the 2^20 x 12 Rescue chain with
-Rp64_256 (same options, big-trace path), ``rp62-main`` fib over f62, 2 x
+main paths of chip_smoke.py: ``rp64-main``, ``rpjive-main`` and
+``griffin-main`` the 2^20 x 12 Rescue chain with Rp64_256, RpJive64_256 and
+GriffinJive64_256 (same options, big-trace path), ``rp62-main`` fib over f62, 2 x
 2^20 rows with Rp62_248 at ProofOptions(28, 8, 16, CUBIC, 4, 31) (mesh
 path).
 
@@ -36,7 +38,9 @@ import numpy as np
 import torch
 
 from starkpack_winterfell_tpu_torch import Blake3_256, FieldExtension, ProofOptions, verify
+from starkpack_winterfell_tpu_torch.crypto.griffin import GriffinJive64_256
 from starkpack_winterfell_tpu_torch.crypto.rescue import Rp64_256
+from starkpack_winterfell_tpu_torch.crypto.rescue_jive import RpJive64_256
 from starkpack_winterfell_tpu_torch.crypto.rescue62 import Rp62_248
 from starkpack_winterfell_tpu_torch.models.fib_multifield import get_fib_family
 from starkpack_winterfell_tpu_torch.models.do_work import (
@@ -60,8 +64,10 @@ PORT_KERNELS = ("ntt_tile_kernel", "ntt_last", "ntt_dit_axis1_kernel",
 
 def build(config: str, rng):
     options = ProofOptions(*OPTIONS)
-    if config == "rp64-main":
-        return (RescueChainAir, RescueChainProver(options, Rp64_256),
+    chain_hashers = {"rp64-main": Rp64_256, "rpjive-main": RpJive64_256,
+                     "griffin-main": GriffinJive64_256}
+    if config in chain_hashers:
+        return (RescueChainAir, RescueChainProver(options, chain_hashers[config]),
                 [build_chain_trace([7] * 8, (1 << 20) // 8)])
     if config == "rp62-main":
         air, fib_build, fib_prover, _ = get_fib_family("f62")
@@ -89,7 +95,7 @@ def main(argv=None):
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--config", default="do-work",
                    choices=["do-work", "rescue-small", "rescue-big", "rp64-main",
-                            "rp62-main"])
+                            "rpjive-main", "griffin-main", "rp62-main"])
     p.add_argument("--seed", type=int, default=0, help="numpy seed of the chain seeds")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():

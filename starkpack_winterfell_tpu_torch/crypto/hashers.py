@@ -1,4 +1,4 @@
-# Copy of starkpack_winterfell_tpu/crypto/hashers.py; cut: the algebraic hashers RpJive64_256 and GriffinJive64_256; Blake3_256, Blake3_192, Sha3_256, Rp64_256 and Rp62_248 are registered.
+# Copy of starkpack_winterfell_tpu/crypto/hashers.py; cut: nothing; every hasher of the JAX package is registered.
 """Hash function registry — equivalent of crypto/src/hash/mod.rs.
 
 Each hasher exposes a host byte API (for the Fiat-Shamir channel and proof
@@ -18,8 +18,10 @@ import torch
 from ..ops import blake3 as b3
 from ..ops import keccak
 from ..utils.serde import ByteWriter
+from .griffin import GriffinJive64_256
 from .rescue import Rp64_256
 from .rescue62 import Rp62_248
+from .rescue_jive import RpJive64_256
 
 
 class Blake3_256:
@@ -228,7 +230,8 @@ class Sha3_256:
         return b3.digest_from_bytes(b)
 
 
-HASHERS = {h.NAME: h for h in (Blake3_256, Blake3_192, Sha3_256, Rp64_256, Rp62_248)}
+HASHERS = {h.NAME: h for h in (Blake3_256, Blake3_192, Sha3_256, Rp64_256, Rp62_248,
+                                RpJive64_256, GriffinJive64_256)}
 
 
 def get_hasher(name: str):

@@ -4,8 +4,9 @@ csrc/gl64.cuh (mul, add, sub), csrc/f128.cuh and csrc/f62.cuh (mul, sqr,
 add, sub), and for the Rescue sponge's own (csrc/rescue_sponge.cu): the
 Montgomery f62 multiply of csrc/f62_mont.cuh and one row of each layout's
 MDS product with its round-constant add (Rp64_256: twelve 32 x 32-bit
-products of the state's halves, one reduction; Rp62_248: twelve 128-bit
-products summed, one Montgomery reduction).
+products of the state's halves, one reduction; the width-8 Jive layouts:
+eight; Rp62_248: twelve 128-bit products summed, one Montgomery
+reduction).
 
     python3 starkpack_winterfell_tpu_torch/csrc/gl64_sass_count.py [SASS_OUT]
 
@@ -55,6 +56,13 @@ SPONGE_PROBES = {
         " hi += (uint64_t)(uint32_t)(a[12 + j] >> 32) * m; }"
         " const uint64_t l = lo + (hi << 32);"
         " o[0] = gl64::add(gl64::reduce128(l, (hi >> 32) + (l < lo ? 1 : 0)), a[24]);"),
+    "gl64_mds_row8": (
+        "uint64_t lo = 0, hi = 0;"
+        " for (int j = 0; j < 8; ++j) { const uint32_t m = (uint32_t)a[j];"
+        " lo += (uint64_t)(uint32_t)a[8 + j] * m;"
+        " hi += (uint64_t)(uint32_t)(a[8 + j] >> 32) * m; }"
+        " const uint64_t l = lo + (hi << 32);"
+        " o[0] = gl64::add(gl64::reduce128(l, (hi >> 32) + (l < lo ? 1 : 0)), a[16]);"),
 }
 
 

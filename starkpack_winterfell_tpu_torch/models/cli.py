@@ -9,7 +9,7 @@ limb pipeline; perm (f64 with an auxiliary segment,
 parallel/full_pipeline.py).  ``-e 2`` (quadratic) reaches every example,
 ``-e 3`` (cubic) every one but the f128 examples, which have no cubic
 extension.  ``--hash`` takes blake3_256, blake3_192, sha3_256 and, on f64,
-rp64_256, on f62 rp62_248.
+rp64_256, rp_jive64_256 and griffin_jive64_256, on f62 rp62_248.
 
 Usage:
   python -m starkpack_winterfell_tpu_torch.models.cli do-work -n 32 -l 1024
@@ -28,6 +28,8 @@ Usage:
   python -m starkpack_winterfell_tpu_torch.models.cli fib-f62 -n 2 -l 64 --hash rp62_248 --device cpu
   python -m starkpack_winterfell_tpu_torch.models.cli rescue-chain-pad -n 1 -l 5 --hash rp64_256 --device cpu
   python -m starkpack_winterfell_tpu_torch.models.cli lamport -n 2 -l 64 --hash sha3_256 --device cpu
+  python -m starkpack_winterfell_tpu_torch.models.cli do-work -n 1 -l 32 --hash rp_jive64_256 --device cpu
+  python -m starkpack_winterfell_tpu_torch.models.cli do-work -n 1 -l 32 --hash griffin_jive64_256 --device cpu
 """
 
 from __future__ import annotations
@@ -181,7 +183,8 @@ def main(argv=None):
     p.add_argument("-r", "--remainder", type=int, default=31)
     p.add_argument("--hash", default="blake3_256", choices=sorted(HASHERS),
                    help="every path takes blake3_256, blake3_192 and sha3_256; "
-                        "the f64 paths also rp64_256, the f62 one rp62_248")
+                        "the f64 paths also rp64_256, rp_jive64_256 and "
+                        "griffin_jive64_256, the f62 one rp62_248")
     p.add_argument("--device", default="cuda",
                    help="torch device of the prove (default cuda; raises "
                         "without a card unless cpu is named)")

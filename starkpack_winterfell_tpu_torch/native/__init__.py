@@ -4,8 +4,9 @@ Two kinds of shared library are built into ``starkpack_winterfell_tpu_torch/
 build/`` (ignored by git) and loaded through ctypes:
 
 * host C/C++ (``native/builders.cpp``, ``native/rescue128.c``,
-  ``native/rescue_perm.c``) with the host compiler — the sequential trace
-  builders and the host Rescue-Prime sponge of the algebraic hashers;
+  ``native/rescue_perm.c``, ``native/griffin_perm.c``) with the host
+  compiler — the sequential trace builders and the host sponges of the
+  algebraic hashers;
 * CUDA C++ (``csrc/*.cu``) with ``nvcc`` for ``sm_90a`` — the hand-written
   kernels.  Plain C interface, no PyTorch headers, so a build takes seconds.
 
@@ -135,14 +136,16 @@ def launch(fn, device, *args) -> int:
     return fn(*args, _raw_stream(current))
 
 
-def _build_host(name: str, source: str, compilers) -> ctypes.CDLL:
-    """Compile one file of native/ with the first host compiler found into
-    build/lib<name>.so and load it.  Built with -fopenmp: rescue128.c's batch
-    digests and Lamport+ trace builders run one OpenMP thread a core."""
+def _build_host(name: str, source: str, compilers, headers=()) -> ctypes.CDLL:
+    """Compile one file of native/ (including ``headers`` of native/) with
+    the first host compiler found into build/lib<name>.so and load it.
+    Built with -fopenmp: rescue128.c's batch digests and Lamport+ trace
+    builders run one OpenMP thread a core."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), source)
+    here = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(here, source)
     so = os.path.join(BUILD_DIR, f"lib{name}.so")
-    if _stale(so, [src]):
+    if _stale(so, [src] + [os.path.join(here, h) for h in headers]):
         cc = next((c for c in compilers if shutil.which(c)), None)
         if cc is None:
             raise RuntimeError(f"no host compiler found for {source}")
@@ -210,13 +213,14 @@ _RP_SLOTS: dict = {}
 def get_rescue_perm(name: str, P: int, width: int, rounds: int, alpha: int,
                     inv_alpha: int, mds, ark1, ark2, inv_chain=()):
     """(lib, slot) of a registered Rescue-Prime permutation config in
-    native/rescue_perm.c (the host sponge of Rp64_256 and Rp62_248); each
+    native/rescue_perm.c (the host sponge of Rp64_256, Rp62_248 and
+    RpJive64_256); each
     distinct ``name`` gets its own slot.  mds / ark1 / ark2 are nested int
     lists; ``inv_chain`` an addition chain (a, n, b) for x^inv_alpha
     (ops/rescue_sponge.py), else square-and-multiply.  Raises if the host
     compiler is missing or the build fails."""
     if "rp" not in _CACHE:
-        lib = _build_host("starkrp", "rescue_perm.c", ("cc", "gcc", "clang"))
+        lib = _build_host("starkrp", "rescue_perm.c", ("cc", "gcc", "clang"), ("sponge.h",))
         u64, i32, p = ctypes.c_uint64, ctypes.c_int, ctypes.c_void_p
         for fn, argtypes in (
                 ("rp_init", [i32, u64, i32, i32, u64, u64, p, p, p]),
@@ -224,9 +228,13 @@ def get_rescue_perm(name: str, P: int, width: int, rounds: int, alpha: int,
                 ("rp_hash_elements_batch", [i32, p, u64, u64, i32, i32, i32, i32, i32, p]),
                 ("rp_merge_batch", [i32, p, p, u64, i32, i32, i32, i32, p]),
                 ("rp_round_states_batch", [i32, p, u64, p]),
-                ("rp_set_inv_chain", [i32, i32, p])):
+                ("rp_set_inv_chain", [i32, i32, p]),
+                ("rp_jive_hash_batch", [i32, p, u64, u64, i32, i32, i32, p]),
+                ("rp_jive_merge_batch", [i32, p, p, u64, p])):
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = None
+        lib.rp_jive_search.argtypes = [i32, p, u64, u64, i32]
+        lib.rp_jive_search.restype = u64
         _CACHE["rp"] = lib
     lib = _CACHE["rp"]
     if name not in _RP_SLOTS:
@@ -245,3 +253,36 @@ def get_rescue_perm(name: str, P: int, width: int, rounds: int, alpha: int,
             lib.rp_set_inv_chain(slot, len(inv_chain), steps.ctypes.data_as(ctypes.c_void_p))
         _RP_SLOTS[name] = slot
     return lib, _RP_SLOTS[name]
+
+
+def get_griffin_perm() -> ctypes.CDLL:
+    """ctypes handle for the host Griffin permutation and Jive sponge of
+    GriffinJive64_256 (native/griffin_perm.c), initialized with the
+    protocol constants and x^(1/7)'s addition chain (ops/rescue_sponge.py
+    INV_CHAIN_RP64).  Raises if the host compiler is missing or the build
+    fails."""
+    if "griffin" not in _CACHE:
+        import numpy as np
+
+        from ..crypto import griffin_constants as gc
+        from ..ops.rescue_sponge import INV_CHAIN_RP64
+
+        lib = _build_host("starkgriffin", "griffin_perm.c", ("cc", "gcc", "clang"),
+                          ("sponge.h",))
+        u64, i32, p = ctypes.c_uint64, ctypes.c_int, ctypes.c_void_p
+        for fn, argtypes in (("gr_init", [p, p, p, p, i32, p]),
+                             ("gr_permute_batch", [p, u64]),
+                             ("gr_hash_batch", [p, u64, u64, p]),
+                             ("gr_merge_batch", [p, p, u64, p])):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = None
+        lib.gr_search.argtypes = [p, u64, u64, i32]
+        lib.gr_search.restype = u64
+        tables = [np.array([v for row in t for v in row], dtype=np.uint64)
+                  for t in (gc.MDS_G, gc.ARK_G, [gc.ALPHA_G], [gc.BETA_G])]
+        chain = np.array([-1 if v is None else v for step in INV_CHAIN_RP64 for v in step],
+                         dtype=np.int32)
+        lib.gr_init(*[t.ctypes.data_as(p) for t in tables], len(INV_CHAIN_RP64),
+                    chain.ctypes.data_as(p))
+        _CACHE["griffin"] = lib
+    return _CACHE["griffin"]

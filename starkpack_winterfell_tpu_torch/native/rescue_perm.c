@@ -1,4 +1,4 @@
-// Copy of starkpack_winterfell_tpu/native/rescue_perm.c; cut: nothing; added: rp_round_states_batch, x^(1/alpha) by an addition chain (rp_set_inv_chain), the S-boxes' words in lockstep, branch-free Goldilocks reduction, one reduction a row for a small MDS.
+// Copy of starkpack_winterfell_tpu/native/rescue_perm.c; cut: nothing; added: the Jive sponge of RpJive64_256 (rp_jive_*, on native/sponge.h, which also holds the Goldilocks reduction), rp_round_states_batch, x^(1/alpha) by an addition chain (rp_set_inv_chain), the S-boxes' words in lockstep, branch-free Goldilocks reduction, one reduction a row for a small MDS.
 /* Generic Rescue-Prime permutation over a <= 64-bit prime field.
  *
  * Host-side transcript/Merkle hashing for the algebraic hashers
@@ -14,8 +14,7 @@
  * inv_alpha, MDS, ARK1, ARK2); each hasher registers its own slot once.
  */
 
-typedef unsigned long long u64;
-typedef unsigned __int128 u128;
+#include "sponge.h"
 
 #define MAX_WIDTH 16
 #define MAX_ROUNDS 16
@@ -40,28 +39,6 @@ typedef struct {
 } PermCfg;
 
 static PermCfg cfgs[MAX_SLOTS];
-
-#define GOLDILOCKS 0xFFFFFFFF00000001ULL
-
-/* 128->64 reduction for P = 2^64 - 2^32 + 1 using 2^64 = 2^32 - 1 and
- * 2^96 = -1 (mod P), of any 128-bit value; returns a canonical (< P)
- * value.  Branch-free: the carries are data, not jumps (a jump on a random
- * carry costs a mispredicted branch every other product). */
-static inline u64 gl_reduce(u128 xy) {
-    const u64 eps = 0xFFFFFFFFULL; /* 2^64 mod P */
-    u64 lo = (u64)xy, hi = (u64)(xy >> 64);
-    u64 t0, t2;
-    /* lo - hi_hi; a borrow adds 2^64 = eps, i.e. subtracts eps (no second
-     * borrow: after one, t0 >= 2^64 - 2^32) */
-    u64 borrow = __builtin_sub_overflow(lo, hi >> 32, &t0);
-    t0 -= eps & -borrow;
-    /* + hi_lo * (2^32 - 1); a carry adds eps (no second carry) */
-    u64 carry = __builtin_add_overflow(t0, (hi & eps) * eps, &t2);
-    t2 += eps & -carry;
-    return t2 - (GOLDILOCKS & -(u64)(t2 >= GOLDILOCKS));
-}
-
-static inline u64 gl_mulmod(u64 x, u64 y) { return gl_reduce((u128)x * y); }
 
 /* `gl` is a compile-time constant at every call site below (the permute
  * body is cloned for goldilocks/generic), so the branch vanishes. */
@@ -131,8 +108,7 @@ static inline void chain_vec(const PermCfg *c, u64 *s, int w, const int gl) {
 }
 
 static inline void mds_apply(const PermCfg *c, const u64 *in, u64 *out,
-                             const int gl) {
-    int w = c->width;
+                             const int gl, const int w) {
     u64 P = c->P;
     for (int i = 0; i < w; i++) {
         u128 acc = 0;
@@ -154,11 +130,11 @@ static inline void mds_apply(const PermCfg *c, const u64 *in, u64 *out,
 
 /* s <- MDS s + ark, element-wise mod P. */
 static inline void mds_ark(const PermCfg *c, u64 *s, const u64 *ark,
-                           const int gl) {
+                           const int gl, const int w) {
     u64 tmp[MAX_WIDTH];
     u64 P = c->P;
-    mds_apply(c, s, tmp, gl);
-    for (int i = 0; i < c->width; i++) {
+    mds_apply(c, s, tmp, gl, w);
+    for (int i = 0; i < w; i++) {
         u64 v = tmp[i] + ark[i];
         /* v < 2P; a u64 wrap (P > 2^63) is detected by v < tmp[i] and
          * v - P is still correct mod 2^64 */
@@ -166,27 +142,37 @@ static inline void mds_ark(const PermCfg *c, u64 *s, const u64 *ark,
     }
 }
 
-/* Round r: x^alpha, MDS, ARK1, x^(1/alpha), MDS, ARK2. */
-static inline void round_impl(const PermCfg *c, u64 *s, int r, const int gl) {
-    int w = c->width;
+/* Round r: x^alpha, MDS, ARK1, x^(1/alpha), MDS, ARK2.  `w` is the slot's
+ * width, a compile-time constant at the call sites of the widths the
+ * hashers use (8 and 12), so the loops over the state unroll. */
+static inline __attribute__((always_inline)) void round_impl(const PermCfg *c, u64 *s, int r,
+                                                             const int gl, const int w) {
     pow_vec(s, w, c->alpha, c->P, gl);
-    mds_ark(c, s, &c->ark1[r * w], gl);
+    mds_ark(c, s, &c->ark1[r * w], gl, w);
     if (c->chain_len)
         chain_vec(c, s, w, gl);
     else
         pow_vec(s, w, c->inv_alpha, c->P, gl);
-    mds_ark(c, s, &c->ark2[r * w], gl);
+    mds_ark(c, s, &c->ark2[r * w], gl, w);
 }
 
-static inline void permute_one_impl(const PermCfg *c, u64 *s, const int gl) {
-    for (int r = 0; r < c->rounds; r++) round_impl(c, s, r, gl);
+static inline __attribute__((always_inline)) void permute_one_impl(const PermCfg *c, u64 *s,
+                                                                   const int gl, const int w) {
+    for (int r = 0; r < c->rounds; r++) round_impl(c, s, r, gl, w);
 }
+
+static void permute_gl8(const PermCfg *c, u64 *s) { permute_one_impl(c, s, 1, 8); }
+static void permute_gl12(const PermCfg *c, u64 *s) { permute_one_impl(c, s, 1, 12); }
 
 static void permute_one(const PermCfg *c, u64 *s) {
-    if (c->P == GOLDILOCKS)
-        permute_one_impl(c, s, 1);
+    if (c->P != GOLDILOCKS)
+        permute_one_impl(c, s, 0, c->width);
+    else if (c->width == 8)
+        permute_gl8(c, s);
+    else if (c->width == 12)
+        permute_gl12(c, s);
     else
-        permute_one_impl(c, s, 0);
+        permute_one_impl(c, s, 1, c->width);
 }
 
 void rp_permute_batch(int slot, u64 *states, u64 n) {
@@ -261,10 +247,30 @@ void rp_round_states_batch(int slot, const u64 *states, u64 n, u64 *out) {
         for (int i = 0; i < w; i++) o[i] = s[i] = states[k * w + i];
         for (int r = 0; r < c->rounds; r++) {
             if (c->P == GOLDILOCKS)
-                round_impl(c, s, r, 1);
+                round_impl(c, s, r, 1, w);
             else
-                round_impl(c, s, r, 0);
+                round_impl(c, s, r, 0, w);
             for (int i = 0; i < w; i++) o[(r + 1) * w + i] = s[i];
         }
     }
+}
+
+/* The Jive sponge of a width-8 slot (RpJive64_256; native/sponge.h). */
+static void rp_perm_cb(const void *ctx, u64 *s) { permute_one((const PermCfg *)ctx, s); }
+
+void rp_jive_hash_batch(int slot, const u64 *elements, u64 n_rows, u64 row_len,
+                        int rate_start, int flag_index, int digest_start, u64 *out) {
+    const PermCfg *c = &cfgs[slot];
+    jive_hash_rows(rp_perm_cb, c, c->P, elements, n_rows, row_len, rate_start, flag_index,
+                   digest_start, out);
+}
+
+void rp_jive_merge_batch(int slot, const u64 *left, const u64 *right, u64 n, u64 *out) {
+    const PermCfg *c = &cfgs[slot];
+    jive_merge_rows(rp_perm_cb, c, c->P, left, right, n, out);
+}
+
+u64 rp_jive_search(int slot, const u64 *seed, u64 start, u64 count, int bits) {
+    const PermCfg *c = &cfgs[slot];
+    return jive_search(rp_perm_cb, c, c->P, seed, start, count, bits);
 }

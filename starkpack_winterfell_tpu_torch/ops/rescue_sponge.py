@@ -1,28 +1,37 @@
-"""The Rescue-Prime sponge of the algebraic hashers on one hand-written CUDA
-kernel: the words API of ``Rp64_256`` (Goldilocks) and ``Rp62_248`` (f62),
-and their proof-of-work search.
+"""The sponge of the algebraic hashers on one hand-written CUDA kernel: the
+words API of ``Rp64_256`` (Goldilocks), ``Rp62_248`` (f62),
+``RpJive64_256`` and ``GriffinJive64_256`` (Goldilocks, width 8), and their
+proof-of-work search.
 
 Counterpart of what ``hash_words`` / ``merge_words`` of
-starkpack_winterfell_tpu/crypto/rescue.py (:211-261) and crypto/rescue62.py
-(:375-449) compute.  The JAX package has no Pallas kernel for it: there the
+starkpack_winterfell_tpu/crypto/rescue.py (:211-261), crypto/rescue62.py
+(:375-449), crypto/rescue_jive.py (:188-239) and crypto/griffin.py
+(:194-248) compute.  The JAX package has no Pallas kernel for it: there the
 sponge is XLA code (``apply_permutation_limbs``, rescue.py:92,
-rescue62.py:128) or the host C sponge.  Eager tensor code would not finish a
-full-width prove (a Goldilocks multiply is ~40 tensor ops, one Rp64_256
-permutation ~28k), so the sponge is the kernel ``rescue_sponge`` of
-csrc/rescue_sponge.cu, one thread a row, the state in registers.
+rescue62.py:128, rescue_jive.py:67, griffin.py:78) or a host sponge.  Eager
+tensor code would not finish a full-width prove (a Goldilocks multiply is
+~40 tensor ops, one Rp64_256 permutation ~28k), so the sponge is the kernel
+``rescue_sponge`` of csrc/rescue_sponge.cu, one thread a row, the state in
+registers.
 
-Three modes of one kernel, for a ``SpongeLayout`` (field, positions of the
-rate, tag and digest, S-box chains, constants, digest packing):
+Three modes of one kernel, for a ``SpongeLayout`` (field, width, positions
+of the rate, tag and digest, Jive or tagged rules, round kind, S-box
+chains, constants, digest packing):
 
 * hash: ``x`` (R, >= 2*n_elems) u32 words in int64, each row n_elems
-  canonical LE u64 elements -> the sponge of the row, the element count as
-  the tag (``hash_elements``);
+  canonical LE u64 elements -> the sponge of the row (``hash_elements``):
+  the element count as the tag; or (Jive) the flag 1 at the tag's place
+  when the count is not a multiple of the rate and the last partial block
+  padded with 1, 0, ...;
 * merge: ``x`` and ``y`` (R, 8) digest words -> the 2-to-1 merge of each
-  pair, tag 2 * digest size (``merge``);
+  pair (``merge``): the two digests in the rate, tag 2 * digest size; or
+  (Jive) the two digests as state[0..8) and digest_i = init_i + init_{4+i}
+  + final_i + final_{4+i};
 * search (``first_merge_with_int``): a seed's four digest elements and a
   range of nonces -> the lowest nonce whose ``merge_with_int(seed, nonce)``
   digest has ``bits`` trailing zeros in its first 8 bytes (the seed
-  elements, the nonce after them, tag digest size + 1; the host C search of
+  elements at ``seed_start``, the nonce after them, digest size + 1 at
+  ``search_tag``; Jive: the Jive sum; the host C search of
   crypto/_native_perm.py builds the same states).
 
 Hash and merge return (R, 8) digest words: four LE u64 elements (Rp64_256), or four
@@ -30,9 +39,9 @@ Hash and merge return (R, 8) digest words: four LE u64 elements (Rp64_256), or f
 rescue62.py:digest_to_bytes31); a merge unpacks them masked to 62 bits, not
 reduced mod p, as the reference does.
 
-``rescue_sponge_plain`` is the same function in plain PyTorch, with the 12
-state words stacked as ONE (12, R) tensor so one field op covers the whole
-state (``merge_with_int_plain`` / ``first_merge_with_int_plain`` for the
+``rescue_sponge_plain`` is the same function in plain PyTorch, with the
+state words stacked as ONE (width, R) tensor so one field op covers the
+whole state (``merge_with_int_plain`` / ``first_merge_with_int_plain`` for the
 search).  ``rescue_sponge`` and ``first_merge_with_int`` take it only for
 tensors on the CPU; on a CUDA device they launch the kernel or raise.
 """
@@ -47,8 +56,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..crypto import griffin_constants as cgr
 from ..crypto import rescue62_constants as c62
 from ..crypto import rescue_constants as c64
+from ..crypto import rescue_jive_constants as cj
 from . import gl64 as gl
 from .limb_field import F62
 
@@ -56,10 +67,11 @@ MASK32 = 0xFFFFFFFF
 MASK64 = (1 << 64) - 1
 _M62 = (1 << 62) - 1
 ROUNDS = 7
-WIDTH = 12
+MAX_WIDTH = 12  # the kernel's constant table holds layouts up to this width
 THREADS = 128  # threads a block of the kernel, one row each
-# words a pass of the kernel's S-box raises together (csrc/rescue_sponge.cu
-# SBOX_GROUP; a divisor of the width), chosen from ptxas's spills and the
+# words a pass of the kernel's Rescue S-box raises together
+# (csrc/rescue_sponge.cu SBOX_GROUP; a layout of another width takes the
+# greatest common divisor), chosen from ptxas's spills and the
 # measured times (kernel_times.py --only sponge --variants; PERF.md)
 SBOX_GROUP = 4
 
@@ -80,20 +92,32 @@ def reset_launch_counts():
 
 
 class SpongeLayout(NamedTuple):
-    """One Rescue-Prime sponge: field, state geometry, S-box exponents and
-    constants.  ``field`` is ``"gl64"`` or ``"f62"``; ``packed31`` marks
-    Rp62_248's bit-packed 31-byte digests; ``alpha_chain`` and
-    ``inv_chain`` are addition chains for x^alpha and x^(1/alpha)
-    (``ALPHA_CHAIN_*``, ``INV_CHAIN_*``)."""
+    """One sponge: field, state geometry, rules, round kind, S-box
+    exponents and constants.  ``field`` is ``"gl64"`` or ``"f62"``;
+    ``tag_index`` the capacity word of the hash's count tag (Jive: of its
+    flag) and the tagged merge's tag; ``jive`` the Jive rules of the hash
+    padding, the merge and the search (module docstring); ``seed_start``
+    and ``search_tag`` where the search puts the seed (the nonce after it)
+    and digest size + 1; ``griffin`` the round kind: Griffin's non-linear
+    layer (``ark1`` its six rows of round constants, ``ark2`` its (alpha,
+    beta) rows), else Rescue-Prime's x^alpha and x^(1/alpha) half-rounds;
+    ``packed31`` marks Rp62_248's bit-packed 31-byte digests;
+    ``alpha_chain`` and ``inv_chain`` are addition chains for x^alpha and
+    x^(1/alpha) (``ALPHA_CHAIN_*``, ``INV_CHAIN_*``)."""
 
     name: str
     field: str
     P: int
+    width: int
     rate_start: int
     rate: int
     tag_index: int
     digest_start: int
     digest_size: int
+    jive: bool
+    seed_start: int
+    search_tag: int
+    griffin: bool
     alpha: int
     inv_alpha: int
     mds: tuple
@@ -123,18 +147,41 @@ INV_CHAIN_RP62 = ((0, 1, None), (1, 0, 0), (1, 2, 1), (3, 2, 1), (4, 2, 1), (5, 
 ALPHA_CHAIN_RP64 = ((0, 1, None), (1, 1, None), (1, 0, 2), (3, 0, 0))
 ALPHA_CHAIN_RP62 = ((0, 1, None), (1, 0, 0))
 
+INV_ALPHA_RP64 = 10540996611094048183
 # capacity first: tag in state[0], rate state[4..12], digest state[4..8]
 RP64_256 = SpongeLayout(
-    "rp64_256", "gl64", gl.P, 4, 8, 0, 4, 4, 7, 10540996611094048183,
-    _freeze(c64.MDS), _freeze(c64.ARK1), _freeze(c64.ARK2), False, ALPHA_CHAIN_RP64,
-    INV_CHAIN_RP64)
+    name="rp64_256", field="gl64", P=gl.P, width=12, rate_start=4, rate=8, tag_index=0,
+    digest_start=4, digest_size=4, jive=False, seed_start=4, search_tag=0, griffin=False,
+    alpha=7, inv_alpha=INV_ALPHA_RP64, mds=_freeze(c64.MDS), ark1=_freeze(c64.ARK1),
+    ark2=_freeze(c64.ARK2), packed31=False, alpha_chain=ALPHA_CHAIN_RP64,
+    inv_chain=INV_CHAIN_RP64)
 # the legacy rate-first layout: rate state[0..8], digest state[0..4], tag in
 # state[11]
 RP62_248 = SpongeLayout(
-    "rp62_248", "f62", F62.P, 0, 8, 11, 0, 4, 3, 3074416663688030891,
-    _freeze(c62.MDS62), _freeze(c62.ARK1_62), _freeze(c62.ARK2_62), True, ALPHA_CHAIN_RP62,
-    INV_CHAIN_RP62)
-LAYOUTS = {RP64_256.name: RP64_256, RP62_248.name: RP62_248}
+    name="rp62_248", field="f62", P=F62.P, width=12, rate_start=0, rate=8, tag_index=11,
+    digest_start=0, digest_size=4, jive=False, seed_start=0, search_tag=11, griffin=False,
+    alpha=3, inv_alpha=3074416663688030891, mds=_freeze(c62.MDS62), ark1=_freeze(c62.ARK1_62),
+    ark2=_freeze(c62.ARK2_62), packed31=True, alpha_chain=ALPHA_CHAIN_RP62,
+    inv_chain=INV_CHAIN_RP62)
+# Jive, width 8: flag in state[0], rate and digest state[4..8]
+RPJIVE64_256 = SpongeLayout(
+    name="rp_jive64_256", field="gl64", P=gl.P, width=8, rate_start=4, rate=4, tag_index=0,
+    digest_start=4, digest_size=4, jive=True, seed_start=0, search_tag=7, griffin=False,
+    alpha=7, inv_alpha=INV_ALPHA_RP64, mds=_freeze(cj.MDS8), ark1=_freeze(cj.ARK1_8),
+    ark2=_freeze(cj.ARK2_8), packed31=False, alpha_chain=ALPHA_CHAIN_RP64,
+    inv_chain=INV_CHAIN_RP64)
+# Griffin in Jive mode, width 8: rate and digest state[0..4], flag state[4];
+# s0^(1/7) and s1^7 by Rp64_256's chains
+GRIFFIN64_256 = SpongeLayout(
+    name="griffin_jive64_256", field="gl64", P=gl.P, width=8, rate_start=0, rate=4,
+    tag_index=4, digest_start=0, digest_size=4, jive=True, seed_start=0, search_tag=7,
+    griffin=True, alpha=7, inv_alpha=INV_ALPHA_RP64, mds=_freeze(cgr.MDS_G),
+    ark1=_freeze(cgr.ARK_G), ark2=_freeze((cgr.ALPHA_G, cgr.BETA_G)), packed31=False,
+    alpha_chain=ALPHA_CHAIN_RP64, inv_chain=INV_CHAIN_RP64)
+# the kernel's layouts, in the order of its constant slots (csrc/
+# rescue_sponge.cu kConsts, the ``slot`` of its launchers)
+LAYOUTS = {l.name: l for l in (RP64_256, RP62_248, RPJIVE64_256, GRIFFIN64_256)}
+SLOTS = {name: slot for slot, name in enumerate(LAYOUTS)}
 
 
 def chain_exponent(chain) -> int:
@@ -151,18 +198,24 @@ def chain_multiplies(chain) -> int:
 
 
 def sbox_multiplies(layout: SpongeLayout) -> int:
-    """Field multiplies of the S-boxes of one permutation, on every state
-    word of every round: x^alpha and x^(1/alpha) by the layout's addition
-    chains (4 + 72 for Rp64_256, 2 + 72 for Rp62_248), what the kernel, the
-    plain version and the host C sponge's x^(1/alpha) do."""
-    return ROUNDS * WIDTH * (chain_multiplies(layout.alpha_chain)
-                             + chain_multiplies(layout.inv_chain))
+    """Field multiplies of the non-linear layers of one permutation, what
+    the kernel, the plain version and the host C sponges do.  Rescue-Prime:
+    x^alpha and x^(1/alpha) by the layout's addition chains on every state
+    word of every round (4 + 72 a word for Rp64_256 and RpJive64_256, 2 +
+    72 for Rp62_248).  Griffin: a round raises s0 to 1/7 (72) and s1 to 7
+    (4) and takes three multiplies for each of the other width - 2 words
+    (l^2, alpha * l, s * quad; its (i - 1) * s0 is a running sum of adds)."""
+    up = chain_multiplies(layout.alpha_chain)
+    down = chain_multiplies(layout.inv_chain)
+    if layout.griffin:
+        return ROUNDS * (up + down + 3 * (layout.width - 2))
+    return ROUNDS * layout.width * (up + down)
 
 
 def permutations(layout: SpongeLayout, rows: int, n_elems: int = None) -> int:
     """Permutations of one call: ceil(n_elems / rate) a row hashed (none
-    for an empty row: the sponge permutes only after absorbing), one a pair
-    merged (``n_elems`` None)."""
+    for an empty row: the sponge permutes only after absorbing; Jive pads
+    only a started block), one a pair merged (``n_elems`` None)."""
     if n_elems is None:
         return rows
     return rows * (-(-n_elems // layout.rate))
@@ -201,8 +254,9 @@ _TABLES: dict = {}
 
 
 def _tables(layout, device):
-    """The layout's constants on ``device``: MDS (12, 12) and the ARKs
-    (7, 12, 1), as words; for Goldilocks also the MDS as float64 (its
+    """The layout's constants on ``device``: MDS (width, width) and the
+    ARKs (rows, width, 1) (Griffin: ark1 (6, 8, 1), ark2 its (alpha, beta)
+    rows (2, 6, 1)), as words; for Goldilocks also the MDS as float64 (its
     entries are below 32, so sums of 12 products of an entry and a 32-bit
     half stay below 2^41 and the float64 product is exact)."""
     key = (layout.name, str(device))
@@ -221,7 +275,7 @@ def _tables(layout, device):
 
 
 def _mds_plain(layout, F, t, s):
-    """MDS @ s for the stacked state s (12, R)."""
+    """MDS @ s for the stacked state s (width, R)."""
     if layout.field == "gl64":
         m = t["mds_f64"]
         lo = torch.matmul(m, (s & MASK32).to(torch.float64)).to(torch.int64)
@@ -231,18 +285,46 @@ def _mds_plain(layout, F, t, s):
         low = lo + shifted
         high = (hi >> 32) + gl._ult(low, shifted).to(torch.int64)
         return gl._reduce128(low, high)
-    prod = F.mul(t["mds"].unsqueeze(-1), s.unsqueeze(0))  # (12, 12, R)
-    acc = [prod[:, j] for j in range(WIDTH)]
+    prod = F.mul(t["mds"].unsqueeze(-1), s.unsqueeze(0))  # (width, width, R)
+    acc = [prod[:, j] for j in range(layout.width)]
     while len(acc) > 1:
         acc = [F.add(acc[i], acc[i + 1]) if i + 1 < len(acc) else acc[i]
                for i in range(0, len(acc), 2)]
     return acc[0]
 
 
+def _griffin_layer(layout, F, t, s):
+    """Griffin's non-linear layer on stacked states s (8, R): s0^(1/7),
+    s1^7, then s_i * (l_i^2 + alpha l_i + beta) with l_i = (i - 1) s0 + s1
+    + s_{i-1} (already updated; none for i = 2), i = 2..7."""
+    s0 = F.chain(s[0], layout.inv_chain)
+    s1 = F.chain(s[1], layout.alpha_chain)
+    alpha, beta = t["ark2"]
+    out, acc = [s0, s1], s0
+    for i in range(2, layout.width):
+        if i > 2:
+            acc = F.add(acc, s0)
+        l = F.add(acc, s1)
+        if i > 2:
+            l = F.add(l, out[-1])
+        quad = F.add(F.add(F.mul(l, l), F.mul(alpha[i - 2], l)), beta[i - 2])
+        out.append(F.mul(s[i], quad))
+    return torch.stack(out)
+
+
 def permute_plain(layout: SpongeLayout, s):
-    """The Rescue-Prime permutation of stacked states s (12, R)."""
+    """The layout's permutation of stacked states s (width, R): Rescue-Prime
+    (7 rounds of x^alpha, MDS, ARK1, x^(1/alpha), MDS, ARK2) or Griffin (6
+    rounds of the non-linear layer, MDS and round constants, then the
+    non-linear layer and MDS)."""
     F = _Field(layout)
     t = _tables(layout, s.device)
+    if layout.griffin:
+        for r in range(ROUNDS):
+            s = _mds_plain(layout, F, t, _griffin_layer(layout, F, t, s))
+            if r < ROUNDS - 1:
+                s = F.add(s, t["ark1"][r])
+        return s
     for r in range(ROUNDS):
         s = F.chain(s, layout.alpha_chain)
         s = F.add(_mds_plain(layout, F, t, s), t["ark1"][r])
@@ -257,9 +339,8 @@ def _elements(words, n: int):
     return (w[:, 0::2] | (w[:, 1::2] << 32)).t()
 
 
-def _digest_words(layout, s):
-    """Digest of stacked states (12, R) -> (R, 8) u32 words."""
-    d = s[layout.digest_start: layout.digest_start + layout.digest_size]
+def _digest_words(layout, d):
+    """Four digest values a row (4, R) -> (R, 8) u32 words."""
     if layout.packed31:
         v1, v2, v3, v4 = d
         d = torch.stack([v1 | (v2 << 62), (v2 >> 2) | (v3 << 60),
@@ -282,41 +363,61 @@ def _digest_elements(layout, words):
     ])
 
 
+def _squeeze(layout, s, initial=None):
+    """The digest words of permuted states s (width, R): the digest's place,
+    or (``initial``, the states before the permutation) the Jive sum."""
+    ds = layout.digest_size
+    if initial is None:
+        return _digest_words(layout, s[layout.digest_start: layout.digest_start + ds])
+    F = _Field(layout)
+    return _digest_words(layout, F.add(F.add(initial[:ds], initial[ds: 2 * ds]),
+                                       F.add(s[:ds], s[ds: 2 * ds])))
+
+
 def rescue_sponge_plain(layout: SpongeLayout, x, n_elems: int = None, y=None):
     """Plain PyTorch version of the kernel: hash rows (``y`` None) or merge
     digest pairs; see the module docstring."""
     F = _Field(layout)
     R = x.shape[0]
-    s = torch.zeros((WIDTH, R), dtype=torch.int64, device=x.device)
+    s = torch.zeros((layout.width, R), dtype=torch.int64, device=x.device)
+    ds, rs = layout.digest_size, layout.rate_start
     if y is not None:
-        ds = layout.digest_size
-        rs = layout.rate_start
-        s[rs: rs + ds] = _digest_elements(layout, x)
-        s[rs + ds: rs + 2 * ds] = _digest_elements(layout, y)
+        at = 0 if layout.jive else rs
+        s[at: at + ds] = _digest_elements(layout, x)
+        s[at + ds: at + 2 * ds] = _digest_elements(layout, y)
+        if layout.jive:
+            return _squeeze(layout, permute_plain(layout, s), s)
         s[layout.tag_index] = 2 * ds
-        return _digest_words(layout, permute_plain(layout, s))
+        return _squeeze(layout, permute_plain(layout, s))
     e = _elements(x, n_elems)
-    s[layout.tag_index] = n_elems % layout.P
+    if not layout.jive:
+        s[layout.tag_index] = n_elems % layout.P
+    elif n_elems % layout.rate:
+        s[layout.tag_index] = 1
     for k in range(0, n_elems, layout.rate):
         block = e[k: k + layout.rate]
-        at = slice(layout.rate_start, layout.rate_start + block.shape[0])
-        s[at] = F.add(s[at], block)
+        m = block.shape[0]
+        s[rs: rs + m] = F.add(s[rs: rs + m], block)
+        if layout.jive and m < layout.rate:  # 1, 0, ... in the rest of the rate
+            s[rs + m] = 1
+            s[rs + m + 1: rs + layout.rate] = 0
         s = permute_plain(layout, s)
-    return _digest_words(layout, s)
+    return _squeeze(layout, s)
 
 
 def merge_with_int_plain(layout: SpongeLayout, seed_elems, nonces):
     """``merge_with_int(seed, nonce)`` digests as (R, 8) words for an (R,)
     int64 tensor of nonces below p (one element each; read as u64): the
-    seed's four digest elements at the digest's place, the nonce after
-    them, tag digest size + 1, one permutation."""
-    s = torch.zeros((WIDTH, nonces.shape[0]), dtype=torch.int64, device=nonces.device)
-    at, ds = layout.digest_start, layout.digest_size
+    seed's four digest elements at ``seed_start``, the nonce after them,
+    digest size + 1 at ``search_tag``, one permutation (Jive: the Jive
+    sum)."""
+    s = torch.zeros((layout.width, nonces.shape[0]), dtype=torch.int64, device=nonces.device)
+    at, ds = layout.seed_start, layout.digest_size
     s[at: at + ds] = torch.tensor([gl._wrap(int(v)) for v in seed_elems], dtype=torch.int64,
                                   device=nonces.device).unsqueeze(-1)
     s[at + ds] = nonces
-    s[layout.tag_index] = ds + 1
-    return _digest_words(layout, permute_plain(layout, s))
+    s[layout.search_tag] = ds + 1
+    return _squeeze(layout, permute_plain(layout, s), s if layout.jive else None)
 
 
 def first_merge_with_int_plain(layout: SpongeLayout, seed_elems, start: int, count: int,
@@ -351,7 +452,8 @@ def kernel_prelude(group: int = None) -> str:
     ``ALPHA_CHAIN_*`` / ``INV_CHAIN_*``, the tuples the plain version and
     the host C sponge run."""
     lines = ["// generated by ops/rescue_sponge.py:kernel_prelude",
-             f"#define SBOX_GROUP {SBOX_GROUP if group is None else group}"]
+             f"#define SBOX_GROUP {SBOX_GROUP if group is None else group}",
+             f"#define SPONGE_SLOTS {len(LAYOUTS)}"]
     for name, chain in (("RP64_ALPHA", ALPHA_CHAIN_RP64), ("RP64_INV", INV_CHAIN_RP64),
                         ("RP62_ALPHA", ALPHA_CHAIN_RP62), ("RP62_INV", INV_CHAIN_RP62)):
         steps = " ".join(f"S({k}, {a}, {n}, {-1 if b is None else b})"
@@ -381,20 +483,28 @@ def kernel_source(group: int = None):
 
 def kernel_constants(layout: SpongeLayout) -> np.ndarray:
     """MDS (144), ARK1 (84) and ARK2 (84) words of a layout, the table the
-    kernel keeps in constant memory: Goldilocks words (the MDS entries must
-    be below 2^32, as the kernel multiplies them with 32-bit halves), f62
-    words in Montgomery form (x * 2^64 mod p)."""
-    vals = [v for t in (layout.mds, layout.ark1, layout.ark2) for row in t for v in row]
+    kernel keeps in constant memory, each part zero-padded to its room at
+    MAX_WIDTH (the MDS row-major at the layout's width; Griffin: its six
+    ARK rows, then alpha and beta as ARK2): Goldilocks words (the MDS
+    entries must be below 2^32, as the kernel multiplies them with 32-bit
+    halves), f62 words in Montgomery form (x * 2^64 mod p)."""
+    parts = []
+    for t, room in ((layout.mds, MAX_WIDTH * MAX_WIDTH), (layout.ark1, ROUNDS * MAX_WIDTH),
+                    (layout.ark2, ROUNDS * MAX_WIDTH)):
+        vals = [v for row in t for v in row]
+        if len(vals) > room:
+            raise ValueError(f"{layout.name}: {len(vals)} constants for a room of {room}")
+        parts += vals + [0] * (room - len(vals))
     if layout.field == "f62":
-        vals = [(v << 64) % layout.P for v in vals]
+        parts = [(v << 64) % layout.P for v in parts]
     elif any(v >> 32 for row in layout.mds for v in row):
         raise ValueError(f"{layout.name}: the kernel takes MDS entries below 2^32")
-    return np.array(vals, dtype=np.uint64)
+    return np.array(parts, dtype=np.uint64)
 
 
 def _lib(group: int = None):
     """Build (first use) and load the kernel library with S-box group
-    ``group`` (default ``SBOX_GROUP``) and copy both layouts' constants to
+    ``group`` (default ``SBOX_GROUP``) and copy every layout's constants to
     the current device; raises on failure."""
     group = SBOX_GROUP if group is None else group
     if group not in _FNS:
@@ -407,7 +517,7 @@ def _lib(group: int = None):
             "rescue_sponge_launch": [i, i, p, p, p, ll, ll, ll, i, i, p],
             "rescue_sponge_search": [i, p, u64, ll, i, p, p, i, p],
         })
-        for slot, layout in enumerate((RP64_256, RP62_248)):
+        for slot, layout in enumerate(LAYOUTS.values()):
             consts = kernel_constants(layout)
             rc = fns["rescue_sponge_set_constants"](slot, consts.ctypes.data_as(p))
             if rc != 0:
@@ -457,7 +567,7 @@ def rescue_sponge(layout: SpongeLayout, x, n_elems: int = None, y=None):
     if R == 0:
         return out
     rc = launch(
-        _lib()["rescue_sponge_launch"], x.device, int(layout.field == "f62"), int(merge),
+        _lib()["rescue_sponge_launch"], x.device, SLOTS[layout.name], int(merge),
         x.data_ptr(), y.data_ptr() if merge else None, out.data_ptr(), x.stride(0),
         y.stride(0) if merge else 0, R, 0 if merge else n_elems, THREADS,
     )
@@ -501,7 +611,7 @@ def first_merge_with_int(layout: SpongeLayout, seed_elems, start: int, count: in
     seed = np.array([int(v) for v in seed_elems], dtype=np.uint64)
     if seed.shape != (4,):
         raise ValueError(f"the seed is four digest elements, got {seed.shape}")
-    rc = launch(_lib()["rescue_sponge_search"], device, int(layout.field == "f62"),
+    rc = launch(_lib()["rescue_sponge_search"], device, SLOTS[layout.name],
                 seed.ctypes.data_as(ctypes.c_void_p), start, count, bits, found.data_ptr(),
                 out.data_ptr() if digests else None, THREADS)
     if rc != 0:

@@ -125,7 +125,8 @@ class ProverChannel:
         seed is one digest of the transcript hasher: 32 bytes, or 24
         (BLAKE3-192) or 31 (Rp62_248).  The nonces are tried in ascending
         blocks: BLAKE3 as tensors on the prove's device; a hasher with
-        ``first_merge_with_int`` (Rp64_256, Rp62_248) as one launch of the
+        ``first_merge_with_int`` (Rp64_256, Rp62_248, RpJive64_256,
+        GriffinJive64_256) as one launch of the
         sponge kernel's search on a CUDA device (NONCE_BATCH_CARD nonces),
         one batch of its C sponge (4096) on the CPU; any other (SHA3-256)
         one ``merge_with_int`` at a time."""

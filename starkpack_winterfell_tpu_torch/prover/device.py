@@ -44,7 +44,8 @@ from .constraints import (
     tile_period,
 )
 
-PORTED_HASHERS = ("blake3_256", "blake3_192", "sha3_256", "rp64_256")  # the f64 paths
+PORTED_HASHERS = ("blake3_256", "blake3_192", "sha3_256", "rp64_256", "rp_jive64_256",
+                  "griffin_jive64_256")  # the f64 paths
 LIMB_HASHERS = ("blake3_256", "blake3_192", "sha3_256", "rp62_248")  # the limb path
 HOST_DIV_TABLE = 4096  # divisor periods up to this are inverted on the host
 

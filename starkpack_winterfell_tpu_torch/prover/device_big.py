@@ -24,7 +24,9 @@ is permutation-free.
 Ported: f64 AIRs at extension degree 1, 2 or 3 (the composition, DEEP and
 FRI arrays are then extension elements, one tensor a component), main
 segment only, single-value and periodic boundary assertions, the hashers
-of ``device.PORTED_HASHERS``.  ``device.prove_device``
+of ``device.PORTED_HASHERS`` (BLAKE3, SHA3-256 and the algebraic Rp64_256,
+RpJive64_256 and GriffinJive64_256, whose Merkle trees run on the sponge
+kernel of ops/rescue_sponge.py).  ``device.prove_device``
 sends every other f64 config to the small-trace pipeline or refuses it.
 
 Apart from the tile transform (a CUDA kernel on the card) everything here is

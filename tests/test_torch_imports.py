@@ -79,6 +79,11 @@ def _run(code, env_extra=None):
     "starkpack_winterfell_tpu_torch.models.rescue_chain_pad, "
     "starkpack_winterfell_tpu_torch.models.lamport, "
     "starkpack_winterfell_tpu_torch.models.merkle",
+    # the Jive hashers on the sponge kernel
+    "starkpack_winterfell_tpu_torch.crypto.rescue_jive, "
+    "starkpack_winterfell_tpu_torch.crypto.rescue_jive_constants, "
+    "starkpack_winterfell_tpu_torch.crypto.griffin, "
+    "starkpack_winterfell_tpu_torch.crypto.griffin_constants",
     "chip_smoke",
     "profile_prove",
 ])

@@ -235,25 +235,29 @@ static void run_rows(int mode, const SpongeArgs& a) {
     else rescue_sponge_kernel<L, MODE_SEARCH>(a);
   }
 }
-static void run(int field, int mode, const SpongeArgs& a) {
-  if (field == 0) run_rows<Rp64Layout>(mode, a);
-  else run_rows<Rp62Layout>(mode, a);
+static void run(int slot, int mode, const SpongeArgs& a) {
+  switch (slot) {
+    case 0: run_rows<Rp64Layout>(mode, a); break;
+    case 1: run_rows<Rp62Layout>(mode, a); break;
+    case 2: run_rows<RpJiveLayout>(mode, a); break;
+    default: run_rows<GriffinLayout>(mode, a); break;
+  }
 }
-extern "C" void host_sponge(int field, int merge, const uint64_t* x, const uint64_t* y,
+extern "C" void host_sponge(int slot, int merge, const uint64_t* x, const uint64_t* y,
                             uint64_t* out, long long xs, long long ys, long long rows,
                             int n_elems) {
   SpongeArgs a{};
   a.x = x; a.y = y; a.out = out; a.x_stride = xs; a.y_stride = ys; a.rows = rows;
   a.n_elems = n_elems;
-  run(field, merge ? MODE_MERGE : MODE_HASH, a);
+  run(slot, merge ? MODE_MERGE : MODE_HASH, a);
 }
-extern "C" void host_sponge_search(int field, const uint64_t* seed, uint64_t start,
+extern "C" void host_sponge_search(int slot, const uint64_t* seed, uint64_t start,
                                    long long count, int bits, unsigned long long* found,
                                    uint64_t* digests) {
   SpongeArgs a{};
   for (int k = 0; k < 4; ++k) a.seed[k] = seed[k];
   a.start = start; a.rows = count; a.bits = bits; a.found = found; a.out = digests;
-  run(field, MODE_SEARCH, a);
+  run(slot, MODE_SEARCH, a);
 }
 """
 
@@ -303,16 +307,16 @@ inline unsigned long long atomicMin(unsigned long long* a, unsigned long long v)
 def host_sponge(tmp_path_factory):
     """csrc/rescue_sponge.cu's kernels built with the host compiler, with
     the definitions ops/rescue_sponge.py builds them with (the addition
-    chains), both layouts' constants copied into the kernel's constant
-    table."""
+    chains), every layout's constants copied into the kernel's constant
+    table at its slot."""
     lib = _host_lib(tmp_path_factory, "sponge", HARNESS_SPONGE,
                     rsp.kernel_prelude() + _kernels_only("rescue_sponge.cu"))
     p, i, ll, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint64
     lib.host_sponge_constants.argtypes = [i, p]
     lib.host_sponge.argtypes = [i, i, p, p, p, ll, ll, ll, i]
     lib.host_sponge_search.argtypes = [i, p, u64, ll, i, p, p]
-    for slot, layout in enumerate((rsp.RP64_256, rsp.RP62_248)):
-        lib.host_sponge_constants(slot, rsp.kernel_constants(layout).ctypes.data_as(p))
+    for name, slot in rsp.SLOTS.items():
+        lib.host_sponge_constants(slot, rsp.kernel_constants(rsp.LAYOUTS[name]).ctypes.data_as(p))
     return lib
 
 
@@ -324,23 +328,25 @@ def _edge_elements(rng, P, rows, n):
     return vals
 
 
-@pytest.mark.parametrize("name", ["rp64_256", "rp62_248"])
+@pytest.mark.parametrize("name", list(rsp.LAYOUTS))
 def test_sponge_kernel_source_matches_the_plain_version(host_sponge, name):
     """Row hashes of 0 ... 24 elements (rows wider than they hash, as the
     wrapper's row stride allows; elements at 0, 1 and p - 1 among random
-    ones) and merges of random words read through a Merkle level's row
-    stride, for both layouts; Rp62_248 merges also of digests whose four
-    words all lie in [p, 2^62)."""
+    ones; every length from 0 to 9 for the Jive layouts) and merges of
+    random words read through a Merkle level's row stride, for every
+    layout; Rp62_248 merges also of digests whose four words all lie in
+    [p, 2^62)."""
     layout = rsp.LAYOUTS[name]
     field = int(layout.field == "f62")
-    rng = np.random.default_rng(field + 17)
-    for n in (0, 1, 7, 8, 9, 12, 16, 23, 24):
+    slot = rsp.SLOTS[name]
+    rng = np.random.default_rng(slot + 17)
+    for n in (0, 1, 7, 8, 9, 12, 16, 23, 24) + ((2, 3, 4, 5, 6) if layout.jive else ()):
         vals = _edge_elements(rng, layout.P, 5, n + 2)
         x = tgl.from_u64(np.stack([vals & np.uint64(0xFFFFFFFF), vals >> np.uint64(32)],
                                   axis=-1).reshape(5, -1))
         want = rsp.rescue_sponge_plain(layout, x, n)
         got = torch.zeros((5, 8), dtype=torch.int64)
-        host_sponge.host_sponge(field, 0, _ptr(x), None, _ptr(got), x.stride(0), 0, 5, n)
+        host_sponge.host_sponge(slot, 0, _ptr(x), None, _ptr(got), x.stride(0), 0, 5, n)
         assert torch.equal(got, want), n
     cur = torch.from_numpy(rng.integers(0, 1 << 32, size=(10, 8)).astype(np.int64))
     if field:  # packed digests of four values in [p, 2^62)
@@ -351,26 +357,27 @@ def test_sponge_kernel_source_matches_the_plain_version(host_sponge, name):
     left, right = cur[0::2], cur[1::2]
     want = rsp.rescue_sponge_plain(layout, left, None, right)
     got = torch.zeros((5, 8), dtype=torch.int64)
-    host_sponge.host_sponge(field, 1, _ptr(left), _ptr(right), _ptr(got), left.stride(0),
+    host_sponge.host_sponge(slot, 1, _ptr(left), _ptr(right), _ptr(got), left.stride(0),
                             right.stride(0), 5, 0)
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("name", ["rp64_256", "rp62_248"])
+@pytest.mark.parametrize("name", list(rsp.LAYOUTS))
 def test_sponge_kernel_search_mode_matches_the_plain_version(host_sponge, name):
     """The search mode: every digest of a range of nonces and the lowest
     nonce with 4 trailing zero bits, against ``first_merge_with_int_plain``;
     a range with no such nonce leaves the found word as it was."""
     layout = rsp.LAYOUTS[name]
     field = int(layout.field == "f62")
-    rng = np.random.default_rng(field + 29)
+    slot = rsp.SLOTS[name]
+    rng = np.random.default_rng(slot + 29)
     top = 1 << 62 if field else layout.P  # Rp62_248 seeds: masked, not reduced
     seed = [int(v) for v in rng.integers(0, top, size=4, dtype=np.uint64)]
     for start, count, bits in ((1, 96, 4), (layout.P - 40, 40, 3), (7, 3, 12)):
         want_nonce, want = rsp.first_merge_with_int_plain(layout, seed, start, count, bits)
         found = np.array([np.iinfo(np.uint64).max], dtype=np.uint64)
         got = torch.zeros((count, 8), dtype=torch.int64)
-        host_sponge.host_sponge_search(field, np.array(seed, dtype=np.uint64).ctypes.data,
+        host_sponge.host_sponge_search(slot, np.array(seed, dtype=np.uint64).ctypes.data,
                                        start, count, bits, found.ctypes.data, _ptr(got))
         assert torch.equal(got, want), (start, count)
         assert (None if found[0] == np.iinfo(np.uint64).max else int(found[0])) == want_nonce

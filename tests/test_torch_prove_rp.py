@@ -59,7 +59,7 @@ MERKLE_PATH = (7, 0b1011, 4)  # (seed, leaf index, depth)
 
 def _host_sponge(layout, x, n_elems=None, y=None):
     """``rescue_sponge_plain`` computed by the hashers' host C sponge."""
-    H = Rp64_256 if layout.name == "rp64_256" else Rp62_248
+    H = T.get_hasher(layout.name)
     if y is None:
         out = H.hash_words(x.numpy()[:, : 2 * n_elems], 8 * n_elems)
     else:
