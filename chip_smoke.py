@@ -63,7 +63,8 @@ with ProofOptions(28, 8, 16, NONE, 4, 31) and BLAKE3-256 unless named:
   paths' seeds and three random ones) and every digest of one batch
   against the plain version (sponge_search).  The sponge's twelve
   instantiations (four layouts x hash, merge, search) must build without
-  spills (ptxas).  Every kernel's bound counts the IMAD-pipe and ALU-pipe
+  spills (ptxas), and so must the three of the DIT tile frame
+  (csrc/dit_tile.cuh: kernel 3 on Goldilocks, kernel 4 on f128 and f62).  Every kernel's bound counts the IMAD-pipe and ALU-pipe
   instructions that csrc/gl64_sass_count.py counts in this run
   (``sponge_bound``, ``op_bound``; kernels 1-5 also at one pipe, the count
   the earlier bounds used, ``bound_ms_one_pipe``).
@@ -299,10 +300,17 @@ OPS_LIMB = {"f128": {"mul": 130, "sqr": 114, "add": 25, "sub": 20},
 # the same costs split by pipe ({"imad", "alu"}), field -> operation, from
 # csrc/gl64_sass_count.py's "by_pipe" of this run (``build_all``): the
 # bounds of kernels 1-5 count their instructions pipe by pipe, as the
-# sponge's do (``op_bound``); the one-pipe counts above stay beside them
+# sponge's do (``op_bound``); the one-pipe counts above stay beside them.
+# An IMAD.WIDE (a 64-bit result) takes IMAD_WIDE_SLOTS issue slots of the
+# IMAD pipe, two, as kernel_times.py's imad phase measured it on an NVIDIA
+# H100 80GB HBM3; the earlier per-pipe count, which took one,
+# stays beside it (PIPE_COSTS_WIDE1, SPONGE_COSTS_WIDE1)
+IMAD_WIDE_SLOTS = 2
 PIPE_COSTS: dict = {}
-ONE_PIPE = {"gl64": {"mul": OPS_FIELD_MUL, "add": OPS_FIELD_ADD, "sub": OPS_FIELD_SUB},
-            **OPS_LIMB}
+PIPE_COSTS_WIDE1: dict = {}
+ONE_PIPE = {field: {**ops, "twmul": ops["mul"]} for field, ops in (
+    ("gl64", {"mul": OPS_FIELD_MUL, "add": OPS_FIELD_ADD, "sub": OPS_FIELD_SUB}),
+    *OPS_LIMB.items())}
 # NVIDIA H100 SXM dispatch rates, lanes a second: the IMAD pipe and the integer
 # ALU pipe (IADD3, LOP3, SHF, ISETP, SEL, LEA) 64 lanes a clock an SM each,
 # dispatch 4 x 32 lanes a clock an SM for all instructions together
@@ -310,13 +318,22 @@ PEAK_IMAD_LANES_PER_S = PEAK_ALU_LANES_PER_S = 132 * 64 * 1.98e9
 PEAK_DISPATCH_LANES_PER_S = 132 * 128 * 1.98e9
 
 
-def pipe_costs(sass) -> dict:
-    """``PIPE_COSTS`` from gl64_sass_count.py's output."""
-    bp = sass["by_pipe"]
+def slotted(by_pipe, slots: int) -> dict:
+    """gl64_sass_count.py's "by_pipe" counts, IMAD-pipe slots and ALU-pipe
+    instructions of each probe, each IMAD.WIDE at ``slots`` slots."""
+    return {probe: {"imad": c["imad"] + (slots - 1) * c["imad_wide"], "alu": c["alu"]}
+            for probe, c in by_pipe.items()}
+
+
+def pipe_costs(bp) -> dict:
+    """``PIPE_COSTS`` from ``slotted`` counts.  "twmul" is an NTT
+    butterfly's product by a twiddle at its cheapest form: the multiply,
+    except on f62, whose twiddles kernel 4 holds in Montgomery form
+    (``f62_twmul``)."""
     limb = ("mul", "sqr", "add", "sub")
-    return {"gl64": {op: bp[op] for op in ("mul", "add", "sub")},
-            "f128": {op: bp[f"f128_{op}"] for op in limb},
-            "f62": {op: bp[f"f62_{op}"] for op in limb}}
+    return {"gl64": {**{op: bp[op] for op in ("mul", "add", "sub")}, "twmul": bp["mul"]},
+            "f128": {**{op: bp[f"f128_{op}"] for op in limb}, "twmul": bp["f128_mul"]},
+            "f62": {**{op: bp[f"f62_{op}"] for op in limb}, "twmul": bp["f62_twmul"]}}
 
 
 def pipe_ms(ops) -> float:
@@ -333,27 +350,34 @@ def op_bound(nbytes: int, counts: dict, field: str) -> dict:
     the bytes against the memory rate or the operations against the
     integer rates, whichever is larger.  ``bound_ms`` prices each
     operation pipe by pipe (``PIPE_COSTS``, ``pipe_ms``);
-    ``bound_ms_one_pipe`` at its instructions all on one 64-lane pipe
-    (``ONE_PIPE``, ``PEAK_INT32_OPS_PER_S``), the count the earlier
-    bounds of these kernels used."""
+    ``bound_ms_wide_one_slot`` the same with an IMAD.WIDE at one slot (the
+    earlier count); ``bound_ms_one_pipe`` at its instructions all on one
+    64-lane pipe (``ONE_PIPE``, ``PEAK_INT32_OPS_PER_S``), the count the
+    earlier bounds of these kernels used."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_one = sum(n * ONE_PIPE[field][op] for op, n in counts.items()) \
         / PEAK_INT32_OPS_PER_S * 1e3
-    t_pipe = pipe_ms({k: sum(n * PIPE_COSTS[field][op][k] for op, n in counts.items())
-                      for k in ("imad", "alu")})
+
+    def t_pipe(costs):
+        return pipe_ms({k: sum(n * costs[field][op][k] for op, n in counts.items())
+                        for k in ("imad", "alu")})
 
     def pick(t_ops):
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
-    (ms, by), (ms1, by1) = pick(t_pipe), pick(t_one)
-    return {"bound_ms": ms, "bound_by": by, "bound_ms_one_pipe": ms1, "bound_by_one_pipe": by1}
+    (ms, by), (ms1, by1) = pick(t_pipe(PIPE_COSTS)), pick(t_one)
+    return {"bound_ms": ms, "bound_by": by,
+            "bound_ms_wide_one_slot": pick(t_pipe(PIPE_COSTS_WIDE1))[0],
+            "bound_ms_one_pipe": ms1, "bound_by_one_pipe": by1}
 
 
 def bound_fields(bound: dict, timing: dict) -> dict:
     """A row's bound keys: ``op_bound``'s, with the share of each bound in
     the kernel's device time (null where the profiler gave none)."""
     dev = timing.get("device_ms")
-    return {**bound, "bound_share_one_pipe": bound["bound_ms_one_pipe"] / dev if dev else None}
+    return {**bound,
+            "bound_share_wide_one_slot": bound["bound_ms_wide_one_slot"] / dev if dev else None,
+            "bound_share_one_pipe": bound["bound_ms_one_pipe"] / dev if dev else None}
 
 
 def golden_pin(name: str) -> str:
@@ -583,24 +607,38 @@ def phase_kernels(rng, device):
 # ---------------------------------------------------------------------------
 
 
+def strided_words(shape, strides, rng, device, fill=True):
+    """A view of ``shape`` with ``strides`` over a new buffer of canonical
+    random words (or uninitialised ones with ``fill`` False)."""
+    size = 1 + sum((d - 1) * st for d, st in zip(shape, strides))
+    buf = random_words((size,), rng, device) if fill else torch.empty(
+        size, dtype=torch.int64, device=device)
+    return torch.as_strided(buf, shape, strides)
+
+
 def dit_inputs(key, rng, device, inverse=False):
     """(function, plain version, arguments) of one DIT kernel shape:
-    ("last", rows, n, n_in, strides of x, has pre, has scale) or ("axis1",
-    B, n, lanes, has pre).  x of ``ntt_last`` is laid out with the key's
-    strides (a transposed view where the prove passes one)."""
+    ("last", rows, n, n_in, strides of x, has pre, has scale) or ("tile", B,
+    n, n_in, lanes, strides of x, strides of the output, has pre, has row,
+    has col).  x is laid out with the key's strides (a transposed view where
+    the prove passes one); ``dit_tile``'s output is a view with the key's
+    strides, its function returns it."""
     if key[0] == "last":
         _, rows, n, n_in, strides, has_pre, has_scale = key
-        size = 1 + (rows - 1) * strides[0] + (n_in - 1) * strides[1]
-        x = torch.as_strided(random_words((size,), rng, device), (rows, n_in), strides)
+        x = strided_words((rows, n_in), strides, rng, device)
         args = (x, ntt4.tile_twiddles(n, inverse, device), n,
                 random_words((n_in,), rng, device) if has_pre else None,
                 int(rng.integers(0, gl.P, dtype=np.uint64)) if has_scale else None)
         return ntt_kernel.ntt_last, ntt_kernel.ntt_last_plain, args
-    _, B, n, lanes, has_pre = key
-    args = (random_words((B, n, lanes), rng, device),
-            ntt4.tile_twiddles(n, False, device),
-            random_words((n, lanes), rng, device) if has_pre else None)
-    return ntt_kernel.dit_axis1, ntt_kernel.dit_axis1_plain, args
+    _, B, n, n_in, lanes, xs, os_, has_pre, has_row, has_col = key
+    out = strided_words((B, n, lanes), os_, rng, device, fill=False)
+    args = (strided_words((B, n_in, lanes), xs, rng, device),
+            ntt4.tile_twiddles(n, inverse, device),
+            random_words((n_in, lanes), rng, device) if has_pre else None, n,
+            random_words((n_in,), rng, device) if has_row else None,
+            random_words((lanes,), rng, device) if has_col else None)
+    return ((lambda x, tw, pre, n, row, col: ntt_kernel.dit_tile(x, tw, pre, out, n, row, col)),
+            ntt_kernel.dit_tile_plain, args)
 
 
 def dit_mismatches(key, rng, device, inverse=False):
@@ -626,6 +664,29 @@ def last_bound(rows: int, n: int, n_in: int, pre: bool, scale: bool):
     return op_bound(nbytes, {"mul": muls, "add": butterflies, "sub": butterflies}, "gl64")
 
 
+def dit_tile_bound(B: int, n: int, n_in: int, lanes: int, pre: bool, row: bool, col: bool):
+    """Least time (ms) of one kernel 3 launch (``op_bound``): x read once,
+    the output written once, each table once; the stages after the
+    log2(n / n_in) that zero-padded rows only copy, a butterfly per two
+    words and stage; a multiply per input word and table or factor."""
+    words_in, words = B * n_in * lanes, B * n * lanes
+    nbytes = 8 * (words_in + words + n // 2 + (n_in * lanes if pre else 0)
+                  + (n_in if row else 0) + (lanes if col else 0))
+    butterflies = words * (n_in.bit_length() - 1) // 2
+    muls = words_in * (pre + row + col)
+    return op_bound(nbytes, {"twmul": butterflies, "mul": muls, "add": butterflies,
+                             "sub": butterflies}, "gl64")
+
+
+def layout_name(xs, os_) -> str:
+    """The layout of a DIT tile launch from the (row, lane) strides of x and
+    of the output: where the rows lie along the transform axis ("rows") or
+    the lanes side by side ("lanes"), and an interleaved store."""
+    def side(st):
+        return "rows" if st[0] < st[1] else "lanes"
+    return f"{side(xs)}->{side(os_)}"
+
+
 def compare_dit(key, rng, device, used_by):
     """Kernel 2 or 3 at one launched shape: the wrapper against its plain
     version (0 mismatching words required), then its times and bound."""
@@ -639,18 +700,21 @@ def compare_dit(key, rng, device, used_by):
         match = "ntt_last"
         bound = last_bound(rows, n, n_in, has_pre, has_scale)
     else:
-        B, n, lanes, has_pre = key[1:]
-        name = f"ntt_dit_axis1[B={B} n={n} lanes={lanes}{' +pre' if has_pre else ''}]"
+        B, n, n_in, lanes, xs, os_, has_pre, has_row, has_col = key[1:]
+        name = (f"dit_tile[gl64 B={B} n={n}{f' n_in={n_in}' if n_in < n else ''} "
+                f"lanes={lanes} {layout_name(xs[1:], os_[1:])}{' +pre' if has_pre else ''}"
+                f"{' +row' if has_row else ''}{' +col' if has_col else ''}]")
         replaces = "starkpack_winterfell_tpu/ops/pallas/ntt_kernel.py:224"
-        match = "ntt_dit_axis1_kernel"
-        bound = tile_bound(False, B, n, lanes, has_pre)
+        match = "dit_tile_kernel<GL64"
+        bound = dit_tile_bound(B, n, n_in, lanes, has_pre, has_row, has_col)
     timing = kernel_timing(lambda: fn(*args), match, bound["bound_ms"], ntt_kernel)
     plain_ms = time_cuda(lambda: plain(*args), 1)
     del args
     torch.cuda.empty_cache()
     return {
         "name": name, "route": "cuda",
-        "source": "starkpack_winterfell_tpu_torch/csrc/ntt_dit.cu",
+        "source": "starkpack_winterfell_tpu_torch/csrc/ntt_dit.cu"
+                  + ("" if key[0] == "last" else " + csrc/dit_tile.cuh"),
         "replaces": replaces,
         "used_by": [used_by], "launches": 0, "launches_by_path": {},
         "max_abs_err": err, **timing,
@@ -663,9 +727,10 @@ def phase_dit_kernels(rng, device):
     """Both DIT kernels against their plain versions at fixed shapes before
     any prove runs: ``ntt_last`` at every length 2 ... 4096, forward and
     inverse, with and without the pre-multiply and the scale, zero-padded
-    rows, transposed views, one row and ragged row blocks; ``dit_axis1`` at
-    the smallest and the largest length, one lane, ragged lane groups, with
-    and without the pre-multiply.  The shapes the proves launch are compared,
+    rows, transposed views, one row and ragged row blocks; ``dit_tile`` at
+    lengths 2 ... 4096 in each layout (lanes side by side or rows along the
+    transform axis, in and out), one lane, ragged lane groups, with and
+    without the pre-multiply.  The shapes the proves launch are compared,
     and timed, in the proves' own phases."""
     keys = [("last", rows, 1 << bits, 1 << bits, (1 << bits, 1), pre, sc)
             for bits, rows in zip(range(1, 13), (5000, 257, 3, 1000, 33, 25, 7, 300, 2, 9, 1, 3))
@@ -673,16 +738,26 @@ def phase_dit_kernels(rng, device):
     keys += [("last", 25, 64, 8, (8, 1), True, False), ("last", 3, 4096, 512, (512, 1), True, True),
              ("last", 70000, 4, 4, (1, 70000), False, True), ("last", 5, 32, 4, (4, 1), True, False),
              ("last", 33, 128, 128, (1, 33), True, True)]
-    keys += [("axis1", 3, 2, 3, True), ("axis1", 2, 64, 130, False),
-             ("axis1", 2, 64, 130, True), ("axis1", 5, 256, 768, True),
-             ("axis1", 2, 4096, 9, True), ("axis1", 1, 4096, 4, False)]
+    for B, n, lanes, pre in ((3, 2, 3, True), (2, 64, 130, False), (2, 64, 130, True),
+                             (5, 256, 768, True), (2, 4096, 9, True), (1, 4096, 4, False),
+                             (1, 16, 1, False), (4, 1024, 37, True)):
+        lanes_major = (n * lanes, lanes, 1)
+        rows_major = (n * lanes, 1, n)
+        for xs, os_ in ((lanes_major, lanes_major), (lanes_major, rows_major),
+                        (rows_major, rows_major)):
+            keys.append(("tile", B, n, n, lanes, tuple(0 if d == 1 else st for d, st in
+                                                       zip((B, n, lanes), xs)),
+                         tuple(0 if d == 1 else st for d, st in zip((B, n, lanes), os_)),
+                         pre, False, False))
+    keys += [("tile", 2, 64, 16, 130, (16 * 130, 130, 1), (64 * 130, 1, 64), False, True, True),
+             ("tile", 1, 4096, 1024, 9, (0, 9, 1), (0, 1, 4096), True, True, True)]
     compared = 0
     for key in keys:
         for inverse in ((False, True) if key[0] == "last" else (False,)):
             dit_mismatches(key, rng, device, inverse)
             compared += 1
     emit("dit_kernels", names=["ntt_last_reg_kernel<LOGN>", "ntt_last_kernel",
-                               "ntt_dit_axis1<PRE>", "ntt_dit_axis1"],
+                               "dit_tile_kernel<GL64, K>"],
          tolerance="exact (modular integer arithmetic)",
          compared=compared, mismatching_words=0, shapes=[list(k) for k in keys])
 
@@ -693,11 +768,13 @@ def phase_dit_kernels(rng, device):
 
 
 # per-pipe instruction counts of the sponge's operations (``sponge_costs``),
-# from csrc/gl64_sass_count.py run by ``build_all``
+# from csrc/gl64_sass_count.py run by ``build_all``; an IMAD.WIDE at
+# IMAD_WIDE_SLOTS slots, and at one
 SPONGE_COSTS: dict = {}
+SPONGE_COSTS_WIDE1: dict = {}
 
 
-def sponge_costs(sass) -> dict:
+def sponge_costs(bp) -> dict:
     """The per-pipe instruction counts ({"imad", "alu"}) the sponge bound
     prices its operations at, by field: a multiply, an add and one row of
     an MDS product with its round-constant add, each at the cheaper (fewer
@@ -706,9 +783,7 @@ def sponge_costs(sass) -> dict:
     and its twelve small products and round-constant add priced as adds, or
     the kernel's row; the same at width 8 as ``mds_row8``; f62: ``fe_mul`` of csrc/f62.cuh or the Montgomery
     multiply of csrc/f62_mont.cuh; a row as twelve multiplies and twelve
-    adds, or the lazy Montgomery row).  ``sass``: gl64_sass_count.py's
-    output."""
-    bp = sass["by_pipe"]
+    adds, or the lazy Montgomery row).  ``bp``: ``slotted`` counts."""
 
     def comb(*terms):
         return {k: sum(n * c[k] for n, c in terms) for k in ("imad", "alu")}
@@ -727,7 +802,7 @@ def sponge_costs(sass) -> dict:
     }
 
 
-def sponge_bound(layout, rows: int, n_elems, search: bool = False):
+def sponge_bound(layout, rows: int, n_elems, search: bool = False, costs=None):
     """Least time (ms) of one sponge launch: the input words read once and
     the digests written once against the memory rate, or its instructions
     against the dispatch rates, pipe by pipe (``pipe_ms``).  A Rescue-Prime
@@ -741,8 +816,9 @@ def sponge_bound(layout, rows: int, n_elems, search: bool = False):
     operation is priced at ``SPONGE_COSTS`` (IMAD-pipe and ALU-pipe
     instructions; MDS rows at the layout's width).  ``search``: a
     proof-of-work search of ``rows`` nonces, which reads nothing and writes
-    one word."""
-    cost = SPONGE_COSTS[layout.field]
+    one word.  ``costs``: SPONGE_COSTS_WIDE1 for the earlier count (an
+    IMAD.WIDE at one slot)."""
+    cost = (costs or SPONGE_COSTS)[layout.field]
     W = layout.width
     row = cost["mds_row" if W == 12 else f"mds_row{W}"]
     perms = rescue_sponge.permutations(layout, rows, n_elems)
@@ -827,6 +903,7 @@ def compare_sponge(key, rng, device, used_by):
     err = float((got - want).abs().max())
     R = SPONGE_COMPARE_ROWS
     bound_ms, bound_by = sponge_bound(args[0], R, n_elems)
+    wide1_ms = sponge_bound(args[0], R, n_elems, costs=SPONGE_COSTS_WIDE1)[0]
     timing = kernel_timing(lambda: rescue_sponge.rescue_sponge(*args), "rescue_sponge_kernel",
                            bound_ms, rescue_sponge)
     del args, got, want
@@ -842,6 +919,7 @@ def compare_sponge(key, rng, device, used_by):
         "ptxas": sponge_ptxas(name, mode),
         "max_abs_err": err, **timing,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_ms_wide_one_slot": wide1_ms,
         "library_ms": None,
     }
 
@@ -939,18 +1017,21 @@ def check_sponge(path, got, expected, rng, device, search=None):
         for k, v in seen.items():
             SEARCH_LAUNCHES_BY_PATH.setdefault(k, {})[path] = v
         fields = {"search_launches": sum(seen.values()), "search_launches_as_derived": True}
-    perms = bound_ms = 0
+    perms = bound_ms = wide1_ms = 0
     largest = {}
     for (name, mode, rows, n), v in got.items():
         n_elems = n if mode == "hash" else None
-        perms += v * rescue_sponge.permutations(rescue_sponge.LAYOUTS[name], rows, n_elems)
-        bound_ms += v * sponge_bound(rescue_sponge.LAYOUTS[name], rows, n_elems)[0]
+        layout = rescue_sponge.LAYOUTS[name]
+        perms += v * rescue_sponge.permutations(layout, rows, n_elems)
+        bound_ms += v * sponge_bound(layout, rows, n_elems)[0]
+        wide1_ms += v * sponge_bound(layout, rows, n_elems, costs=SPONGE_COSTS_WIDE1)[0]
         largest[(name, mode, n)] = max(rows, largest.get((name, mode, n), 0))
     t0 = time.perf_counter()
     compared = [compare_sponge_at_rows((name, mode, rows, n), rng, device)
                 for (name, mode, n), rows in sorted(largest.items())]
     return {**fields, "sponge_launches": sum(got.values()), "sponge_permutations": perms,
-            "sponge_bound_ms": bound_ms, "sponge_launches_as_derived": True,
+            "sponge_bound_ms": bound_ms, "sponge_bound_ms_wide_one_slot": wide1_ms,
+            "sponge_launches_as_derived": True,
             "sponge_compared_at_path_rows": compared,
             "sponge_compare_at_path_rows_s": time.perf_counter() - t0}
 
@@ -1218,49 +1299,85 @@ def mismatching(got, want):
     return sum(int((g != w).sum()) for g, w in zip(got, want))
 
 
-def limb_tile_bound(field: str, n: int, B: int, lanes: int, has_pre: bool):
-    """Least time (ms) for one limb tile transform; see ``tile_bound``."""
-    elems = B * n * lanes
+def limb_tile_bound(key):
+    """Least time (ms) of one kernel 4 launch at a ``limb_ntt.shape_key``
+    (``op_bound``): x read once (a broadcast one once for all groups), the
+    output written once, each table once; the stages after the
+    log2(n / n_in) that zero-padded rows only copy, a butterfly (a twiddle
+    product, an add and a subtract) per two elements and stage, whatever
+    products by 1 the kernel skips; a multiply per input element and table
+    or factor, and per output element for the scale."""
+    field, _, G, D, n, n_in, lanes, xs, _, ps, has_row, has_col, has_scale = key
     el_bytes = get_backend(field).ELEMENT_BYTES
-    nbytes = el_bytes * (2 * elems + n // 2 + (n * lanes if has_pre else 0))
-    butterflies = elems * (n.bit_length() - 1) // 2
-    muls = butterflies + (elems if has_pre else 0)
-    return op_bound(nbytes, {"mul": muls, "add": butterflies, "sub": butterflies}, field)
+    B = G * D
+    x_elems = (D if G > 1 and xs[0] == 0 else B) * n_in * lanes
+    out_elems = B * n * lanes
+    tables = (n // 2 + (n_in * lanes if ps is not None else 0)
+              + (G * n_in if has_row else 0) + (G * lanes if has_col else 0))
+    nbytes = el_bytes * (x_elems + out_elems + tables)
+    butterflies = out_elems * (n_in.bit_length() - 1) // 2
+    muls = (B * n_in * lanes * ((ps is not None) + has_row + has_col)
+            + (out_elems if has_scale else 0))
+    return op_bound(nbytes, {"twmul": butterflies, "mul": muls, "add": butterflies,
+                             "sub": butterflies}, field)
+
+
+def limb_tile_name(key) -> str:
+    field, inverse, G, D, n, n_in, lanes, xs, os_, ps, has_row, has_col, has_scale = key
+    opts = "".join([" +bcast" if G > 1 and xs[0] == 0 else "",
+                    " +interleaved" if G > 1 and os_[0] == 1 else "",
+                    f" n_in={n_in}" if n_in < n else "", " +pre" if ps is not None else "",
+                    " +row" if has_row else "", " +col" if has_col else "",
+                    " +scale" if has_scale else ""])
+    return (f"limb_dit_tile[{field} {'inverse' if inverse else 'forward'} G={G} D={D} n={n} "
+            f"lanes={lanes} {layout_name(xs[2:], os_[2:])}{opts}]")
+
+
+def limb_tile_inputs(key, rng, device):
+    """(run, plain) of one kernel 4 shape: the wrapper on views laid out with
+    the key's strides (x, pre and a new output) and random tables, and its
+    plain version on the same inputs."""
+    field, inverse, G, D, n, n_in, lanes, xs, os_, ps, has_row, has_col, has_scale = key
+    F = get_backend(field).F
+
+    def view(shape, strides, fill=True):
+        size = 1 + sum((d - 1) * st for d, st in zip(shape, strides))
+        flat = random_limb(field, (size,), rng, device) if fill else tuple(
+            torch.empty(size, dtype=torch.int64, device=device) for _ in range(F.n))
+        return tuple(torch.as_strided(l, shape, strides) for l in flat)
+
+    x = view((G, D, n_in, lanes), xs)
+    out = view((G, D, n, lanes), os_, fill=False)
+    pre = view((n_in, lanes), ps) if ps is not None else None
+    row = random_limb(field, (G, n_in), rng, device) if has_row else None
+    col = random_limb(field, (G, lanes), rng, device) if has_col else None
+    scale = int(rng.integers(1, 1 << 62)) if has_scale else None
+    tw = limb_ntt.tile_twiddles(F, n, inverse, device)
+    return (lambda: limb_ntt.tile(F, x, tw, n, pre, row, col, scale, out, inverse),
+            lambda: limb_ntt.tile_plain(F, x, tw, n, pre, row, col, scale))
 
 
 def compare_limb_tile(key, rng, device, used_by):
     """Kernel 4 at one launched shape: the wrapper against its plain version
-    (0 mismatching words required), then the tile transform's time."""
-    field, inverse, B, n, lanes, has_pre = key
-    F = get_backend(field).F
-    if has_pre:
-        a = random_limb(field, (B, lanes, n), rng, device)
-        pre = random_limb(field, (lanes, n), rng, device)
-    else:
-        a = random_limb(field, (lanes, n), rng, device)
-        pre = None
-    got = limb_ntt.ntt_last_axis(F, a, inverse, pre)
-    want = limb_ntt.ntt_last_axis_plain(F, a, inverse, pre)
+    (0 mismatching words required), then its times and bound."""
+    run, plain = limb_tile_inputs(key, rng, device)
+    got, want = run(), plain()
     torch.cuda.synchronize()
     mism = mismatching(got, want)
     if mism:
-        raise RuntimeError(f"limb_ntt_tile disagrees with its plain version in "
-                           f"{mism} words at {key}")
+        raise RuntimeError(f"limb dit_tile disagrees with its plain version in "
+                           f"{mism} words at {limb_tile_name(key)}")
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    del got, want, a
-    x = random_limb(field, (B, n, lanes), rng, device)
-    pt = random_limb(field, (n, lanes), rng, device) if has_pre else None
-    tw = limb_ntt.tile_twiddles(F, n, inverse, device)
-    bound = limb_tile_bound(field, n, B, lanes, has_pre)
-    timing = kernel_timing(lambda: limb_ntt._tile_launch(F, x, tw, pt, inverse),
-                           "limb_ntt_tile_kernel", bound["bound_ms"], limb_ntt)
-    plain_ms = time_cuda(lambda: limb_ntt.tile_plain(F, x, tw, pt), 1)
+    del got, want
+    bound = limb_tile_bound(key)
+    timing = kernel_timing(run, "dit_tile_kernel<F", bound["bound_ms"], limb_ntt)
+    plain_ms = time_cuda(plain, 1)
+    del run, plain
     torch.cuda.empty_cache()
     return {
-        "name": f"limb_ntt_tile[{field} {'inverse' if inverse else 'forward'} B={B} n={n} "
-                f"lanes={lanes}{' +pre' if has_pre else ''}]",
+        "name": limb_tile_name(key),
         "route": "cuda",
-        "source": "starkpack_winterfell_tpu_torch/csrc/limb_ntt_tile.cu",
+        "source": "starkpack_winterfell_tpu_torch/csrc/limb_ntt_tile.cu + csrc/dit_tile.cuh",
         "replaces": "starkpack_winterfell_tpu/ops/pallas/limb_kernel.py:151",
         "used_by": [used_by], "launches": 0, "launches_by_path": {},
         "max_abs_err": err, **timing,
@@ -1767,13 +1884,23 @@ def dit_keys(batch: int, n: int, comps: int, n_in: int = None, pre: bool = False
     along their last axis: up to ``ntt_kernel.MAX_TILE_N`` points one
     ``ntt_last`` a component (rows of ``n_in`` zero-padded to n, a
     pre-multiply table, the inverse's scale), above it the four-step
-    split's two ``dit_axis1`` launches a component."""
+    split's two ``dit_tile`` launches a component: over n1 on the rows
+    viewed (batch, n_in / n2, n2), zero-padded to n1 rows (a coset LDE's
+    rows also times the offset's row and column factors), stored
+    transposed, then over n2 on that (batch, n2, n1) array with the
+    twiddle table."""
+    n_in = n if n_in is None else n_in
     if n <= ntt_kernel.MAX_TILE_N:
-        n_in = n if n_in is None else n_in
         return [("dit", "last", batch, n, n_in, (n_in, 1), pre, scale)] * comps
     n1 = 1 << ((n.bit_length() - 1) // 2)
-    return [("dit", "axis1", batch, n1, n // n1, False),
-            ("dit", "axis1", batch, n // n1, n1, True)] * comps
+    n2 = n // n1
+    rows = n_in // n2
+    coset = n_in < n
+    return [("dit", "tile", batch, n1, rows, n2,
+             (0 if batch == 1 else n_in, n2 if rows > 1 else 0, 1),
+             (0 if batch == 1 else n, 1, n1), False, coset, coset),
+            ("dit", "tile", batch, n2, n2, n1, (0 if batch == 1 else n, n1, 1),
+             (0 if batch == 1 else n, n1, 1), True, False, False)] * comps
 
 
 def perm_launches(n: int, length: int, options) -> collections.Counter:
@@ -2004,6 +2131,7 @@ def sponge_search_phase(kernel_rows, rng, device):
             raise RuntimeError(f"{hasher.NAME}: the search disagrees with its plain version "
                                f"({mism} digest words, nonce {nonce} against {plain_nonce})")
         bound_ms, bound_by = sponge_bound(layout, batch, None, search=True)
+        wide1_ms = sponge_bound(layout, batch, None, search=True, costs=SPONGE_COSTS_WIDE1)[0]
         timing = kernel_timing(
             lambda: rescue_sponge.first_merge_with_int(layout, elems, 1, batch, SEARCH_BITS,
                                                        device),
@@ -2019,7 +2147,7 @@ def sponge_search_phase(kernel_rows, rng, device):
             "ptxas": sponge_ptxas(hasher.NAME, "search"),
             "max_abs_err": float((got - want).abs().max()), **timing,
             "plain_ms": start.elapsed_time(end), "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None,
+            "bound_ms_wide_one_slot": wide1_ms, "library_ms": None,
         }
         del got, want
     for hasher in SEARCH_HASHERS:
@@ -2070,7 +2198,8 @@ def build_all():
          emitted_lines={os.path.relpath(p, root): open(p).read().count("\n")
                         for p in emitted},
          ptxas={name: ptxas_report(native.BUILD_LOGS, name) for name in native.BUILD_LOGS},
-         sponge_costs=SPONGE_COSTS, pipe_costs=PIPE_COSTS)
+         sponge_costs=SPONGE_COSTS, pipe_costs=PIPE_COSTS, imad_wide_slots=IMAD_WIDE_SLOTS,
+         pipe_costs_wide_one_slot=PIPE_COSTS_WIDE1)
     report = ptxas_report(native.BUILD_LOGS, rescue_sponge.kernel_source()[0])
     if report is None:
         raise RuntimeError("the sponge library was not built by this run: no ptxas report")
@@ -2080,13 +2209,32 @@ def build_all():
     if len(SPONGE_PTXAS) != 3 * len(rescue_sponge.LAYOUTS) or spilled:
         raise RuntimeError(f"the sponge kernel's {3 * len(rescue_sponge.LAYOUTS)} "
                            f"instantiations (layout x mode) must not spill: {SPONGE_PTXAS}")
+    # kernels 3 and 4: dit_tile_kernel<field, K> on Goldilocks, f128 and f62
+    tiles = {}
+    for lib in ("starknttdit", "starklimbntt"):
+        report = ptxas_report(native.BUILD_LOGS, lib)
+        if report is None:
+            raise RuntimeError(f"{lib} was not built by this run: no ptxas report")
+        tiles.update({k: v for k, v in report["kernels"].items() if "dit_tile_kernel" in k})
+    spilled = {k: v for k, v in tiles.items()
+               if v.get("spill_store_bytes") or v.get("spill_load_bytes")}
+    if len(tiles) != 3 or spilled:
+        raise RuntimeError(f"the DIT tile kernel's 3 instantiations (one a field) must not "
+                           f"spill: {tiles}")
 
 
 def sass_costs():
-    """``SPONGE_COSTS`` and ``PIPE_COSTS`` from one run of the counter."""
+    """``SPONGE_COSTS`` and ``PIPE_COSTS`` from one run of the counter, an
+    IMAD.WIDE at IMAD_WIDE_SLOTS slots, and at one (the ``_WIDE1`` ones);
+    the one-pipe count of kernel 4's f62 twiddle product (a form the
+    fixed one-pipe counts do not have) from the same run."""
     sass = sass_count()
-    SPONGE_COSTS.update(sponge_costs(sass))
-    PIPE_COSTS.update(pipe_costs(sass))
+    for slots, pipe, sponge in ((IMAD_WIDE_SLOTS, PIPE_COSTS, SPONGE_COSTS),
+                                (1, PIPE_COSTS_WIDE1, SPONGE_COSTS_WIDE1)):
+        bp = slotted(sass["by_pipe"], slots)
+        pipe.update(pipe_costs(bp))
+        sponge.update(sponge_costs(bp))
+    ONE_PIPE["f62"]["twmul"] = sum(sass["by_pipe"]["f62_twmul"][k] for k in ("imad", "alu"))
 
 
 def sass_count() -> dict:

@@ -3,7 +3,7 @@
 constraint kernel on one NVIDIA GPU, for one checkout of the port: this one,
 or another commit unpacked beside it.
 
-    python3 kernel_times.py [--root DIR] [--prove] [--only ntt|cons|ext|limb_ext|sponge] [--variants]
+    python3 kernel_times.py [--root DIR] [--prove] [--only ntt|k34|cons|ext|limb_ext|sponge] [--variants]
 
 ``--root`` names the directory whose ``starkpack_winterfell_tpu_torch``
 package is measured (default: the one beside this script), so that two
@@ -26,7 +26,21 @@ measurement:
   entries at the shapes the big-trace and small-trace proves use): device
   time of the NTT kernels, of everything else, and kernel launches per call;
 * ``host``: host microseconds per wrapper call, perf_counter over 1000 calls
-  with no synchronisation (the kernel wrappers of kernels 1, 3 and 4);
+  with no synchronisation (the kernel wrappers of kernels 1 and 3, kernel
+  4's entry ``ntt_last_axis``);
+* ``entry_kernels``: the entries whose eager passes kernels 3 and 4 took in
+  (``time_folded_entries``: the coset LDE of the Lamport 1024 trace over
+  f128, the same over f62, perm's f64 four-step transform): device time of
+  the kernels, of everything else, and its kernel count; with ``--variants``
+  (this checkout only) also with the lanes a block stages halved and
+  doubled;
+* ``prove_kernels``: kernels 3 and 4 summed over one whole Lamport 1024
+  prove and one whole perm 4 x 2^20 quadratic prove
+  (``time_prove_kernels``), with the prove's walls;
+* ``tile_sass`` (this checkout only): kernels 3 and 4's SASS by pipe
+  (``time_tile_sass``);
+* ``imad`` (this checkout only): the IMAD.WIDE microbenchmark
+  (``time_imad``): one slot of the IMAD pipe or two;
 * ``prove`` (with ``--prove``): one warm and one timed 2^20 x 12 Rescue-chain
   prove: its phase walls, peak device memory and kernel launches;
 * ``cons``: kernel 5, the constraint kernel (``time_cons``), at the
@@ -51,7 +65,9 @@ measurement:
   checkout only) first the kernel at each S-box group size
   (``time_sponge_groups``): ptxas's registers and spills, device ms.
 
-``--only`` times the NTT kernels alone (``ntt``), kernel 5 alone (``cons``)
+``--only`` times the NTT kernels alone (``ntt``), kernels 3 and 4 alone
+(``k34``: ``entry_kernels``, ``tile_sass``, ``imad``, ``prove_kernels``),
+kernel 5 alone (``cons``)
 or the eager extension-field steps alone (``ext`` on f64, ``limb_ext`` on
 f128).  ``cons_args`` and
 ``hold_cons`` also build and check ``chip_smoke.py``'s kernel-5 inputs.
@@ -685,6 +701,363 @@ def time_sponge_groups(label, dev):
         rsp.SBOX_GROUP = old
 
 
+# kernels 3 and 4 by the names nvcc gives them, before their redesign and
+# after it (the Goldilocks and the limb instantiations of csrc/dit_tile.cuh)
+KERNEL3 = ("ntt_dit_axis1_kernel", "dit_tile_kernel<GL64")
+KERNEL4 = ("limb_ntt_tile_kernel", "dit_tile_kernel<F")
+
+
+def main_proves():
+    """{name: function building (prover, traces)} of the proves whose kernel 3
+    and 4 time ``time_prove_kernels`` reads, chip_smoke.py's: 1024 Lamport+
+    signatures in one 2^20 x 14 f128 trace (BLAKE3-192, bench options;
+    lamport_agg_main), the Rescue128 chain of 2^18 x 6 f128 at degree 1 and
+    at quadratic (limb_main, limb_ext_main), fib over f62 2 x 2^20 at cubic
+    with Rp62_248 (rp62_main) and perm 4 x 2^20 at quadratic (BLAKE3-256;
+    aux_main); each built when its turn comes."""
+    from starkpack_winterfell_tpu_torch import Blake3_192, Blake3_256, FieldExtension, ProofOptions
+    from starkpack_winterfell_tpu_torch.crypto.rescue62 import Rp62_248
+    from starkpack_winterfell_tpu_torch.models import lamport128_agg as lagg
+    from starkpack_winterfell_tpu_torch.models.fib_multifield import get_fib_family
+    from starkpack_winterfell_tpu_torch.models.permutation import PermProver, build_perm_trace
+    from starkpack_winterfell_tpu_torch.models.rescue128_chain import (
+        Rescue128ChainProver, build_rescue128_chain_trace)
+
+    def options(ext):
+        return ProofOptions(28, 8, 16, ext, 4, 31)
+
+    def lamport():
+        messages, _, sigs = lagg.make_wallet(1024, 127, seed=1)
+        prover = lagg.Lamport128AggProver(options(FieldExtension.NONE), Blake3_192)
+        return prover, [lagg.build_lamport128_agg_trace(messages, sigs, 127)]
+
+    def chain(ext):
+        return (Rescue128ChainProver(options(ext), Blake3_256),
+                [build_rescue128_chain_trace([7, 9], (1 << 18) // 8)])
+
+    def rp62():
+        _, fib_build, fib_prover, _ = get_fib_family("f62")
+        return (fib_prover(options(FieldExtension.CUBIC), Rp62_248),
+                [fib_build(1 << 20) for _ in range(2)])
+
+    def perm():
+        prover = PermProver(options(FieldExtension.QUADRATIC), Blake3_256)
+        return prover, [build_perm_trace(s, 1 << 20) for s in (3, 5, 7, 11)]
+
+    return {"lamport 1024 (2^20 x 14 f128)": lamport,
+            "f128 chain 2^18 x 6": lambda: chain(FieldExtension.NONE),
+            "f128 chain 2^18 x 6 quadratic": lambda: chain(FieldExtension.QUADRATIC),
+            "rp62_main fib-f62 2 x 2^20 cubic": rp62,
+            "perm 4 x 2^20 quadratic": perm}
+
+
+def time_prove_kernels(label, dev):
+    """Kernels 3 and 4 in whole proves (``main_proves``): one warm-up prove,
+    one timed (its wall, phase walls and peak device memory over the bytes
+    of its main LDE, less what was resident before), then one under the
+    profiler: the summed device ms and launches of each kernel, the device
+    ms and kernel count of everything else.  A prove records several
+    hundred thousand kernels, so the profiler's dropped records (see
+    ``profile_calls``) can shave the counts a little; the launch counts
+    say whether each kernel's were whole."""
+    from starkpack_winterfell_tpu_torch.parallel import full_pipeline
+
+    for name, build in main_proves().items():
+        full_pipeline._TABLE_CACHE.clear()
+        torch.cuda.empty_cache()
+        prover, traces = build()
+        timed_prove(prover, traces)  # warm: builds, cached tables
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        _, seconds, phases = timed_prove(prover, traces)
+        peak = torch.cuda.max_memory_allocated() - resident
+        lde_bytes = (len(traces) * traces[0].width * traces[0].length * 8
+                     * traces[0].spec.ELEMENT_BYTES)
+        # the limb path's memory check reads the card's free memory: hand the
+        # cached blocks back before each prove
+        torch.cuda.empty_cache()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            prover.prove(len(traces), traces)
+            torch.cuda.synchronize()
+            profiled_s = time.perf_counter() - t0
+        events = _device_events(prof)
+        if not events:
+            raise ProfilerDroppedRecords(f"{name}: the prove was not recorded")
+        k3, _ = split_call(events, KERNEL3)
+        k4, _ = split_call(events, KERNEL4)
+        _, other = split_call(events, KERNEL3 + KERNEL4)
+        emit("prove_kernels", root=label, prove=name, steady_prove_s=seconds,
+             phases_ms=dict(phases), peak_over_main_lde=peak / lde_bytes,
+             profiled_wall_s=profiled_s,
+             kernel3_launches=len(k3), kernel3_device_ms=sum(k3) / 1e3,
+             kernel4_launches=len(k4), kernel4_device_ms=sum(k4) / 1e3,
+             other_device_ms=other / 1e3, other_device_kernels=len(events) - len(k3) - len(k4))
+        del prover, traces
+        torch.cuda.empty_cache()
+
+
+def time_folded_entries(label, dev, lg_shifts=(0,)):
+    """One call of each of the entry points whose eager passes the kernels
+    took in, at the shapes of the main proves: the f128 coset LDE of
+    the Lamport 1024 trace (14 columns of 2^20 coefficients, blowup 8), the
+    same over f62 (4 columns, rp62_main's), and the f64 four-step transforms
+    of perm's 2^23-point composition and of 2^20 points (8 rows each: the
+    two sizes of the perm prove).  Device ms of kernels 3 and
+    4 (each launch's too), launches, the device ms and count of every other
+    kernel in the call, and the wall.  ``lg_shifts``: also with the lanes a
+    block stages (``limb_ntt.block_shape``) scaled by 2^shift at every
+    launch, where the block still fits."""
+    from starkpack_winterfell_tpu_torch.ops import gl64 as gl, limb_ntt, ntt_kernel
+    from starkpack_winterfell_tpu_torch.ops.backend import get_backend
+
+    rng = np.random.default_rng(5)
+    units = {}
+    for field, cols in (("f128", 14), ("f62", 4)):
+        F = get_backend(field).F
+        coeffs = random_limb(field, (cols, 1 << 20), rng, dev)
+        units[f"{field} evaluate_poly_with_offset {cols} x 2^20 -> x8"] = (
+            lambda F=F, c=coeffs: F.evaluate_poly_with_offset(c, 7, 8), KERNEL4)
+    x = gl.from_u64(rng.integers(0, gl.P, size=(8, 1 << 23), dtype=np.uint64), dev)
+    units["f64 four_step_ntt 8 x 2^23 inverse"] = (
+        lambda: ntt_kernel.four_step_ntt((x,), True), KERNEL3)
+    units["f64 four_step_ntt 8 x 2^20 inverse"] = (
+        lambda: ntt_kernel.four_step_ntt((x[:, : 1 << 20],), True), KERNEL3)
+    rule = getattr(limb_ntt, "block_shape", None)
+    for shift in lg_shifts:
+        if shift:
+            def shifted(el_bytes, n, B, lanes, contiguous, *target, shift=shift):
+                log_lg, k, threads = rule(el_bytes, n, B, lanes, contiguous, *target)
+                lg = 1 << max(0, log_lg + shift)
+                if el_bytes * (n // 2 + n * lg) > limb_ntt.SMEM_PER_BLOCK:
+                    return log_lg, k, threads
+                tasks = (n >> min(k, n.bit_length() - 1)) * lg
+                return lg.bit_length() - 1, k, min(limb_ntt.MAX_THREADS, max(32, tasks))
+            limb_ntt.block_shape = ntt_kernel.block_shape = shifted
+        try:
+            for name, (fn, match) in units.items():
+                per_call, walls = profile_calls(fn)
+                split = [split_call(ev, match) for ev in per_call]
+                whole = [h for h, _ in split if len(h) == len(split[0][0])]
+                emit("entry_kernels", root=label, step=name, lg_shift=shift,
+                     kernel_launches=statistics.median(len(h) for h, _ in split),
+                     kernel_ms=statistics.median(sum(h) for h, _ in split) / 1e3,
+                     per_launch_ms=[statistics.median(h[i] for h in whole) / 1e3
+                                    for i in range(len(split[0][0]))],
+                     other_device_ms=statistics.median(o for _, o in split) / 1e3,
+                     other_device_kernels=statistics.median(
+                         len(ev) - len(h) for ev, (h, _) in zip(per_call, split)),
+                     wall_ms=statistics.median(walls) * 1e3)
+        finally:
+            if shift:
+                limb_ntt.block_shape = ntt_kernel.block_shape = rule
+    del units, x
+    torch.cuda.empty_cache()
+
+
+SASS_LINE = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)([^;]*);")
+
+
+def sass_functions(so: str) -> dict:
+    """{function name: [(address, opcode, operands), ...]} of a built library
+    (cuobjdump -sass)."""
+    from starkpack_winterfell_tpu_torch import native
+
+    cuobjdump = os.path.join(os.path.dirname(native.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True,
+                          check=True).stdout
+    funcs, current = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = funcs.setdefault(m.group(1), [])
+            continue
+        m = SASS_LINE.match(line)
+        if m and current is not None:
+            current.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    return funcs
+
+
+def pipe_of(op: str) -> str:
+    """The pipe gl64_sass_count.py assigns an opcode to, or its class."""
+    if re.match(r"^(IMAD\.MOV|UMOV|MOV)\b", op):
+        return "move"
+    if op.startswith("IMAD"):
+        return "imad"
+    if re.match(r"^(IADD3|ISETP|SEL|LOP3|SHF|LEA|IMNMX)\b", op):
+        return "alu"
+    if re.match(r"^(LDS|STS|LDG|STG|LD|ST)\b", op):
+        return "memory"
+    return "other"
+
+
+def time_tile_sass(label):
+    """What the SASS of kernels 3 and 4 spends beside the field arithmetic:
+    each dit_tile_kernel instantiation's instructions by pipe (static
+    counts of the whole function), the IMAD / ALU ratio against that of the
+    field's butterfly (csrc/gl64_sass_count.py), and the instructions of
+    its hottest loop (the longest one, a radix pass over its tasks)."""
+    from starkpack_winterfell_tpu_torch import native
+    from starkpack_winterfell_tpu_torch.ops import limb_ntt, ntt_kernel
+
+    limb_ntt._lib()
+    ntt_kernel._lib()
+    for lib in ("starknttdit", "starklimbntt"):
+        for name, body in sass_functions(os.path.join(native.BUILD_DIR, f"lib{lib}.so")).items():
+            if "dit_tile_kernel" not in name:
+                continue
+            loops = [(src, dst) for src, (addr, op, operands) in enumerate(body)
+                     if op == "BRA" and (m := re.search(r"0x([0-9a-f]+)", operands))
+                     and int(m.group(1), 16) < addr
+                     for dst in [next(i for i, b in enumerate(body)
+                                      if b[0] == int(m.group(1), 16))]]
+            src, dst = max(loops, key=lambda l: l[0] - l[1]) if loops else (0, 0)
+            emit("tile_sass", root=label, kernel=name,
+                 whole=dict(collections.Counter(pipe_of(op) for _, op, _ in body)),
+                 longest_loop=dict(collections.Counter(pipe_of(op) for _, op, _ in
+                                                       body[dst:src + 1])))
+
+
+# the IMAD microbenchmark (``time_imad``): CHAINS independent multiply-add
+# chains a thread, one IMAD.WIDE.U32 (64-bit result) or one IMAD (32-bit)
+# a step
+IMAD_PROBE = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+
+constexpr int CHAINS = 16;
+
+// acc[k] = lo(acc[k ^ 1]) * m: one IMAD.WIDE.U32 (32 x 32 -> 64 bits) a
+// step, in inline PTX, each product's operand another chain's last value
+// so that no product can be hoisted out of the loop (with an addend, ptxas
+// splits the 64-bit add off into IADD3s)
+extern "C" __global__ void probe_imad_wide(const uint64_t* in, uint64_t* out, int iters) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const uint32_t m = (uint32_t)in[0] | 1u;
+  uint64_t acc[CHAINS];
+#pragma unroll
+  for (int k = 0; k < CHAINS; ++k) acc[k] = in[2 + k] + t;
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int k = 0; k < CHAINS; ++k)
+      asm volatile("mul.wide.u32 %0, %1, %2;" : "=l"(acc[k]) : "r"((uint32_t)acc[k ^ 1]),
+                   "r"(m));
+  }
+  uint64_t s = 0;
+#pragma unroll
+  for (int k = 0; k < CHAINS; ++k) s ^= acc[k];
+  out[t] = s;
+}
+
+// the same with one IMAD (32 x 32 -> 32 bits) a step
+extern "C" __global__ void probe_imad(const uint64_t* in, uint64_t* out, int iters) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const uint32_t m = (uint32_t)in[0] | 1u;
+  uint32_t acc[CHAINS];
+#pragma unroll
+  for (int k = 0; k < CHAINS; ++k) acc[k] = (uint32_t)in[2 + k] + t;
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int k = 0; k < CHAINS; ++k)
+      asm volatile("mul.lo.u32 %0, %1, %2;" : "=r"(acc[k]) : "r"(acc[k ^ 1]), "r"(m));
+  }
+  uint32_t s = 0;
+#pragma unroll
+  for (int k = 0; k < CHAINS; ++k) s ^= acc[k];
+  out[t] = s;
+}
+
+extern "C" int imad_probe_launch(int wide, const void* in, void* out, int blocks,
+                                 int threads, int iters, void* stream) {
+  if (wide)
+    probe_imad_wide<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const uint64_t*)in, (uint64_t*)out, iters);
+  else
+    probe_imad<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const uint64_t*)in, (uint64_t*)out, iters);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def time_imad(label, dev):
+    """Does an IMAD.WIDE take one issue slot of the IMAD pipe or two?
+    Builds IMAD_PROBE (16 multiply chains a thread, in inline PTX), reads
+    in its SASS the instructions of each kernel's loop (cuobjdump) and
+    times each kernel over a grid that fills the card (CUDA events, median
+    of 5).  The plain kernel's loop is IMADs alone and runs the IMAD pipe at
+    its full rate, 64 lanes a clock an SM; the wide kernel's loop mixes
+    IMAD.WIDEs with IMADs (ptxas keeps 64 bits only where they are read).
+    If the wide loop is IMAD-pipe bound too, the slots an IMAD.WIDE takes
+    solve rate x (IMADs + slots x IMAD.WIDEs) = the plain loop's slot rate;
+    the shares of 132 SMs x 64 lanes x 1.98 GHz at one slot and at two are
+    given beside it, with the SM clock nvidia-smi reads."""
+    import ctypes
+
+    from starkpack_winterfell_tpu_torch import native
+
+    os.makedirs(native.BUILD_DIR, exist_ok=True)
+    src = os.path.join(native.BUILD_DIR, "imad_probe.cu")
+    with open(src, "w") as f:
+        f.write(IMAD_PROBE)
+    lib = native.build_cuda("imadprobe", [src])
+    fn = lib.imad_probe_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    funcs = sass_functions(os.path.join(native.BUILD_DIR, "libimadprobe.so"))
+    chains, iters, threads = 16, 1 << 14, 256
+    blocks = 132 * 8
+    peak = 132 * 64 * 1.98e9
+    buf = torch.arange(2 + chains, dtype=torch.int64, device=dev) * 0x9E3779B97F4A7C15
+    out = torch.empty(blocks * threads, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    found = {}
+    for wide, name in ((0, "probe_imad"), (1, "probe_imad_wide")):
+        body = funcs[name]
+        loops = [(i, next(k for k, b in enumerate(body) if b[0] == int(m.group(1), 16)))
+                 for i, (addr, op, operands) in enumerate(body)
+                 if op == "BRA" and (m := re.search(r"0x([0-9a-f]+)", operands))
+                 and int(m.group(1), 16) < addr]
+        src_i, dst_i = max(loops, key=lambda l: l[0] - l[1])
+        loop = collections.Counter(op for _, op, _ in body[dst_i:src_i + 1])
+        n_wide = sum(c for op, c in loop.items() if op.startswith("IMAD.WIDE"))
+        n_imad = loop.get("IMAD", 0)
+        # one multiply a step: a pass of the loop runs (IMADs + IMAD.WIDEs) / chains
+        # iterations of the source loop
+        unroll = (n_imad + n_wide) // chains
+
+        def run():
+            rc = fn(wide, buf.data_ptr(), out.data_ptr(), blocks, threads, iters, stream)
+            if rc != 0:
+                raise RuntimeError(f"{name}: cudaError {rc}")
+
+        times = []
+        run()
+        for _ in range(5):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        ms = statistics.median(times)
+        clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+                               capture_output=True, text=True, timeout=60).stdout.strip()
+        loops_per_s = blocks * threads * (iters // unroll) / (ms * 1e-3)
+        found[name] = (loops_per_s, n_imad, n_wide)
+        emit("imad", root=label, kernel=name, loop_opcodes=dict(loop),
+             loop_head=[f"{op}{operands}" for _, op, operands in body[dst_i:dst_i + 6]],
+             ms=ms, share_at_one_slot=loops_per_s * (n_imad + n_wide) / peak,
+             share_at_two_slots=loops_per_s * (n_imad + 2 * n_wide) / peak,
+             sm_clock_after=clock)
+    plain_rate = found["probe_imad"][0] * found["probe_imad"][1]
+    loops_per_s, n_imad, n_wide = found["probe_imad_wide"]
+    emit("imad_slots", root=label,
+         slots_of_an_imad_wide=(plain_rate / loops_per_s - n_imad) / n_wide if n_wide else None)
+
+
 def emit(kind, **fields):
     print(json.dumps({"kind": kind, **fields}), flush=True)
 
@@ -695,9 +1068,10 @@ def main(argv=None):
     p.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)),
                    help="directory holding the starkpack_winterfell_tpu_torch to time")
     p.add_argument("--prove", action="store_true", help="also time a 2^20 x 12 prove")
-    p.add_argument("--only", choices=("ntt", "cons", "ext", "limb_ext", "sponge"),
-                   help="time only the NTT kernels, only kernel 5, only the eager "
-                        "extension-field steps (f64, or f128), or only the Rescue "
+    p.add_argument("--only", choices=("ntt", "k34", "cons", "ext", "limb_ext", "sponge"),
+                   help="time only the NTT kernels, only kernels 3 and 4 (their entries, "
+                        "the SASS and IMAD probes, whole proves), only kernel 5, only the "
+                        "eager extension-field steps (f64, or f128), or only the Rescue "
                         "sponge's share of the algebraic hashers' main proves")
     p.add_argument("--variants", action="store_true",
                    help="also time kernel 5 with the emitter's rules varied, or with --only "
@@ -732,6 +1106,17 @@ def main(argv=None):
             time_sponge_groups(label, dev)
         time_sponge(label, dev)
         return 0
+    if args.only in ("ntt", "k34"):
+        # kernels 3 and 4 first: the entries whose eager passes they took in,
+        # the probes (this checkout), then whole proves while the card's
+        # memory is free
+        time_folded_entries(label, dev, (0, -1, 1) if args.variants and root == here else (0,))
+        if root == here:
+            time_tile_sass(label)
+            time_imad(label, dev)
+        time_prove_kernels(label, dev)
+        if args.only == "k34":
+            return 0
     if args.only != "ntt":
         time_cons(label, args.variants and root == here, dev)
     if args.only == "cons":
@@ -813,17 +1198,21 @@ def main(argv=None):
              other_device_kernels=statistics.median(len(ev) - len(k) for ev, (k, _) in zip(per_call, split)),
              wall_ms=statistics.median(walls) * 1e3)
 
-    # host time of one wrapper call (small shapes: the launch, not the work)
+    # host time of one wrapper call (small shapes: the launch, not the work);
+    # kernel 3 through its wrapper of either checkout, kernel 4 through the
+    # entry both checkouts have, ntt_last_axis on (128, 64) planes
     x3, tw64 = words((2, 64, 64)), ntt4.tile_twiddles(64, False, dev)
     F = get_backend("f128").F
-    lx = (words((2, 64, 64)), words((2, 64, 64)))
-    ltw = limb_ntt.tile_twiddles(F, 64, False, dev)
+    lx = (words((128, 64)), words((128, 64)))
+    dit3 = getattr(ntt_kernel, "dit_tile", None) or ntt_kernel.dit_axis1
     emit("host", root=label, us_per_call={
         "ntt_tile": host_us(lambda: ntt4.ntt_tile(x3, tw64, False)),
-        "dit_axis1": host_us(lambda: ntt_kernel.dit_axis1(x3, tw64)),
-        "limb_ntt_tile": host_us(lambda: limb_ntt._tile_launch(F, lx, ltw, None, False)),
+        "kernel 3": host_us(lambda: dit3(x3, tw64)),
+        "kernel 4 (ntt_last_axis)": host_us(lambda: limb_ntt.ntt_last_axis(F, lx, False)),
         "ntt_components n=64": host_us(lambda: ntt.ntt_components((x3[0],))),
     })
+    del x3, lx
+    torch.cuda.empty_cache()
 
     if args.prove:
         prover = RescueChainProver(options, Blake3_256)

@@ -2,7 +2,7 @@
 """Device-side profile of one steady prove of the PyTorch/CUDA port.
 
     python3 profile_prove.py [--config do-work|rescue-small|rescue-big|rp64-main|rpjive-main|
-                                        griffin-main|rp62-main]
+                                        griffin-main|rp62-main|lamport-main|perm-main]
                              [--seed N]
 
 Proves once to warm up (kernel builds, cached tables), then proves again
@@ -21,7 +21,10 @@ main paths of chip_smoke.py: ``rp64-main``, ``rpjive-main`` and
 ``griffin-main`` the 2^20 x 12 Rescue chain with Rp64_256, RpJive64_256 and
 GriffinJive64_256 (same options, big-trace path), ``rp62-main`` fib over f62, 2 x
 2^20 rows with Rp62_248 at ProofOptions(28, 8, 16, CUBIC, 4, 31) (mesh
-path).
+path), ``lamport-main`` 1024 Lamport+ signatures in one 2^20 x 14 f128 trace
+with BLAKE3-192 (mesh path, kernels 4 and 5) and ``perm-main`` perm 4 x 2^20
+at ProofOptions(28, 8, 16, QUADRATIC, 4, 31) (mesh path on f64, kernels 2
+and 3).
 
 Needs a CUDA device (exits non-zero without one) and no network.
 """
@@ -37,12 +40,24 @@ import time
 import numpy as np
 import torch
 
-from starkpack_winterfell_tpu_torch import Blake3_256, FieldExtension, ProofOptions, verify
+from starkpack_winterfell_tpu_torch import (
+    Blake3_192,
+    Blake3_256,
+    FieldExtension,
+    ProofOptions,
+    verify,
+)
 from starkpack_winterfell_tpu_torch.crypto.griffin import GriffinJive64_256
 from starkpack_winterfell_tpu_torch.crypto.rescue import Rp64_256
 from starkpack_winterfell_tpu_torch.crypto.rescue_jive import RpJive64_256
 from starkpack_winterfell_tpu_torch.crypto.rescue62 import Rp62_248
+from starkpack_winterfell_tpu_torch.models import lamport128_agg as lagg
 from starkpack_winterfell_tpu_torch.models.fib_multifield import get_fib_family
+from starkpack_winterfell_tpu_torch.models.permutation import (
+    PermAir,
+    PermProver,
+    build_perm_trace,
+)
 from starkpack_winterfell_tpu_torch.models.do_work import (
     DoWorkAir,
     DoWorkProver,
@@ -58,8 +73,8 @@ from starkpack_winterfell_tpu_torch.ops import gl64 as gl
 OPTIONS = (28, 8, 16, FieldExtension.NONE, 4, 31)
 TOP = 12
 # the port's hand-written kernels, by the names nvcc gives them
-PORT_KERNELS = ("ntt_tile_kernel", "ntt_last", "ntt_dit_axis1_kernel",
-                "limb_ntt_tile_kernel", "cons_eval_kernel", "rescue_sponge_kernel")
+PORT_KERNELS = ("ntt_tile_kernel", "ntt_last", "dit_tile_kernel", "cons_eval_kernel",
+                "rescue_sponge_kernel")
 
 
 def build(config: str, rng):
@@ -69,6 +84,15 @@ def build(config: str, rng):
     if config in chain_hashers:
         return (RescueChainAir, RescueChainProver(options, chain_hashers[config]),
                 [build_chain_trace([7] * 8, (1 << 20) // 8)])
+    if config == "lamport-main":
+        messages, _, sigs = lagg.make_wallet(1024, 127, seed=int(rng.integers(1 << 30)))
+        trace = lagg.build_lamport128_agg_trace(messages, sigs, 127)
+        return lagg.Lamport128AggAir, lagg.Lamport128AggProver(options, Blake3_192), [trace]
+    if config == "perm-main":
+        quad = ProofOptions(28, 8, 16, FieldExtension.QUADRATIC, 4, 31)
+        starts = [int(v) for v in rng.integers(1, gl.P, size=4, dtype=np.uint64)]
+        return PermAir, PermProver(quad, Blake3_256), [build_perm_trace(s, 1 << 20)
+                                                       for s in starts]
     if config == "rp62-main":
         air, fib_build, fib_prover, _ = get_fib_family("f62")
         cubic = ProofOptions(28, 8, 16, FieldExtension.CUBIC, 4, 31)
@@ -95,8 +119,10 @@ def main(argv=None):
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--config", default="do-work",
                    choices=["do-work", "rescue-small", "rescue-big", "rp64-main",
-                            "rpjive-main", "griffin-main", "rp62-main"])
-    p.add_argument("--seed", type=int, default=0, help="numpy seed of the chain seeds")
+                            "rpjive-main", "griffin-main", "rp62-main", "lamport-main",
+                            "perm-main"])
+    p.add_argument("--seed", type=int, default=0,
+                   help="numpy seed of the chain seeds, the wallet and the perm starts")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_prove.py needs a CUDA device: "
@@ -108,7 +134,11 @@ def main(argv=None):
 
     air, prover, traces = build(args.config, np.random.default_rng(args.seed))
     timed(prover, traces)  # builds, cached tables
+    # the limb path's memory check reads the card's free memory: hand the
+    # cached blocks back before each prove
+    torch.cuda.empty_cache()
     _, plain_s = timed(prover, traces)
+    torch.cuda.empty_cache()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         proof, profiled_s = timed(prover, traces)
     verify(air, proof, [prover.get_pub_inputs(t) for t in traces], prover.hasher)

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Count the integer instructions nvcc emits for the field operations of
 csrc/gl64.cuh (mul, add, sub), csrc/f128.cuh and csrc/f62.cuh (mul, sqr,
-add, sub), and for the Rescue sponge's own (csrc/rescue_sponge.cu): the
+add, sub), for the Rescue sponge's own (csrc/rescue_sponge.cu): the
 Montgomery f62 multiply of csrc/f62_mont.cuh and one row of each layout's
 MDS product with its round-constant add (Rp64_256: twelve 32 x 32-bit
 products of the state's halves, one reduction; the width-8 Jive layouts:
 eight; Rp62_248: twelve 128-bit products summed, one Montgomery
-reduction).
+reduction), and for kernel 4's f62 butterfly product (``f62_twmul``: a
+canonical word times a twiddle in Montgomery form, made canonical).
 
     python3 starkpack_winterfell_tpu_torch/csrc/gl64_sass_count.py [SASS_OUT]
 
@@ -18,7 +19,9 @@ each, Goldilocks under "int32_alu_instructions", f128 and f62 under
 "by_pipe" each probe's instructions split by the pipe that runs them:
 "imad" (IMAD and its forms, 64 lanes a clock an SM on Hopper) and "alu"
 (IADD3, LOP3, SHF, ISETP, SEL, LEA, IMNMX: the integer ALU pipe, 64 lanes a
-clock).  Moves, uniform-datapath instructions, loads, stores and control
+clock), and "imad_wide", how many of the "imad" ones are IMAD.WIDE (a
+64-bit result; kernel_times.py's ``imad`` phase times one against a plain
+IMAD).  Moves, uniform-datapath instructions, loads, stores and control
 flow are left out of "by_pipe" (uniform ones stay in the totals, as
 before).  These counts are the per-operation costs behind the operation
 bounds that chip_smoke.py computes for the kernels: the one-pipe totals for
@@ -39,10 +42,13 @@ F128_OPS = ("mul", "sqr", "add", "sub")  # probed for f128 and f62
 INT_ALU = re.compile(r"^(IMAD|IADD3|ISETP|SEL|LOP3|SHF|LEA|IMNMX|UIADD3|UIMAD|ULOP3|USHF)\b")
 MOVES = re.compile(r"^(IMAD\.MOV|UMOV|MOV)\b")
 IMAD_PIPE = re.compile(r"^IMAD\b")
+IMAD_WIDE = re.compile(r"^IMAD\.WIDE\b")
 ALU_PIPE = re.compile(r"^(IADD3|ISETP|SEL|LOP3|SHF|LEA|IMNMX)\b")
 
-# the sponge's operations: probe name -> body reading a[], writing o[0]
+# the sponge's operations and kernel 4's f62 butterfly product: probe name
+# -> body reading a[], writing o[0]
 SPONGE_PROBES = {
+    "f62_twmul": "o[0] = f62m::sub_if(f62m::mul(a[0], a[1]), f62m::P);",
     "f62m_mul": "o[0] = f62m::mul(a[0], a[1]);",
     "f62m_mds_row": (
         "uint64_t lo = 0, hi = 0;"
@@ -107,7 +113,7 @@ def count(sass_out=None):
         if m:
             current = m.group(1)
             counts[current] = 0
-            pipes[current] = {"imad": 0, "alu": 0}
+            pipes[current] = {"imad": 0, "alu": 0, "imad_wide": 0}
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\d\s+)?([A-Z0-9_.]+)", line)
         if not (m and current) or MOVES.match(m.group(1)):
@@ -117,6 +123,7 @@ def count(sass_out=None):
             counts[current] += 1
         if IMAD_PIPE.match(op):
             pipes[current]["imad"] += 1
+            pipes[current]["imad_wide"] += bool(IMAD_WIDE.match(op))
         elif ALU_PIPE.match(op):
             pipes[current]["alu"] += 1
     return {

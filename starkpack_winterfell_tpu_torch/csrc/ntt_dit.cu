@@ -8,18 +8,20 @@
 //   ntt_last       <- _make_kernel / _build_call with the entry around it,
 //       pallas_ntt_batched: the NTT of every row of a contiguous (rows, n)
 //       array along its last axis, natural order in and out, n <= 4096;
-//   ntt_dit_axis1  <- _make_kernel3 / _build_call3: all log2(n) DIT stages
-//       along axis 1 of a contiguous (B, n, lanes) array, bit-reversed rows
-//       in, natural order out, with an optional elementwise multiply of every
-//       (n, lanes) slab by a static (n, lanes) table BEFORE the stages
-//       (template flag PRE; the four-step inner twiddle, row-permuted and
-//       1/n-scaled where the table is made).
+//   dit_tile_kernel<GL64, K>  <- _make_kernel3 / _build_call3: all log2(n)
+//       DIT stages along axis 1 of a (B, n, lanes) array with an optional
+//       elementwise multiply of every (n, lanes) slab by a static table
+//       BEFORE the stages (the four-step inner twiddle, 1/n-scaled where the
+//       table is made).  The Pallas kernel takes bit-reversed rows; this one
+//       takes natural rows and bit-reverses on the load, reads and writes
+//       through strides (the four-step's transposed store), and is the
+//       Goldilocks instantiation of csrc/dit_tile.cuh, which kernel 4 shares.
 //
 // Bound on this card.  Bytes: the array read once and written once, 8 bytes
 // a word each way against 3.35 TB/s.  Operations: log2(n)/2 butterflies per
-// word at 46 32-bit integer instructions each (csrc/gl64_sass_count.py), 28
-// more per word and table multiply, against 132 SMs x 64 INT32 lanes x
-// 1.98 GHz.  From n = 16 up the operations are the larger bound.
+// word, a multiply, an add and a subtract each, and a multiply per word and
+// table, at the per-pipe instruction counts of csrc/gl64_sass_count.py.
+// From n = 16 up the operations are the larger bound.
 //
 // ntt_last.  The TPU kernel runs along axis 0 because the TPU keeps the
 // transform axis on sublanes, and its entry transposes, gathers the
@@ -43,32 +45,49 @@
 //     offset powers) and one word multiplied into the output (the inverse's
 //     1/n).
 //
-// ntt_dit_axis1.  A block stages an (n, LG) tile in dynamic shared memory,
-// runs the stages with __syncthreads() between them (gl64_stages.cuh) and
-// writes the tile back.  LG (a power of two, chosen by the wrapper) trades
-// the row segment a warp reads (LG*8 contiguous bytes) against the tile's
-// size: about 32 KB a tile where n allows it, so that several blocks share
-// an SM, and at least 4 lanes (one 32-byte sector) up to the 128 KB tile of
-// n = 4096.  The ragged last lane group is masked, never padded.
+// dit_tile_kernel<GL64, K>: see csrc/dit_tile.cuh (radix-2^K passes in
+// registers, twiddles in shared memory, several blocks per SM).
 //
 // Not carried over from the TPU kernels: the (log n, n) per-position twiddle
 // planes, the roll-and-select butterflies and the 128-lane blocks, which are
 // shapes of the TPU's vector unit.
 
+#include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "gl64_radix.cuh"
-#include "gl64_stages.cuh"
+
+// Goldilocks as a field type of the DIT tile frame (csrc/dit_tile.cuh).
+struct GL64 {
+  uint64_t v;
+
+  static constexpr int WORDS = 1;  // 64-bit words per element
+  static GL64_HD GL64 make(uint64_t v) {
+    GL64 r;
+    r.v = v;
+    return r;
+  }
+  static GL64_HD GL64 zero() { return make(0); }
+  static GL64_HD GL64 load(const uint64_t* lo, const uint64_t*, size_t i) {
+    return make(lo[i]);
+  }
+  static GL64_HD void store(uint64_t* lo, uint64_t*, size_t i, GL64 x) { lo[i] = x.v; }
+};
+
+GL64_HD GL64 fe_add(GL64 a, GL64 b) { return GL64::make(gl64::add(a.v, b.v)); }
+GL64_HD GL64 fe_sub(GL64 a, GL64 b) { return GL64::make(gl64::sub(a.v, b.v)); }
+GL64_HD GL64 fe_mul(GL64 a, GL64 b) { return GL64::make(gl64::mul(a.v, b.v)); }
+
+#include "dit_tile.cuh"
 
 namespace {
 
 constexpr int LAST_MAX_THREADS = 256;
 constexpr int LAST_K = 4;  // stages a pass of ntt_last runs in registers
 // most dynamic shared memory a launch asks for: ntt_last's twiddles of
-// n = 4096 beside a tile of at most 8192 words; ntt_dit_axis1's 128 KB tile
+// n = 4096 beside a tile of at most 8192 words
 constexpr int LAST_MAX_SMEM_BYTES = (2048 + 8192) * 8;
-constexpr int AXIS1_MAX_SMEM_BYTES = 16384 * 8;
 
 struct LastArgs {
   const uint64_t* x;    // (rows, n_in), word (r, c) at x[r * rs + c * cs]
@@ -186,56 +205,6 @@ __global__ void __launch_bounds__(LAST_MAX_THREADS)
     last_pass(a, tws, tile, row0, k0 + (ps - 1) * LAST_K, ps == passes - 1);
 }
 
-// One (n, LG) tile whose first word is x[base]: rows `lanes` words apart,
-// lanes lane0 .. lane0 + nl - 1 of every row.
-template <bool PRE>
-__device__ __forceinline__ void dit_tile(uint64_t* sm,
-                                         const uint64_t* __restrict__ x,
-                                         uint64_t* __restrict__ out,
-                                         const uint64_t* __restrict__ tw,
-                                         const uint64_t* __restrict__ pre,
-                                         size_t base, int lane0, int n,
-                                         int log_n, int lanes, int log_lg) {
-  const int lg = 1 << log_lg;
-  const int lmask = lg - 1;
-  const int nl = min(lg, lanes - lane0);  // ragged last group
-  const int total = n << log_lg;
-
-  for (int t = threadIdx.x; t < total; t += blockDim.x) {
-    const int l = t & lmask;
-    const int row = t >> log_lg;
-    if (l < nl) {
-      uint64_t v = x[base + (size_t)row * lanes + l];
-      if (PRE) v = gl64::mul(v, __ldg(pre + (size_t)row * lanes + lane0 + l));
-      sm[t] = v;
-    }
-  }
-  __syncthreads();
-
-  gl64::tile_stages<false>(sm, tw, n, log_n, log_lg);
-
-  for (int t = threadIdx.x; t < total; t += blockDim.x) {
-    const int l = t & lmask;
-    const int row = t >> log_lg;
-    if (l < nl) out[base + (size_t)row * lanes + l] = sm[t];
-  }
-}
-
-// (B, n, lanes): one block per batch entry and group of LG lanes.
-template <bool PRE>
-__global__ void ntt_dit_axis1_kernel(const uint64_t* __restrict__ x,
-                                     uint64_t* __restrict__ out,
-                                     const uint64_t* __restrict__ tw,
-                                     const uint64_t* __restrict__ pre,
-                                     int n, int log_n, int lanes, int log_lg,
-                                     int groups) {
-  extern __shared__ uint64_t sm[];
-  const int b = blockIdx.x / groups;
-  const int lane0 = (blockIdx.x % groups) << log_lg;
-  dit_tile<PRE>(sm, x, out, tw, pre, (size_t)b * n * lanes + lane0, lane0, n,
-                log_n, lanes, log_lg);
-}
-
 int log2_exact(int n) {
   int log_n = 0;
   while ((1 << log_n) < n) ++log_n;
@@ -256,15 +225,8 @@ extern "C" int ntt_dit_init() {
   cudaError_t e = cudaFuncSetAttribute(
       ntt_last_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       LAST_MAX_SMEM_BYTES);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(ntt_dit_axis1_kernel<true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             AXIS1_MAX_SMEM_BYTES);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(ntt_dit_axis1_kernel<false>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             AXIS1_MAX_SMEM_BYTES);
-  return (int)e;
+  if (e != cudaSuccess) return (int)e;
+  return dit_tile_init<GL64>();
 }
 
 // x: (rows, n_in), n_in <= n, word (r, c) at x[r * row_stride + c *
@@ -305,22 +267,16 @@ extern "C" int ntt_last_launch(const void* x, void* out, const void* tw,
   return (int)cudaGetLastError();
 }
 
-// x/out: (B, n, lanes); pre: (n, lanes) or NULL.
-extern "C" int ntt_dit_axis1_launch(const void* x, void* out, const void* tw,
-                                    const void* pre, int B, int n, int lanes,
-                                    int log_lg, int threads, void* stream) {
-  const int log_n = log2_exact(n);
-  if (log_n < 0 || lanes <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
-  const int lg = 1 << log_lg;
-  const int groups = (lanes + lg - 1) / lg;
-  const size_t smem = (size_t)n * lg * sizeof(uint64_t);
-  if (smem > (size_t)AXIS1_MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
-  auto kern = pre != nullptr ? ntt_dit_axis1_kernel<true>
-                             : ntt_dit_axis1_kernel<false>;
-  const long long grid = (long long)B * groups;
-  if (grid > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  kern<<<(unsigned)grid, threads, smem, (cudaStream_t)stream>>>(
-      (const uint64_t*)x, (uint64_t*)out, (const uint64_t*)tw,
-      (const uint64_t*)pre, n, log_n, lanes, log_lg, groups);
-  return (int)cudaGetLastError();
+// The DIT tile of csrc/dit_tile.cuh on Goldilocks words (dit_tile_launch
+// there): x and the output read and written through strides[0..7] (x: g, d,
+// c, l; out: g, d, p, l), pre through strides[8..9], row (G, n_in), col (G,
+// lanes).
+extern "C" int dit_tile_gl64_launch(const void* x, void* out, const void* tw,
+                                    const void* pre, const void* row, const void* col,
+                                    const long long* strides, int B, int n, int n_in,
+                                    int lanes, int log_lg, int n_groups, int rows_in,
+                                    int rows_out, int threads, void* stream) {
+  return dit_tile_launch<GL64>(x, nullptr, out, nullptr, tw, nullptr, pre, nullptr, row,
+                               nullptr, col, nullptr, 0, 0, 0, strides, B, n, n_in, lanes,
+                               log_lg, n_groups, rows_in, rows_out, threads, stream);
 }

@@ -15,9 +15,12 @@ twice and finishes with one conditional subtract.  f62: one 64x64 -> 128
 product, folded four times at bit 62 with 2^62 = 111*2^39 - 1 (mod p).
 
 ``ntt`` keeps the JAX package's routing: above the tile cap the four-step
-decomposition (tables log-doubled on the device), a tile through
-``ops/limb_ntt.ntt_last_axis`` — the CUDA kernel for CUDA tensors, its plain
-version for CPU tensors.  Not carried over: the numpy/native-C tiers and the
+decomposition (tables log-doubled on the device and cached), a tile through
+``ops/limb_ntt.ntt_last_axis``.  Every transform, the coset LDE among them,
+is one or two launches of the tile kernel (``ops/limb_ntt.tile``: the CUDA
+kernel for CUDA tensors, its plain version for CPU tensors), which also
+takes the bit reversal, the layout moves, the coset scales, the zero
+padding, the inverse's 1/n and the cosets' interleave.  Not carried over: the numpy/native-C tiers and the
 matrix-unit tier (``matvec`` is plain multiply-adds in ops/felt.mds_apply).
 """
 
@@ -35,6 +38,19 @@ _mul_hi_lo = gl._mul_hi_lo
 def _ult(a, b):
     """Unsigned a < b as 0/1 words (a carry or a borrow)."""
     return gl._ult(a, b).to(torch.int64)
+
+
+def _one_layout(planes):
+    """The word planes as they are where they share their strides (the
+    tile kernel reads all planes through one set), else contiguous."""
+    if all(l.stride() == planes[0].stride() for l in planes):
+        return planes
+    return tuple(l.contiguous() for l in planes)
+
+
+# tables of the transforms (coset factors, four-step twiddles), built once per
+# field, key and device by ``LimbField._cached``
+_TABLES: dict = {}
 
 
 class LimbField:
@@ -138,111 +154,178 @@ class LimbField:
         r = 1 << ((bits + 1) // 2)
         while r > cap:
             r >>= 1
-        # c = n // r may exceed cap: ntt() recurses into another four-step
-        # level on the column axis, so any n builds as a tower of tiles
+        # c = n // r may exceed cap: _four_step then transforms the columns
+        # with ntt(), another four-step level, so any n builds as a tower
         return r, n // r
 
-    def _ntt_four_step(self, a, inverse: bool, pre_row=None, pre_col=None):
-        """Four-step NTT along the last axis (n = r*c):
+    def _cached(self, key, build):
+        """A table built once per field, key and device (the key names the
+        device)."""
+        key = (self.NAME,) + key
+        if key not in _TABLES:
+            _TABLES[key] = build()
+        return _TABLES[key]
 
-          M[t1, t2] = x[t1*c + t2]          (view (..., r, c))
-          A[j1, t2] = NTT_r over t1         (tile transform, axis -2)
-          A        *= w_n^{+-j1*t2}         (T table, built on the device)
-          O[j1, j2] = NTT_c over t2         (tile transform, axis -1)
-          X[j1 + r*j2] = O[j1, j2]          (swapaxes + reshape)
+    def _coset_factors(self, domain_offset: int, blowup: int, n: int, r: int, device):
+        """Input factors of the coset LDE of length-n coefficients: coset g
+        of the blowup scales coefficient t by s_g^t, s_g = offset * g_L^g.
+        r = n: the (blowup, n) series; r < n (the four-step split n = r*c):
+        s_g^t = (s_g^c)^{t1} * s_g^{t2} as a row factor (blowup, r) and a
+        column factor (blowup, c).  Returns (row, col), col None for r = n."""
 
-        pre_row/pre_col: optional input scales s^{c*t1} / s^{t2} (word
-        planes broadcastable against (..., r, 1) / (..., 1, c)): a
-        power-series input scaling s^t factors through the tile split, so
-        coset offsets never materialize length-n tables."""
-        n = a[0].shape[-1]
-        device = a[0].device
-        r, c = self._split_tiles(n, self._tile_cap())
-        root = self.get_root_of_unity(n.bit_length() - 1)
-        if inverse:
-            root = pow(root, self.P - 2, self.P)
-        w_pows = self.from_ints([pow(root, j, self.P) for j in range(r)], device)
-        T = self._pow_series(tuple(l[:, None] for l in w_pows), c)  # (r, c)
-        M = tuple(l.reshape(l.shape[:-1] + (r, c)) for l in a)
-        if pre_row is not None:
-            M = self.mul(M, pre_row)
-        if pre_col is not None:
-            M = self.mul(M, pre_col)
-        Am = tuple(l.movedim(-2, -1) for l in M)  # (..., c, r)
-        A = self.ntt(Am, inverse=inverse, scale=False)
-        A = tuple(l.movedim(-1, -2) for l in A)  # (..., r, c)
-        if c <= self._tile_cap():
-            from . import limb_ntt
+        def build():
+            L = n * blowup
+            g_L = self.get_root_of_unity(L.bit_length() - 1) if blowup > 1 else 1
+            s_list = [domain_offset * pow(g_L, k, self.P) % self.P for k in range(blowup)]
+            c = n // r
+            row_b = self.from_ints([pow(s, c, self.P) for s in s_list], device)
+            row = self._pow_series(tuple(l.reshape(blowup, 1) for l in row_b), r)
+            if c == 1:
+                return tuple(l.contiguous() for l in row), None
+            col_b = self.from_ints(s_list, device)
+            col = self._pow_series(tuple(l.reshape(blowup, 1) for l in col_b), c)
+            return tuple(l.contiguous() for l in row), tuple(l.contiguous() for l in col)
 
-            # the twiddle multiply rides in the tile transform's pre-multiply
-            O = limb_ntt.ntt_last_axis(self, A, inverse, pre=T)
-        else:
-            O = self.ntt(self.mul(A, T), inverse=inverse, scale=False)
-        return tuple(l.transpose(-1, -2).reshape(l.shape[:-2] + (n,)) for l in O)
+        return self._cached(("coset", domain_offset % self.P, blowup, n, r, str(device)), build)
+
+    def _four_step_table(self, n: int, r: int, inverse: bool, scaled: bool, device):
+        """(c, r) inner twiddle of the four-step split n = r*c:
+        root^(j1*t2) at [t2, j1], times 1/n for a scaled inverse."""
+
+        def build():
+            c = n // r
+            root = self.get_root_of_unity(n.bit_length() - 1)
+            if inverse:
+                root = pow(root, self.P - 2, self.P)
+            bases = self._pow_series(self.from_int(root, (1,), device), c)  # root^t2
+            T = self._pow_series(tuple(l.reshape(c, 1) for l in bases), r)
+            if scaled:
+                T = self.mul(T, self.from_int(pow(n, self.P - 2, self.P), (), device))
+            return tuple(l.contiguous() for l in T)
+
+        return self._cached(("four_step", n, r, bool(inverse), bool(scaled), str(device)),
+                            build)
+
+    def _four_step(self, x, inverse: bool, scaled: bool, out, row=None, col=None):
+        """Four-step NTT along the last axis of x, word planes (G, D, n) with
+        any strides (G groups of D transforms), written into ``out``, planes
+        (G, D, n) with any strides (n = r*c):
+
+          M[t1, t2] = x[t1*c + t2]          (view (G, D, r, c))
+          A[j1, t2] = NTT_r over t1         (tile launch; input times the
+                                             row / col factors, (G, r) and
+                                             (G, c); stored transposed, A^T)
+          O[j2, j1] = NTT_c over t2 of A^T times w_n^{+-j1*t2}
+                                            (tile launch; the twiddle, and a
+                                             scaled inverse's 1/n, as its
+                                             pre-multiply table)
+          X[j1 + r*j2] = O[j2, j1]          (the second launch's store)
+
+        No gather, transpose or multiply runs beside the two launches.  With
+        c above the tile cap the second step is an eager transpose, multiply
+        and ntt() of its own (n above cap^2)."""
+        from . import limb_ntt
+
+        G, D, n = x[0].shape
+        device = x[0].device
+        cap = self._tile_cap()
+        r, c = self._split_tiles(n, cap)
+
+        def view4(planes, shape, strides):
+            return tuple(torch.as_strided(l, shape, strides, l.storage_offset())
+                         for l in planes)
+
+        sg, sd, sn = x[0].stride()
+        m = view4(x, (G, D, r, c), (sg, sd, c * sn, sn))
+        at = tuple(torch.empty((G, D, c, r), dtype=torch.int64, device=device)
+                   for _ in range(self.n))
+        limb_ntt.tile(self, m, limb_ntt.tile_twiddles(self, r, inverse, device), row=row,
+                      col=col, out=tuple(l.transpose(2, 3) for l in at), inverse=inverse)
+        T = self._four_step_table(n, r, inverse, scaled, device)
+        og, od, on = out[0].stride()
+        if c <= cap:
+            limb_ntt.tile(self, at, limb_ntt.tile_twiddles(self, c, inverse, device), pre=T,
+                          out=view4(out, (G, D, c, r), (og, od, r * on, on)),
+                          inverse=inverse)
+            return out
+        o = self.ntt(tuple(l.transpose(2, 3).contiguous()
+                           for l in self.mul(at, T)), inverse=inverse, scale=False)
+        for dst, src in zip(view4(out, (G, D, r, c), (og, od, on, r * on)), o):
+            dst.copy_(src)
+        return out
 
     def ntt(self, a, inverse: bool = False, scale: bool = True):
         """Transform along the last axis of a word-plane tuple (each plane
         shaped (..., n)); natural order in and out."""
+        from . import limb_ntt
+
         n = a[0].shape[-1]
         if n == 1:
             return a
-        if n > self._tile_cap():
-            a = self._ntt_four_step(a, inverse)
-        else:
-            from . import limb_ntt
-
-            a = limb_ntt.ntt_last_axis(self, a, inverse)
-        if inverse and scale:
-            n_inv = self.from_int(pow(n, self.P - 2, self.P), (), a[0].device)
-            a = self.mul(a, n_inv)
-        return a
+        scaled = inverse and scale
+        if n <= self._tile_cap():
+            return limb_ntt.ntt_last_axis(
+                self, _one_layout(a), inverse, pow(n, self.P - 2, self.P) if scaled else None)
+        out = tuple(torch.empty(a[0].shape, dtype=torch.int64, device=a[0].device)
+                    for _ in range(self.n))
+        self._four_step(_one_layout(tuple(l.reshape(1, -1, n) for l in a)), inverse, scaled,
+                        tuple(l.reshape(1, -1, n) for l in out))
+        return out
 
     def evaluate_poly_with_offset(self, a, domain_offset: int, blowup: int):
         """Coset LDE: scale coeffs by offset^j, zero-pad, transform.  Above
-        the tile limit this runs as ``blowup`` independent coset NTTs of
-        length n with the per-coset offset series factored through the
-        four-step tiles, then an interleave."""
-        n = a[0].shape[-1]
-        L = n * blowup
-        if L > self._tile_cap():
-            return self._lde_cosets(a, domain_offset, blowup)
-        device = a[0].device
-        offs = self.from_ints([pow(domain_offset, j, self.P) for j in range(n)], device)
-        scaled = self.mul(a, offs)
-        pad = torch.zeros(a[0].shape[:-1] + (n * (blowup - 1),), dtype=torch.int64,
-                          device=device)
-        return self.ntt(tuple(torch.cat([l, pad], dim=-1) for l in scaled))
+        the tile limit this runs as ``blowup`` coset NTTs of length n, each
+        coefficient scaled by its coset's power series, stored interleaved.
+        Every scale, the padding and the interleave ride in the tile
+        launches."""
+        from . import limb_ntt
 
-    def _lde_cosets(self, a, domain_offset: int, blowup: int):
-        """evals on coset r (natural index i = q*blowup + r) = NTT_n of the
-        coefficients scaled by s_r^t, s_r = offset * g_L^r."""
         n = a[0].shape[-1]
         L = n * blowup
+        if L == 1:
+            return tuple(l.clone() for l in a)
+        lead = a[0].shape[:-1]
         device = a[0].device
-        nbatch = a[0].dim() - 1
-        g_L = self.get_root_of_unity(L.bit_length() - 1)
-        s_list = [(domain_offset * pow(g_L, r, self.P)) % self.P for r in range(blowup)]
+        out = tuple(torch.empty(lead + (L,), dtype=torch.int64, device=device)
+                    for _ in range(self.n))
+        rows = _one_layout(tuple(l.reshape(-1, n) for l in a))
+        if L <= self._tile_cap():
+            offs = self._coset_factors(domain_offset, 1, n, n, device)[0]
+            limb_ntt.tile(self, tuple(l.T[None, None] for l in rows),
+                          limb_ntt.tile_twiddles(self, L, False, device), n=L, row=offs,
+                          out=tuple(l.reshape(-1, L).T[None, None] for l in out))
+            return out
+        return self._lde_cosets(rows, domain_offset, blowup, out)
+
+    def _lde_cosets(self, rows, domain_offset: int, blowup: int, out):
+        """evals on coset g (natural index i = q*blowup + g) = NTT_n of the
+        coefficients scaled by s_g^t, s_g = offset * g_L^g: the coefficient
+        rows (nb, n) read once per coset (stride 0 over the cosets), written
+        interleaved into ``out`` (..., L)."""
+        from . import limb_ntt
+
+        nb, n = rows[0].shape
+        rs = rows[0].stride()
+        L = n * blowup
+        device = rows[0].device
         cap = self._tile_cap()
-        stacked = tuple(l.unsqueeze(0).expand((blowup,) + l.shape) for l in a)
-        if n > cap:
-            r_t, c_t = self._split_tiles(n, cap)
-            # s^t = (s^c)^{t1} * s^{t2} across the (r_t, c_t) tile view
-            row_b = self.from_ints([pow(s, c_t, self.P) for s in s_list], device)
-            col_b = self.from_ints(s_list, device)
-            pre_row = self._pow_series(tuple(l.reshape(blowup, 1) for l in row_b), r_t)
-            pre_row = tuple(l.reshape((blowup,) + (1,) * nbatch + (r_t, 1))
-                            for l in pre_row)
-            pre_col = self._pow_series(tuple(l.reshape(blowup, 1) for l in col_b), c_t)
-            pre_col = tuple(l.reshape((blowup,) + (1,) * nbatch + (1, c_t))
-                            for l in pre_col)
-            ev = self._ntt_four_step(stacked, False, pre_row=pre_row, pre_col=pre_col)
-        else:
-            col_b = self.from_ints(s_list, device)
-            series = self._pow_series(tuple(l.reshape(blowup, 1) for l in col_b), n)
-            series = tuple(l.reshape((blowup,) + (1,) * nbatch + (n,)) for l in series)
-            ev = self.ntt(self.mul(stacked, series))
-        # interleave: out[..., q*blowup + r] = ev[r, ..., q]
-        return tuple(l.movedim(0, -1).reshape(a[0].shape[:-1] + (L,)) for l in ev)
+        if n <= cap:
+            row, _ = self._coset_factors(domain_offset, blowup, n, n, device)
+            x = tuple(torch.as_strided(l, (blowup, 1, n, nb), (0, 0, rs[1], rs[0]),
+                                       l.storage_offset()) for l in rows)
+            o = tuple(torch.as_strided(l, (blowup, 1, n, nb), (1, 0, blowup, L),
+                                       l.storage_offset()) for l in out)
+            limb_ntt.tile(self, x, limb_ntt.tile_twiddles(self, n, False, device), row=row,
+                          out=o)
+            return out
+        r, _ = self._split_tiles(n, cap)
+        row, col = self._coset_factors(domain_offset, blowup, n, r, device)
+        x = tuple(torch.as_strided(l, (blowup, nb, n), (0, rs[0], rs[1]), l.storage_offset())
+                  for l in rows)
+        o = tuple(torch.as_strided(l, (blowup, nb, n), (1, L, blowup), l.storage_offset())
+                  for l in out)
+        self._four_step(x, False, False, o, row=row, col=col)
+        return out
 
     def interpolate_poly(self, a):
         return self.ntt(a, inverse=True, scale=True)
@@ -282,9 +365,7 @@ class F128Field(LimbField):
     """f128 on ``(lo, hi)`` word planes."""
 
     n = 2
-    # an (n, lanes-per-block) tile of 16-byte elements has to fit a thread
-    # block's shared memory (ops/limb_ntt.py)
-    MAX_NTT_TILE = 2048
+    MAX_NTT_TILE = 4096
 
     def __init__(self, modulus, generator, two_adicity, two_adic_root, name):
         super().__init__(modulus, generator, two_adicity, two_adic_root, name)

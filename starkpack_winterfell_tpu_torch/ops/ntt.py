@@ -127,13 +127,16 @@ def evaluate_poly_with_offset(comps, domain_offset: int, blowup_factor: int):
     n = comps[0].shape[-1]
     big_n = n * blowup_factor
     device = comps[0].device
-    offs = _offset_powers(domain_offset, n, device)
     if device.type == "cuda" and 1 < big_n:
         from . import ntt_kernel
 
+        # the offset multiply and the zero padding ride in the launches
         if big_n <= ntt_kernel.MAX_TILE_N:
-            # the offset multiply and the zero padding ride in the launch
-            return ntt_kernel.ntt_batched(comps, n=big_n, pre=offs)
+            return ntt_kernel.ntt_batched(comps, n=big_n,
+                                          pre=_offset_powers(domain_offset, n, device))
+        if n % ntt_kernel.four_step_consts(big_n, False, True, device)["n2"] == 0:
+            return ntt_kernel.four_step_ntt(comps, n=big_n, offset=domain_offset)
+    offs = _offset_powers(domain_offset, n, device)
     scaled = []
     for c in comps:
         sc = gl.mul(c, offs)

@@ -1,9 +1,10 @@
 """PyTorch port, kernel CUDA sources on the CPU: csrc/ntt_tile.cu (kernel 1),
-csrc/ntt_dit.cu (kernels 2 and 3), the constraint kernel (kernel 5: the
-body ops/cons_kernel.py emits, in the frame csrc/cons_frame.cuh) and the
-Rescue sponge (csrc/rescue_sponge.cu) compiled by
-the host's C++ compiler against a stub ``cuda_runtime.h`` and run with ONE
-thread per block, held against the plain PyTorch versions beside their
+csrc/ntt_dit.cu (kernels 2 and 3), csrc/limb_ntt_tile.cu (kernel 4; kernels
+3 and 4 are instantiations of the frame csrc/dit_tile.cuh), the constraint
+kernel (kernel 5: the body ops/cons_kernel.py emits, in the frame
+csrc/cons_frame.cuh) and the Rescue sponge (csrc/rescue_sponge.cu) compiled
+by the host's C++ compiler against a stub ``cuda_runtime.h`` and run with
+ONE thread per block, held against the plain PyTorch versions beside their
 wrappers.
 
 With one thread a block, every ``for (t = threadIdx.x; ...; t +=
@@ -45,6 +46,7 @@ from starkpack_winterfell_tpu_torch.models.rescue128_chain import (
 )
 from starkpack_winterfell_tpu_torch.ops import cons_kernel as tcons
 from starkpack_winterfell_tpu_torch.ops import gl64 as tgl, ntt4 as tntt4, ntt_kernel as tk
+from starkpack_winterfell_tpu_torch.ops import limb_ntt
 from starkpack_winterfell_tpu_torch.ops import rescue_sponge as rsp
 from starkpack_winterfell_tpu_torch.ops.backend import get_backend
 from starkpack_winterfell_tpu_torch.parallel.full_pipeline import plan_groups
@@ -96,9 +98,66 @@ extern "C" void host_ntt_tile(const uint64_t* x, uint64_t* out, const uint64_t* 
 }
 """
 
+# the frame of csrc/dit_tile.cuh run block by block on the host, with the
+# signature of its launchers (csrc/ntt_dit.cu, csrc/limb_ntt_tile.cu; the
+# block size and the stream are not read)
+DIT_TILE_RUN = """
+template <class FE>
+static int host_dit_tile(const void* x_lo, const void* x_hi, void* o_lo, void* o_hi,
+                         const void* tw_lo, const void* tw_hi, const void* pre_lo,
+                         const void* pre_hi, const void* row_lo, const void* row_hi,
+                         const void* col_lo, const void* col_hi, unsigned long long scale_lo,
+                         unsigned long long scale_hi, int has_scale, const long long* st,
+                         int B, int n, int n_in, int lanes, int log_lg, int n_groups,
+                         int rows_in, int rows_out) {
+  int log_n = 0;
+  while ((1 << log_n) < n) ++log_n;
+  const int groups = (lanes + (1 << log_lg) - 1) >> log_lg;
+  const DitArgs a{(const uint64_t*)x_lo, (const uint64_t*)x_hi, (uint64_t*)o_lo,
+                  (uint64_t*)o_hi, (const uint64_t*)tw_lo, (const uint64_t*)tw_hi,
+                  (const uint64_t*)pre_lo, (const uint64_t*)pre_hi, (const uint64_t*)row_lo,
+                  (const uint64_t*)row_hi, (const uint64_t*)col_lo, (const uint64_t*)col_hi,
+                  {scale_lo, scale_hi}, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+                  st[7], st[8], st[9], has_scale, n, log_n, n_in, lanes, log_lg, groups,
+                  n_groups, rows_in, rows_out};
+  blockDim.x = 1;
+  for (int blk = 0; blk < B * groups; ++blk) {
+    blockIdx.x = blk;
+    std::fill(smem, smem + (1 << 16), 0xDEADBEEFDEADBEEFULL);
+    dit_tile_kernel<FE, DIT_RADIX_LOG>(a);
+  }
+  return 0;
+}
+"""
+
+HARNESS_LIMB = """
+#include "cuda_runtime.h"
+#include "limb_body.inc"
+""" + DIT_TILE_RUN + "".join(f"""
+extern "C" int host_dit_tile_{name}(const void* x_lo, const void* x_hi, void* o_lo, void* o_hi,
+    const void* tw_lo, const void* tw_hi, const void* pre_lo, const void* pre_hi,
+    const void* row_lo, const void* row_hi, const void* col_lo, const void* col_hi,
+    unsigned long long s_lo, unsigned long long s_hi, int has_scale, const long long* st,
+    int B, int n, int n_in, int lanes, int log_lg, int ng, int rows_in, int rows_out,
+    int threads, void* stream) {{
+  return host_dit_tile<{fe}>(x_lo, x_hi, o_lo, o_hi, tw_lo, tw_hi, pre_lo, pre_hi, row_lo,
+                             row_hi, col_lo, col_hi, s_lo, s_hi, has_scale, st, B, n, n_in,
+                             lanes, log_lg, ng, rows_in, rows_out);
+}}
+""" for name, fe in (("f128", "F128"), ("f62", "F62")))
+
 HARNESS_DIT = """
 #include "cuda_runtime.h"
 #include "dit_body.inc"
+""" + DIT_TILE_RUN + """
+extern "C" int host_dit_tile_gl64(const void* x, void* out, const void* tw, const void* pre,
+                                  const void* row, const void* col, const long long* st,
+                                  int B, int n, int n_in, int lanes, int log_lg, int ng,
+                                  int rows_in, int rows_out, int threads, void* stream) {
+  return host_dit_tile<GL64>(x, nullptr, out, nullptr, tw, nullptr, pre, nullptr, row,
+                             nullptr, col, nullptr, 0, 0, 0, st, B, n, n_in, lanes, log_lg,
+                             ng, rows_in, rows_out);
+}
 extern "C" void host_ntt_last(const uint64_t* x, uint64_t* out, const uint64_t* tw,
                               const uint64_t* pre, uint64_t scale, int has_scale,
                               long long rs, long long cs, int rows, int n, int n_in,
@@ -149,8 +208,11 @@ def host_kernels(tmp_path_factory):
     (d / "cuda_runtime.h").write_text(STUB)
     (d / "tile_body.inc").write_text(_kernels_only("ntt_tile.cu"))
     (d / "dit_body.inc").write_text(_kernels_only("ntt_dit.cu"))
+    (d / "dit_tile.cuh").write_text(_kernels_only("dit_tile.cuh"))
+    limb = open(os.path.join(CSRC, "limb_ntt_tile.cu")).read()
+    (d / "limb_body.inc").write_text(limb[:limb.index("// Raises both instantiations'")])
     libs = {}
-    for name, src in (("tile", HARNESS), ("dit", HARNESS_DIT)):
+    for name, src in (("tile", HARNESS), ("dit", HARNESS_DIT), ("limb", HARNESS_LIMB)):
         (d / f"{name}.cpp").write_text(src)
         so = d / f"lib{name}.so"
         r = subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", str(d), "-I", CSRC,
@@ -161,6 +223,10 @@ def host_kernels(tmp_path_factory):
     libs["tile"].host_ntt_tile.argtypes = [p] * 5 + [i] * 8
     libs["dit"].host_ntt_last.argtypes = ([p] * 4 + [ctypes.c_uint64, i] + [ctypes.c_longlong] * 2
                                           + [i] * 4)
+    libs["dit"].host_dit_tile_gl64.argtypes = [p] * 7 + [i] * 9 + [p]
+    for name in ("f128", "f62"):
+        getattr(libs["limb"], f"host_dit_tile_{name}").argtypes = (
+            [p] * 12 + [ctypes.c_uint64] * 2 + [i, p] + [i] * 9 + [p])
     return libs
 
 
@@ -216,6 +282,145 @@ def test_last_axis_kernel_source_matches_the_plain_version(host_kernels, rows, n
                                           scale or 0, int(scaled), x.stride(0), x.stride(1),
                                           rows, n, n_in, log_rb)
         assert torch.equal(got, want), (inverse, pre_on, scaled)
+
+
+# kernel 3: (B, n, n_in, lanes, layout, options) with layouts "standard" (x
+# and the output (B, n, lanes)), "transposed" (the output stored (B, lanes,
+# n): the first launch of the four-step) and "rows" (x and the output (B,
+# lanes, n): transforms along contiguous rows); options from "pre", "row",
+# "col" (n_in < n: zero padding); n from 2 to the tile cap, ragged lane
+# groups, lanes below one group
+DIT_TILE_CASES = [(2, 2, 2, 3, "standard", ("pre",)), (3, 8, 8, 9, "rows", ()),
+                  (2, 64, 16, 130, "transposed", ("row", "col")),
+                  (1, 256, 256, 33, "standard", ()), (2, 1024, 1024, 5, "rows", ("pre",)),
+                  (1, 4096, 4096, 3, "transposed", ("pre", "row", "col"))]
+
+
+def _gl64_tile_arrays(B, n, n_in, lanes, layout, rng):
+    """(x, out) of a kernel 3 case: views of the logical (B, n_in, lanes) and
+    (B, n, lanes)."""
+    x = _rand((B, n_in, lanes), rng)
+    out = torch.zeros((B, n, lanes), dtype=torch.int64)
+    if layout == "rows":
+        x = _rand((B, lanes, n_in), rng).transpose(1, 2)
+    if layout in ("rows", "transposed"):
+        out = torch.zeros((B, lanes, n), dtype=torch.int64).transpose(1, 2)
+    return x, out
+
+
+@pytest.mark.parametrize("B,n,n_in,lanes,layout,opts", DIT_TILE_CASES)
+def test_dit_tile_kernel_source_matches_the_plain_version(host_kernels, B, n, n_in, lanes,
+                                                          layout, opts):
+    """Kernel 3 (the Goldilocks instantiation of csrc/dit_tile.cuh) through
+    the wrapper's own launch arguments (``tile_args``): natural rows in
+    (bit-reversed on the load), zero padding, the pre-multiply, the row and
+    column factors, the layouts through strides."""
+    rng = np.random.default_rng(B * 7919 + n)
+    for inverse in (False, True):
+        x, out = _gl64_tile_arrays(B, n, n_in, lanes, layout, rng)
+        tw = tntt4.tile_twiddles(n, inverse, "cpu")
+        pre = _rand((n_in, lanes), rng) if "pre" in opts else None
+        row = _rand((n_in,), rng) if "row" in opts else None
+        col = _rand((lanes,), rng) if "col" in opts else None
+        want = tk.dit_tile_plain(x, tw, pre, n, row, col)
+        host_kernels["dit"].host_dit_tile_gl64(*tk.tile_args(x, tw, pre, out, row, col), None)
+        assert torch.equal(out, want), inverse
+
+
+def test_four_step_launches_run_on_the_kernel_source(host_kernels):
+    """The two launches of ``four_step_ntt`` at 2^13 = 64 x 128 (a transposed
+    store, then the twiddled second half reading it) on the host kernel
+    equal the radix-2 transform; likewise the coset LDE of 2^10
+    coefficients to 2^13 points (zero padding and the offset's row and
+    column factors in the first launch)."""
+    rng = np.random.default_rng(13)
+    lib = host_kernels["dit"]
+    for n_in, inverse, offset in ((1 << 13, True, None), (1 << 10, False, 7)):
+        x = _rand((2, n_in), rng)
+        c = tk.four_step_consts(1 << 13, inverse, True, "cpu")
+        n1, n2 = c["n1"], c["n2"]
+        row, col = tk.coset_factors(offset, n_in // n2, n2, "cpu") if offset else (None, None)
+        a = torch.zeros((2, n2, n1), dtype=torch.int64)
+        got = torch.zeros((2, n2, n1), dtype=torch.int64)
+        lib.host_dit_tile_gl64(*tk.tile_args(x.reshape(2, n_in // n2, n2), c["tw1"], None,
+                                             a.transpose(1, 2), row, col), None)
+        lib.host_dit_tile_gl64(*tk.tile_args(a, c["tw2"], c["twT"], got), None)
+        want = tk.four_step_ntt((x,), inverse, n=1 << 13, offset=offset)[0]
+        assert torch.equal(got.reshape(2, -1), want), n_in
+
+
+def _limb_rand(F, shape, rng):
+    ints = [int(v) % F.P for v in rng.integers(0, 1 << 63, size=int(np.prod(shape)),
+                                               dtype=np.uint64)]
+    if F.n == 2:
+        ints = [(v * 0x9E3779B97F4A7C15 + k) % F.P for k, v in enumerate(ints)]
+    edges = [0, 1, F.P - 1]
+    ints[:min(3, len(ints))] = edges[:min(3, len(ints))]
+    return tuple(l.reshape(shape) for l in F.from_ints(ints))
+
+
+# kernel 4: (layout, G, D, n, n_in, lanes, options) with the layouts of
+# ``_gl64_tile_arrays`` plus "cosets": x read once for all G groups (stride
+# 0), the output interleaved (group g of position p at p*G + g), the coset
+# LDE's; options from "pre", "row", "col", "scale"; n from 2 to the cap
+LIMB_TILE_CASES = [
+    ("standard", 1, 2, 2, 2, 3, ("pre", "scale")),
+    ("rows", 1, 1, 4, 4, 37, ("scale",)),
+    ("standard", 2, 2, 16, 16, 9, ("pre", "row", "col")),
+    ("transposed", 3, 1, 64, 64, 6, ("row", "col")),
+    ("rows", 1, 1, 256, 64, 5, ("row",)),
+    ("cosets", 4, 1, 32, 32, 3, ("row",)),
+    ("cosets", 2, 1, 512, 128, 2, ("row", "scale")),
+    ("standard", 1, 1, 1024, 1024, 5, ("pre", "scale")),
+    ("transposed", 1, 2, 128, 128, 33, ("pre",)),
+    ("rows", 1, 1, 4096, 4096, 2, ("scale",)),
+]
+
+
+def _limb_tile_arrays(F, layout, G, D, n, n_in, lanes, rng):
+    """(x, out) planes of a kernel 4 case: views of the logical (G, D, n_in,
+    lanes) and (G, D, n, lanes)."""
+    def empty(shape):
+        return tuple(torch.zeros(shape, dtype=torch.int64) for _ in range(F.n))
+
+    if layout == "cosets":
+        src = _limb_rand(F, (lanes, n_in), rng)
+        x = tuple(torch.as_strided(l, (G, D, n_in, lanes), (0, 0, 1, n_in)) for l in src)
+        out = tuple(torch.as_strided(l, (G, D, n, lanes), (1, 0, G, n * G))
+                    for l in empty((lanes, n * G)))
+        return x, out
+    if layout == "rows":
+        x = tuple(l.transpose(2, 3) for l in _limb_rand(F, (G, D, lanes, n_in), rng))
+    else:
+        x = _limb_rand(F, (G, D, n_in, lanes), rng)
+    if layout in ("rows", "transposed"):
+        return x, tuple(l.transpose(2, 3) for l in empty((G, D, lanes, n)))
+    return x, empty((G, D, n, lanes))
+
+
+@pytest.mark.parametrize("field", ["f128", "f62"])
+@pytest.mark.parametrize("layout,G,D,n,n_in,lanes,opts", LIMB_TILE_CASES)
+def test_limb_tile_kernel_source_matches_the_plain_version(host_kernels, field, layout, G, D,
+                                                           n, n_in, lanes, opts):
+    """Kernel 4 (csrc/limb_ntt_tile.cu: f128, and f62 with its Montgomery
+    twiddles) through the wrapper's own launch arguments
+    (``limb_ntt.launch_args``): natural rows in, zero padding (n_in < n),
+    the pre-multiply, the row and column factors of each group, the output
+    scale, the layouts through strides, ragged lane groups.  Elements 0, 1
+    and p - 1 are among the inputs."""
+    F = get_backend(field).F
+    rng = np.random.default_rng(n * 31 + lanes + G)
+    for inverse in (False, True):
+        x, out = _limb_tile_arrays(F, layout, G, D, n, n_in, lanes, rng)
+        tw = limb_ntt.tile_twiddles(F, n, inverse, "cpu")
+        pre = _limb_rand(F, (n_in, lanes), rng) if "pre" in opts else None
+        row = _limb_rand(F, (G, n_in), rng) if "row" in opts else None
+        col = _limb_rand(F, (G, lanes), rng) if "col" in opts else None
+        scale = int(rng.integers(1, 1 << 62)) if "scale" in opts else None
+        want = limb_ntt.tile_plain(F, x, tw, n, pre, row, col, scale)
+        getattr(host_kernels["limb"], f"host_dit_tile_{field}")(
+            *limb_ntt.launch_args(F, x, tw, n, pre, row, col, scale, out), None)
+        assert all(torch.equal(o, w) for o, w in zip(out, want)), inverse
 
 
 HARNESS_SPONGE = """

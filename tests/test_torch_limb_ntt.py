@@ -55,16 +55,22 @@ def test_plain_version_matches_the_pallas_kernel(inverse, fields):
 
 @pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
 def test_fused_pre_multiply_equals_multiply_then_transform(inverse):
+    """The tile's pre-multiply on planes (lead, r, n) transformed along n
+    (read through their strides, the table's too) equals the multiply
+    followed by the transform."""
     lead, r, n = 3, 8, 64
     a = from_limb_planes(_rand_elems((lead, r, n), seed=5))
     pre = from_limb_planes(_rand_elems((r, n), seed=6))
     want = limb_ntt.ntt_last_axis_plain(TF, TF.mul(a, pre), inverse)
-    got = limb_ntt.ntt_last_axis(TF, a, inverse, pre=pre)
+    got = limb_ntt.tile(TF, tuple(l.transpose(1, 2)[None] for l in a),
+                        limb_ntt.tile_twiddles(TF, n, inverse, "cpu"),
+                        pre=tuple(l.T for l in pre))
+    got = tuple(l[0].transpose(1, 2) for l in got)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert _same(got, JF.ntt(to_limb_planes(TF.mul(a, pre)), inverse=inverse, scale=False))
 
 
-@pytest.mark.parametrize("n", [2, 4, 2048])
+@pytest.mark.parametrize("n", [2, 4, 2048, 4096])
 def test_tile_sizes_at_the_edges(n):
     a = _rand_elems((5, n), seed=n)
     got = limb_ntt.ntt_last_axis(TF, from_limb_planes(a), False)
@@ -78,16 +84,33 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         limb_ntt.ntt_last_axis(TF, a[:1], False)
     with pytest.raises(ValueError):
-        limb_ntt.ntt_last_axis(TF, from_limb_planes(_rand_elems((1, 4096), seed=2)), False)
+        limb_ntt.ntt_last_axis(TF, from_limb_planes(_rand_elems((1, 8192), seed=2)), False)
+    x = tuple(l[None, None] for l in a)
+    tw = limb_ntt.tile_twiddles(TF, 2, False, "cpu")
     with pytest.raises(ValueError):
-        limb_ntt.ntt_last_axis(TF, a, False, pre=tuple(l[:1] for l in a))
+        limb_ntt.tile(TF, x, tw, pre=tuple(l[:1] for l in a))  # pre shape
+    with pytest.raises(ValueError):
+        limb_ntt.tile(TF, x, tw, row=tuple(l[:1, :3] for l in a))  # row factor shape
+    with pytest.raises(ValueError):
+        limb_ntt.tile(TF, x, tw, n=1)  # shorter than the input rows
+    with pytest.raises(ValueError):
+        limb_ntt.tile(TF, (x[0], x[1].transpose(2, 3).contiguous().transpose(2, 3)[..., :16]),
+                      tw)  # planes of different strides
 
 
 def test_lanes_per_block_fills_at_most_one_tile():
+    """The lanes a block stages: a block's twiddles and tile fit its shared
+    memory, two blocks an SM below the cap; never wider than the next power
+    of two >= lanes."""
     for field in (TF, TF62):
         for n in (2, 64, 1024, limb_ntt.max_tile(field)):
             for lanes in (1, 3, 64, 100000):
-                lg = 1 << limb_ntt._lanes_per_block(field, n, lanes)
-                assert n * lg * field.n <= limb_ntt.TILE_WORDS and lg < 2 * max(lanes, 1)
+                for B, contiguous in ((1, True), (112, True), (1, False)):
+                    log_lg, k, threads = limb_ntt._block_shape(field, n, B, lanes, contiguous)
+                    lg = 1 << log_lg
+                    smem = 8 * field.n * (n // 2 + n * lg)
+                    assert smem <= limb_ntt.SMEM_PER_BLOCK and lg < 2 * max(lanes, 1)
+                    assert 2 * smem <= limb_ntt.SMEM_PER_SM or lg == 1
+                    assert k == limb_ntt.RADIX_LOG and 32 <= threads <= 256
         assert limb_ntt.max_tile(field) == field.MAX_NTT_TILE
-    assert (limb_ntt.max_tile(TF), limb_ntt.max_tile(TF62)) == (2048, 4096)
+    assert (limb_ntt.max_tile(TF), limb_ntt.max_tile(TF62)) == (4096, 4096)

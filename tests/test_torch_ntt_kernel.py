@@ -2,10 +2,12 @@
 starkpack_winterfell_tpu_torch against ops/pallas/ntt_kernel.py of the JAX
 package.
 
-On the CPU the wrappers ``ntt_last`` / ``dit_axis1`` take the kernels' plain
+On the CPU the wrappers ``ntt_last`` / ``dit_tile`` take the kernels' plain
 versions, which are held here against the Pallas kernels they replace, run in
 interpret mode on the same rows (``ntt_last`` reads natural-order rows along
-the last axis, the Pallas axis-0 kernel bit-reversed rows along axis 0); the
+the last axis, the Pallas axis-0 kernel bit-reversed rows along axis 0;
+``dit_tile`` natural-order rows along axis 1, the Pallas 3-D kernel
+bit-reversed ones); the
 entry points are held against the JAX entry points (interpret mode) and
 against the numpy radix-2 NTT, ``ntt_last_plain`` also against the port's
 own radix-2 stages.  Exact arithmetic: tolerance 0."""
@@ -17,7 +19,7 @@ import torch
 from starkpack_winterfell_tpu.ops import gl64 as jgl, ntt as jntt
 from starkpack_winterfell_tpu.ops.pallas import ntt_kernel as jk
 
-from starkpack_winterfell_tpu_torch.ops import gl64 as tgl, ntt as tntt, ntt_kernel as tk
+from starkpack_winterfell_tpu_torch.ops import gl64 as tgl, limb_ntt, ntt as tntt, ntt_kernel as tk
 from starkpack_winterfell_tpu_torch.ops.ntt4 import tile_twiddles
 from starkpack_winterfell_tpu_torch.prover import device_big
 
@@ -94,8 +96,11 @@ def test_dit_axis1_plain_matches_pallas_interpret(n, lanes, inverse, pre):
     call = jk._build_call3(B, n, xp.shape[2], pre, True)
     args = [tw[0], tw[1]] + (list(jgl.from_u64(tp)) if pre else []) + list(jgl.from_u64(xp))
     want = _ju64(call(*args))[:, :, :lanes]
-    got = tk.dit_axis1(tgl.from_u64(x), tile_twiddles(n, inverse, "cpu"),
-                       tgl.from_u64(table) if pre else None)
+    # the same numbers in natural row order, the table's rows with them
+    rev = jntt._bit_rev_perm(n)
+    got = tk.dit_tile(tgl.from_u64(np.ascontiguousarray(x[:, rev])),
+                      tile_twiddles(n, inverse, "cpu"),
+                      tgl.from_u64(np.ascontiguousarray(table[rev])) if pre else None)
     assert np.array_equal(tgl.to_u64(got), want)
 
 
@@ -103,7 +108,7 @@ def test_wrappers_check_their_arguments():
     x = tgl.zeros((2, 8, 4))
     tw = tile_twiddles(8, False, "cpu")
     with pytest.raises(ValueError):
-        tk.dit_axis1(x[0], tw)  # not (B, n, lanes)
+        tk.dit_tile(x[0], tw)  # not (B, n, lanes)
     with pytest.raises(ValueError):
         tk.ntt_last(x, tw)  # not (rows, n)
     with pytest.raises(ValueError):
@@ -117,11 +122,13 @@ def test_wrappers_check_their_arguments():
     with pytest.raises(TypeError):
         tk.ntt_last(tgl.zeros((4, 8)).to(torch.int32), tw)
     with pytest.raises(TypeError):
-        tk.dit_axis1(x.to(torch.int32), tw)
+        tk.dit_tile(x.to(torch.int32), tw)
     with pytest.raises(ValueError):
-        tk.dit_axis1(x, tw[:2])  # twiddle table too short
+        tk.dit_tile(x, tw[:2])  # twiddle table too short
     with pytest.raises(ValueError):
-        tk.dit_axis1(x, tw, tgl.zeros((8, 3)))  # pre shape
+        tk.dit_tile(x, tw, tgl.zeros((8, 3)))  # pre shape
+    with pytest.raises(ValueError):
+        tk.dit_tile(x, tw, out=tgl.zeros((2, 4, 8)))  # output shape
     with pytest.raises(ValueError):
         tk.four_step_ntt((tgl.zeros((2, 4096)),))  # one kernel call covers it
     assert tk.LAUNCHES == 0 and not tk.LAUNCHES_BY_SHAPE  # the CPU path launches no kernel
@@ -130,11 +137,13 @@ def test_wrappers_check_their_arguments():
 def test_block_shape_fits_the_shared_memory_and_the_lanes():
     for n in [2, 4, 64, 256, 1024, 2048, 4096]:
         for lanes in [1, 3, 24, 130, 768, 16384]:
-            log_lg, threads = tk._block_shape(n, lanes)
-            lg = 1 << log_lg
-            assert n * lg <= tk.TILE_WORDS
-            assert lg < 2 * lanes  # no block wider than the next power of two
-            assert 32 <= threads <= 1024
+            for B, contiguous in ((1, True), (8, True), (1, False)):
+                log_lg, k, threads = tk._block_shape(n, B, lanes, contiguous)
+                lg = 1 << log_lg
+                # the twiddles and the tile of two blocks fit an SM
+                assert 2 * 8 * (n // 2 + n * lg) <= limb_ntt.SMEM_PER_SM
+                assert lg < 2 * lanes  # no block wider than the next power of two
+                assert k == limb_ntt.RADIX_LOG and 32 <= threads <= limb_ntt.MAX_THREADS
             log_rb, threads = tk._last_block_shape(n, lanes)
             assert (n << log_rb) <= max(n, tk.TARGET_TILE_WORDS)
             assert 32 <= threads <= tk.LAST_THREADS
@@ -253,12 +262,12 @@ def test_four_step_matches_pallas_four_step():
     (1 << 15, True, False),
 ])
 def test_four_step_tables_match_reference(n, inverse, scale):
-    n1, n2, rev1, rev2, _, _, twT = jk.four_step_consts_np(n, inverse, scale)
+    """The port's table multiplies natural-order rows, the reference's the
+    bit-reversed ones (its rows permuted by rev2)."""
+    n1, n2, _, rev2, _, _, twT = jk.four_step_consts_np(n, inverse, scale)
     c = tk.four_step_consts(n, inverse, scale, "cpu")
     assert (c["n1"], c["n2"]) == (n1, n2)
-    assert np.array_equal(c["rev1"].numpy(), rev1)
-    assert np.array_equal(c["rev2"].numpy(), rev2)
-    assert np.array_equal(tgl.to_u64(c["twT"]), jgl.to_u64(twT))
+    assert np.array_equal(tgl.to_u64(c["twT"]), jgl.to_u64(twT)[rev2])
 
 
 def test_ntt_components_on_the_cpu_runs_the_eager_stages():
