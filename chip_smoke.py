@@ -69,6 +69,13 @@ with ProofOptions(28, 8, 16, NONE, 4, 31) and BLAKE3-256 unless named:
   (``sponge_bound``, ``op_bound``; kernels 1-5 also at one pipe, the count
   the earlier bounds used, ``bound_ms_one_pipe``).
 
+Every proof is verified by the port's verifier on the host, through its C
+tier (``verify_tier``: native/verify_scalar.c and native/blake3_compress.c,
+built with the host compiler beside the kernels): ``verify_s`` is the first
+verify's wall, ``verify_median_s`` the median of VERIFY_REPS more
+(``verify_walls_s``); for 1024 Lamport+ signatures also the wall of the
+Fiat-Shamir seed's ``hash_elements`` (``seed_hash_s``).
+
 Builds the CUDA kernels from ``csrc/`` (one nvcc per library, all started
 together) and holds each against its plain PyTorch version on the card at
 every shape any of the proves launches; each prove's launch counts are set
@@ -1165,16 +1172,50 @@ def counted_prove(path, prover, traces, kernel_rows, seen, new_rows, required=("
     return proof, seconds, phases, total + sum(dit.values()), launches, sponge
 
 
+# verifies of each proof after the first, for the median verify wall
+VERIFY_REPS = 5
+
+
+def verify_walls(air_class, parsed, pub, hasher) -> dict:
+    """The verify fields of a phase's line: the first verify's wall, then
+    the median and each of VERIFY_REPS more on the same parsed proof."""
+    t0 = time.perf_counter()
+    verify(air_class, parsed, pub, hasher)
+    first = time.perf_counter() - t0
+    more = []
+    for _ in range(VERIFY_REPS):
+        t0 = time.perf_counter()
+        verify(air_class, parsed, pub, hasher)
+        more.append(time.perf_counter() - t0)
+    return dict(verify_s=first, verify_median_s=statistics.median(more),
+                verify_walls_s=more, verify_tier="c")
+
+
+def seed_hash_walls(proof, pub, hasher, elem_bytes: int) -> dict:
+    """The Fiat-Shamir seed (context 0 and every public input, as the
+    prover's channel and the verifier's coin build it) and the walls of its
+    ``hash_elements``: its first, the median of VERIFY_REPS more."""
+    seed = list(proof.contexts[0].to_elements())
+    for p in pub:
+        seed.extend(p.to_elements())
+    walls = []
+    for _ in range(VERIFY_REPS + 1):
+        t0 = time.perf_counter()
+        hasher.hash_elements(seed, elem_bytes)
+        walls.append(time.perf_counter() - t0)
+    return dict(seed_bytes=len(seed) * elem_bytes, seed_hash_s=walls[0],
+                seed_hash_median_s=statistics.median(walls[1:]))
+
+
 def verified_bytes(prover, proof, traces):
-    """Serialize, parse back, verify with the port's verifier."""
+    """Serialize, parse back, verify with the port's verifier: the bytes
+    and the verify fields (``verify_walls``)."""
     data = proof.to_bytes()
     parsed = proof.from_bytes(data)
     if parsed.to_bytes() != data:
         raise RuntimeError("proof serialization round trip failed")
     pub = [prover.get_pub_inputs(t) for t in traces]
-    t0 = time.perf_counter()
-    verify(RescueChainAir, parsed, pub, prover.hasher)
-    return data, time.perf_counter() - t0
+    return data, verify_walls(RescueChainAir, parsed, pub, prover.hasher)
 
 
 def tamper_chain_seed(pub):
@@ -1204,7 +1245,7 @@ def big_phase(path, kernel_rows, rng, device, traces, hasher=Blake3_256, **extra
         path, prover, traces, kernel_rows, seen, new_rows, required)
     search = dict(rescue_sponge.SEARCH_LAUNCHES_BY_LAYOUT)
     peak = torch.cuda.max_memory_allocated()
-    data, verify_s = verified_bytes(prover, proof, traces)
+    data, verified = verified_bytes(prover, proof, traces)
     fields = dict(extra)
     if "sponge" in required:
         air0 = RescueChainAir(traces[0].get_info(), prover.get_pub_inputs(traces[0]),
@@ -1235,7 +1276,7 @@ def big_phase(path, kernel_rows, rng, device, traces, hasher=Blake3_256, **extra
          peak_memory_bytes=peak, resident_before_bytes=resident,
          peak_over_main_lde=(peak - resident) / lde_bytes,
          proof_bytes=len(data), security_level_conjectured=proof.security_level_conjectured(),
-         verify_s=verify_s, verified=True, **fields)
+         verified=True, **verified, **fields)
     return steady_s
 
 
@@ -1522,7 +1563,7 @@ def extension_launches(base, side, ext_deg):
 
 def observed_phase(path, prover, air_class, traces, kernel_rows, rng, device,
                    required, airs=None, golden=None, tampers=(), side=None,
-                   expected=None, sponge=None, **extra):
+                   expected=None, sponge=None, seed_hash=False, **extra):
 
     """One size of a path whose kernel shapes are read off a first prove
     (``first_prove``): each new shape is held against its plain version;
@@ -1536,7 +1577,8 @@ def observed_phase(path, prover, air_class, traces, kernel_rows, rng, device,
     must reject.  ``side``: a dict that gets the counted prove's
     ``extension_side_launches``; ``expected``: the counts the counted prove
     must show, derived beforehand (``extension_launches``, ``perm_launches``);
-    ``sponge``: the sponge launches by rows it must show (``sponge_launches``).  ``extra`` goes
+    ``sponge``: the sponge launches by rows it must show (``sponge_launches``);
+    ``seed_hash``: also time the Fiat-Shamir seed's hash (``seed_hash_walls``).  ``extra`` goes
     into the phase's line; with ``base_steady_prove_s`` the line also gives
     the steady prove over it.  Returns {"counted", "steady_prove_s",
     "phases_ms"} of the counted prove."""
@@ -1576,9 +1618,9 @@ def observed_phase(path, prover, air_class, traces, kernel_rows, rng, device,
     parsed = proof.from_bytes(data)
     if parsed.to_bytes() != data:
         raise RuntimeError("proof serialization round trip failed")
-    t0 = time.perf_counter()
-    verify(air_class, parsed, pub, hasher)
-    verify_s = time.perf_counter() - t0
+    fields.update(verify_walls(air_class, parsed, pub, hasher))
+    if seed_hash:
+        fields.update(seed_hash_walls(proof, pub, hasher, traces[0].spec.ELEMENT_BYTES))
     if golden is not None:
         digest = hashlib.sha256(data).hexdigest()
         with open(golden) as f:
@@ -1608,7 +1650,7 @@ def observed_phase(path, prover, air_class, traces, kernel_rows, rng, device,
          peak_memory_bytes=peak, resident_before_bytes=resident,
          peak_over_main_lde=(peak - resident) / lde_bytes,
          proof_bytes=len(data), security_level_conjectured=proof.security_level_conjectured(),
-         verify_s=verify_s, verified=True, **fields)
+         verified=True, **fields)
     return {"counted": counted, "steady_prove_s": seconds,
             "phases_ms": {name: ms for name, ms in phases}}
 
@@ -1792,6 +1834,7 @@ def lamport_phases(kernel_rows, rng, device):
                        golden=GOLDEN_LAMPORT if golden else None,
                        tampers=[("message", tamper_agg_message),
                                 ("public key", tamper_agg_pub_key)],
+                       seed_hash=path == "lamport_agg_main",
                        signatures=n_sigs, k=k, wallet_s=wallet_s, trace_build_s=trace_s)
         del trace
 
@@ -2174,6 +2217,8 @@ def build_all():
         "griffin_perm_host": lambda: GriffinJive64_256.merge(bytes(32), bytes(32)),
         "trace_builder": native.get_builders,
         "rescue128_builder": native.get_rescue128,
+        "blake3_host": native.get_blake3,
+        "verify_scalar_host": native.get_verify_scalar,
     }
     for (field, name), air0 in airs.items():
         jobs[f"cons_eval {field} {name}"] = lambda air0=air0: cons_kernel._lib(

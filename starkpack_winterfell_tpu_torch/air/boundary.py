@@ -1,4 +1,4 @@
-# Copy of starkpack_winterfell_tpu/air/boundary.py; cut: the FieldBackend interpolation and the native barycentric tier; sequences interpolate, and evaluate at a point, on python ints of their field (extension values one component at a time).
+# Copy of starkpack_winterfell_tpu/air/boundary.py; cut: the FieldBackend interpolation; sequences interpolate on python ints of their field (extension values one component at a time).
 """Boundary constraints — equivalent of air/src/air/boundary/.
 
 Assertions are sorted by (stride, first_step, column), paired with
@@ -48,14 +48,35 @@ class BoundaryConstraint:
         return self._poly
 
     def evaluate_at(self, x, trace_value):
-        """constraint.rs:104-112 — host scalar."""
+        """constraint.rs:104-112 — host scalar.  A sequence of base-field
+        values (a power of two of them, and on f64 at least 32) is evaluated
+        at x by the C barycentric formula straight from the values, else by
+        ``sequence_value_plain``."""
         o = self.field
         if self._values is None:
             assertion_value = self._poly[0]
         else:
             xx = o.fmul(x, self.poly_offset[1])
-            assertion_value = polynom.eval_at(self.poly, xx, None if o.name == "f64" else o)
+            n = len(self._values)
+            if (o.deg_of(self._values[0]) == 1 and n & (n - 1) == 0
+                    and (o.name != "f64" or n >= 32) and n <= 1 << 16):
+                # barycentric eval straight from the sequence values (same
+                # unique interpolant, exact arithmetic -> identical result);
+                # 2^16 values is the C library's limit
+                from ..verifier import native_scalar as ns
+
+                ctx = ns.get_ctx(o, o.deg_of(xx))
+                arr = ns.pack_base_cached(ctx, self._values)
+                w = o.get_root_of_unity(n.bit_length() - 1)
+                assertion_value = ns.barycentric_eval(ctx, arr, w, xx)
+            else:
+                assertion_value = self.sequence_value_plain(xx)
         return o.fsub(trace_value, assertion_value)
+
+    def sequence_value_plain(self, xx):
+        """The sequence's interpolant at xx by interpolation and Horner on
+        python ints: the plain version of the C barycentric evaluation."""
+        return polynom.eval_at(self.poly, xx, None if self.field.name == "f64" else self.field)
 
 
 class BoundaryConstraintGroup:

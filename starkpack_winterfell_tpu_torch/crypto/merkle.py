@@ -1,4 +1,4 @@
-# Copy of starkpack_winterfell_tpu/crypto/merkle.py; cut: the jitted bucketed multi-level gathers (one index_select + one host copy per tree instead) and the native C root check (_native_root).
+# Copy of starkpack_winterfell_tpu/crypto/merkle.py; cut: the jitted bucketed multi-level gathers (one index_select + one host copy per tree instead).
 """Merkle tree with batched Octopus-style proofs.
 
 Equivalent of crypto/src/merkle/{mod.rs, proofs.rs}.  The tree *build* is a
@@ -10,6 +10,9 @@ and host-side, operating on materialized levels.
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
 
@@ -208,7 +211,54 @@ class BatchMerkleProof:
         self._nodes = v
 
     def get_root(self, indexes) -> bytes:
-        """proofs.rs:135-268 — resolves the aggregated paths to a root."""
+        """proofs.rs:135-268 — resolves the aggregated paths to a root: for
+        the BLAKE3 hashers in one C call (``_native_root``) up to the C
+        library's 4096 indexes and node vectors, else in python
+        (``get_root_plain``)."""
+        if not indexes:
+            raise ValueError("too few indexes")
+        if getattr(self.h, "NAME", None) in ("blake3_256", "blake3_192"):
+            n_vec = (
+                len(self._node_counts)
+                if self._nodes is None and self._node_counts is not None
+                else len(self.nodes)
+            )
+            if len(indexes) <= 4096 and n_vec <= 4096:  # B3_MAX_BATCH
+                return self._native_root(indexes)
+        return self.get_root_plain(indexes)
+
+    def _native_root(self, indexes) -> bytes:
+        """The BLAKE3 hashers' root in one C call (native/blake3_compress.c
+        b3_batch_root, the same bookkeeping as ``get_root_plain``)."""
+        from ..native import get_blake3
+
+        D = self.h.DIGEST_BYTES
+        leaves = b"".join(self.leaves)
+        if len(leaves) != D * len(self.leaves):
+            raise ValueError("invalid proof: bad leaf digest size")
+        idx = np.asarray(list(indexes), dtype=np.uint64)
+        if self._nodes is None and self._node_blob is not None:
+            # deserialize kept the contiguous form: reuse it (lengths are
+            # guaranteed by construction — read_bytes enforced count * D)
+            node_data = self._node_blob
+            counts = np.asarray(self._node_counts, dtype=np.int32)
+        else:
+            node_data = b"".join(d for vec in self.nodes for d in vec)
+            counts = np.asarray([len(v) for v in self.nodes], dtype=np.int32)
+            if any(len(d) != D for vec in self.nodes for d in vec):
+                raise ValueError("invalid proof: bad node digest size")
+        out = ctypes.create_string_buffer(D)
+        rc = get_blake3().b3_batch_root(
+            leaves, len(self.leaves), idx.ctypes.data, len(idx), node_data,
+            counts.ctypes.data, len(counts), self.depth, D, out,
+        )
+        if rc != 0:
+            raise ValueError(f"invalid proof (native check {rc})")
+        return out.raw
+
+    def get_root_plain(self, indexes) -> bytes:
+        """``get_root`` in python: the path of the other hashers, and the
+        plain version of ``_native_root``."""
         if not indexes:
             raise ValueError("too few indexes")
         index_map = _map_indexes(indexes, self.depth)

@@ -1,4 +1,4 @@
-# Copy of starkpack_winterfell_tpu/fri/verifier.py; cut: the native C fold tier (_native_verify, _idft_words); the python-int loop is the whole verifier.
+# Copy of starkpack_winterfell_tpu/fri/verifier.py; cut: nothing; the python-int loop is verify_plain, the plain version of the C fold.
 """FRI verifier — equivalent of fri/src/verifier/mod.rs (host-side; all
 work here is O(num_queries · folding_factor) scalar math)."""
 
@@ -106,7 +106,22 @@ class FriVerifier:
             max_degree_plus_1 //= options.folding_factor
 
     def verify(self, channel, evaluations, positions):
-        """fri/src/verifier/mod.rs:204-330.
+        """fri/src/verifier/mod.rs:204-330, through the C layer fold and
+        remainder check (native/verify_scalar.c, ``_native_verify``) for
+        extension degree <= 3, folding factor <= 16 and at most 1024 query
+        positions, else through ``verify_plain``.  ``evaluations``: a list
+        of elements, or the (q, d, 2) u64 words of the C DEEP composition
+        (which ``verify`` always takes: its proofs are within the gate)."""
+        if len(evaluations) != len(positions):
+            raise FriVerificationError("position/evaluation count mismatch")
+        N = self.options.folding_factor
+        if self.ext_deg <= 3 and N <= 16 and len(positions) <= 1024:
+            _native_verify(self, channel, evaluations, list(positions))
+            return
+        self.verify_plain(channel, evaluations, positions)
+
+    def verify_plain(self, channel, evaluations, positions):
+        """The plain version of ``verify``'s C path, on python ints.
 
         The reference interpolates each queried row with scalar Lagrange
         (polynom::interpolate_batch) — here the rows' x-coordinates form
@@ -220,6 +235,100 @@ class FriVerifier:
                     got.append(tuple(acc))
             if got != evaluations:
                 raise FriVerificationError("invalid remainder folding")
+
+
+_IDFT_CACHE: dict = {}
+
+
+def _idft_words(field, N):
+    """(N*N, 2) u64 canonical idft matrix M[j,i] = w_N^{-ij}/N (row-major,
+    cached per (field, N))."""
+    import numpy as np
+
+    key = (field.name, N)
+    hit = _IDFT_CACHE.get(key)
+    if hit is None:
+        P = field.P
+        w_inv = pow(field.get_root_of_unity(N.bit_length() - 1), P - 2, P)
+        n_inv = pow(N, P - 2, P)
+        flat = [
+            pow(w_inv, i * j, P) * n_inv % P
+            for j in range(N)
+            for i in range(N)
+        ]
+        hit = np.array(
+            [(v & 0xFFFFFFFFFFFFFFFF, v >> 64) for v in flat], dtype=np.uint64
+        )
+        _IDFT_CACHE[key] = hit
+    return hit
+
+
+def _native_verify(fv, channel, evaluations, positions):
+    """Run the whole layer-fold loop + remainder check through the native
+    scalar kernels (verify_scalar.c), reading the channel's raw layer and
+    remainder bytes; raises FriVerificationError exactly like
+    ``verify_plain``.  The caller's gate keeps ``positions`` within the C
+    library's 1024 (decided before the channel is consumed)."""
+    from ..verifier import native_scalar as ns
+
+    get_bytes = channel.fri_layer_value_bytes
+    get_rem = channel.fri_remainder_bytes
+
+    spec = fv.field
+    P = spec.P
+    N = fv.options.folding_factor
+    d = fv.ext_deg
+    ctx = ns.get_ctx(spec, d)
+    idft = _idft_words(spec, N)
+
+    domain_generator = fv.domain_generator
+    domain_size = fv.domain_size
+    max_degree_plus_1 = fv.max_poly_degree + 1
+    evals_arr = (
+        evaluations
+        if not isinstance(evaluations, list)
+        else ctx.pack_elems(evaluations)
+    )
+
+    for depth in range(fv.options.num_fri_layers(fv.domain_size)):
+        folded_positions = fold_positions(positions, domain_size, N)
+        layer_commitment = fv.layer_commitments[depth]
+        # Merkle + row-count checks (unchanged error order); the returned
+        # rows are ignored — the native kernel re-reads the raw bytes
+        channel.read_layer_queries(folded_positions, layer_commitment)
+        row_length = domain_size // N
+        fp_index = {pp: i for i, pp in enumerate(folded_positions)}
+        qmap_row = [fp_index[pp % row_length] for pp in positions]
+        qmap_col = [pp // row_length for pp in positions]
+        rc, out = ns.fold_layer(
+            ctx, N, get_bytes(depth), len(folded_positions), evals_arr,
+            qmap_row, qmap_col, folded_positions, domain_generator,
+            spec.GENERATOR, fv.layer_alphas[depth], idft,
+        )
+        if rc == 1:
+            raise FriVerificationError(f"invalid layer folding at depth {depth}")
+        if rc != 0:
+            raise RuntimeError(f"native FRI fold failed (rc={rc})")
+        if max_degree_plus_1 % N != 0:
+            raise FriVerificationError("degree truncation")
+        evals_arr = out
+        domain_generator = pow(domain_generator, N, P)
+        max_degree_plus_1 //= N
+        domain_size //= N
+        positions = folded_positions
+
+    remainder_poly = channel.read_remainder()
+    if len(remainder_poly) > max_degree_plus_1:
+        raise FriVerificationError("remainder degree mismatch")
+    if positions:
+        rc = ns.remainder_check(
+            ctx, get_rem(), len(remainder_poly), positions,
+            domain_generator, spec.GENERATOR, evals_arr,
+        )
+        if rc == 1:
+            raise FriVerificationError("invalid remainder folding")
+        if rc != 0:
+            raise RuntimeError(f"native remainder check failed (rc={rc})")
 
 
 def _batch_inv_int(xs, P):

@@ -4,9 +4,11 @@ Two kinds of shared library are built into ``starkpack_winterfell_tpu_torch/
 build/`` (ignored by git) and loaded through ctypes:
 
 * host C/C++ (``native/builders.cpp``, ``native/rescue128.c``,
-  ``native/rescue_perm.c``, ``native/griffin_perm.c``) with the host
-  compiler — the sequential trace builders and the host sponges of the
-  algebraic hashers;
+  ``native/rescue_perm.c``, ``native/griffin_perm.c``,
+  ``native/blake3_compress.c``, ``native/verify_scalar.c``) with the host
+  compiler — the sequential trace builders, the host sponges of the
+  algebraic hashers, and the verifier's C tier (BLAKE3's byte API and
+  batch Merkle root, the FRI fold, the DEEP composition);
 * CUDA C++ (``csrc/*.cu``) with ``nvcc`` for ``sm_90a`` — the hand-written
   kernels.  Plain C interface, no PyTorch headers, so a build takes seconds.
 
@@ -149,8 +151,12 @@ def _build_host(name: str, source: str, compilers, headers=()) -> ctypes.CDLL:
         cc = next((c for c in compilers if shutil.which(c)), None)
         if cc is None:
             raise RuntimeError(f"no host compiler found for {source}")
-        _run([cc, "-O3", "-fopenmp", "-shared", "-fPIC", src, "-o", so],
+        # build beside the target and rename: processes that build the same
+        # library at once (test workers) never load a half-written file
+        tmp = f"{so}.{os.getpid()}.tmp"
+        _run([cc, "-O3", "-fopenmp", "-shared", "-fPIC", src, "-o", tmp],
              f"host build of {source}")
+        os.replace(tmp, so)
     return ctypes.CDLL(so)
 
 
@@ -286,3 +292,71 @@ def get_griffin_perm() -> ctypes.CDLL:
                     chain.ctypes.data_as(p))
         _CACHE["griffin"] = lib
     return _CACHE["griffin"]
+
+
+def get_blake3() -> ctypes.CDLL:
+    """ctypes handle for the host BLAKE3 (native/blake3_compress.c): one-shot
+    hashes of byte strings and of strided rows, and the batch Merkle-proof
+    root.  Raises if the host compiler is missing or the build fails."""
+    if "b3" not in _CACHE:
+        lib = _build_host("starkb3", "blake3_compress.c", ("cc", "gcc", "clang"))
+        u32, u64, i32, i64 = ctypes.c_uint32, ctypes.c_uint64, ctypes.c_int32, ctypes.c_int64
+        p, sz, cp = ctypes.c_void_p, ctypes.c_size_t, ctypes.c_char_p
+        for fn, argtypes in (
+                # cv (k x 8 u32), blocks (k x 16 u32), counter, block_len, flags, k, out
+                ("b3_compress_batch", [p, p, u64, u32, u32, sz, p]),
+                ("b3_hash_bytes", [cp, u64, p]),
+                # rows of n bytes, n, k, out (k x 8 u32)
+                ("b3_hash_bytes_many", [cp, u64, u64, p]),
+                # rows, stride (bytes), n, k, out
+                ("b3_hash_rows_strided", [p, u64, u64, u64, p])):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = None
+        # leaves, n_leaves, indexes (u64), n_idx, node_data, node_counts (i32),
+        # n_vec, depth, digest bytes, out_root
+        lib.b3_batch_root.argtypes = [cp, i64, p, i64, cp, p, i64, i32, i32, p]
+        lib.b3_batch_root.restype = ctypes.c_int
+        _CACHE["b3"] = lib
+    return _CACHE["b3"]
+
+
+def get_verify_scalar() -> ctypes.CDLL:
+    """ctypes handle for the verifier's scalar loops (native/verify_scalar.c:
+    the FRI layer fold and remainder check, the DEEP composition, Horner and
+    barycentric evaluation) over a generic <= 2^128 Montgomery field.
+    Raises if the host compiler is missing or the build fails."""
+    if "vs" not in _CACHE:
+        lib = _build_host("starkvs", "verify_scalar.c", ("cc", "gcc", "clang"))
+        p, i64, i32, u64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_uint64
+        for fn, argtypes in (
+                ("vs_fold_layer", [
+                    p, p, i32, p, i32, i32,   # p, r2, d, qcoeffs, elem_bytes, N
+                    p, i64,                   # values_bytes, nrows
+                    p, i64,                   # evals_in, npos
+                    p, p, p,                  # qmap_row, qmap_col, folded_pos
+                    p, p, p, p,               # g, offs, alpha, idft
+                    p]),                      # out_evals
+                ("vs_remainder_check", [
+                    p, p, i32, p, i32,
+                    p, i64,                   # rem_bytes, nrem
+                    p, i64,                   # positions, npos
+                    p, p, p]),                # g, offs, evals
+                ("vs_deep_trace", [
+                    p, p, i32, p, i32,
+                    p, i64, i64, i64, i32,    # table_words, n, q, w, d_in
+                    p, p, p,                  # ood_cur, ood_nxt, cc
+                    p, p, i32]),              # t1_num, t2_num, accumulate
+                ("vs_deep_combine", [
+                    p, p, i32, p, i32,
+                    i64, p,                   # q, positions
+                    p, p, p, p,               # g_lde, offs, z, zg
+                    p, p,                     # t1_num, t2_num
+                    p, i64, p, p,             # cons_words, m, ood_c, cc2
+                    p]),                      # out
+                ("vs_test_ops", [p, p, i32, p, p, p, u64, u64, p]),
+                ("vs_poly_eval", [p, p, i32, p, p, i64, p, p]),
+                ("vs_barycentric_eval", [p, p, i32, p, p, i64, p, p, p])):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = i32
+        _CACHE["vs"] = lib
+    return _CACHE["vs"]

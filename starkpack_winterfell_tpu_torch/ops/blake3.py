@@ -7,17 +7,23 @@ function serves two array types:
   node hashing and the proof-of-work batch on the device.  torch has no
   usable ``uint32`` arithmetic on the CPU, so words are kept in int64 and
   masked to 32 bits after every add and rotate.
-* ``numpy.uint32`` arrays — the host byte API (``hash_bytes``,
-  ``hash_bytes_many``) of the Fiat-Shamir transcript and the verifier, where
-  the wrapping arithmetic is native and the masks are no-ops.
+* ``numpy.uint32`` arrays — the plain version (``hash_bytes_plain``,
+  ``hash_bytes_many_plain``, ``hash_words_plain``) of the host C tier
+  (native/blake3_compress.c), where the wrapping arithmetic is native and
+  the masks are no-ops.
 
-All digests are 8 u32 words (= 32 bytes, little-endian words).
+The host byte API of the Fiat-Shamir transcript and the verifier
+(``hash_bytes``, ``hash_bytes_many``) and ``hash_words`` of numpy rows go
+through the C library, one call a batch; only the tests call the plain
+versions.  All digests are 8 u32 words (= 32 bytes, little-endian words).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..native import get_blake3
 
 IV = (
     0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
@@ -101,11 +107,27 @@ def compress(cv, block_words, counter: int, block_len: int, flags: int):
 
 def hash_words(words, byte_len: int):
     """Hash rows given as a (..., W) word array holding ``byte_len`` bytes of
-    little-endian words (W >= ceil(byte_len/4), zero-padded).  Vectorized
-    over leading axes.  Returns (..., 8) digests.
+    little-endian words (W >= ceil(byte_len/4), zero-padded).  Returns
+    (..., 8) digests.  Tensors (the prover's leaves, on the device) go
+    through the vectorized compression; numpy rows (the verifier's parsed
+    queries) through one C call that hashes each row in place."""
+    if not isinstance(words, np.ndarray):
+        return hash_words_plain(words, byte_len)
+    if words.shape[-1] * 4 < byte_len:
+        raise ValueError(f"rows of {words.shape[-1]} words hold no {byte_len} bytes")
+    raw = np.ascontiguousarray(words, dtype="<u4")
+    k = int(np.prod(raw.shape[:-1]))
+    out = np.empty((k, 8), dtype=np.uint32)
+    get_blake3().b3_hash_rows_strided(raw.ctypes.data, raw.shape[-1] * 4, byte_len, k,
+                                      out.ctypes.data)
+    return out.reshape(raw.shape[:-1] + (8,))
 
-    Handles multi-chunk inputs (byte_len > 1024) with the static BLAKE3
-    chunk tree."""
+
+def hash_words_plain(words, byte_len: int):
+    """The vectorized compression over rows of ``hash_words``' layout, for
+    tensors and numpy arrays alike: the torch path of ``hash_words`` and the
+    plain version of its C path.  Handles multi-chunk inputs (byte_len >
+    1024) with the static BLAKE3 chunk tree."""
     assert words.shape[-1] >= (byte_len + 3) // 4
     n_chunks = max(1, (byte_len + CHUNK_LEN - 1) // CHUNK_LEN)
     if n_chunks == 1:
@@ -188,12 +210,33 @@ def merge_with_int(seed, value):
 
 
 # ---------------------------------------------------------------------------
-# host byte-oriented API (numpy uint32 path)
+# host byte-oriented API
 # ---------------------------------------------------------------------------
 
 
+def hash_bytes(data: bytes, out_len: int = 32) -> bytes:
+    """Full BLAKE3 of arbitrary-length input (host C, one call)."""
+    out = np.empty(8, dtype=np.uint32)
+    get_blake3().b3_hash_bytes(data, len(data), out.ctypes.data)
+    return out.tobytes()[:out_len]
+
+
 def hash_bytes_many(datas, out_len: int = 32):
-    """BLAKE3 of many EQUAL-LENGTH byte strings in one vectorized call."""
+    """BLAKE3 of many EQUAL-LENGTH byte strings in one C call."""
+    k = len(datas)
+    n = len(datas[0])
+    buf = b"".join(datas)
+    if len(buf) != n * k:
+        raise ValueError("hash_bytes_many takes byte strings of one length")
+    out = np.empty((k, 8), dtype=np.uint32)
+    get_blake3().b3_hash_bytes_many(buf, n, k, out.ctypes.data)
+    raw = out.tobytes()
+    return [raw[i * 32 : i * 32 + out_len] for i in range(k)]
+
+
+def hash_bytes_many_plain(datas, out_len: int = 32):
+    """The plain version of ``hash_bytes_many``: numpy words through the
+    vectorized compression."""
     k = len(datas)
     n = len(datas[0])
     pad = (-n) % 4
@@ -201,14 +244,14 @@ def hash_bytes_many(datas, out_len: int = 32):
     tail = b"\x00" * (pad + 4 * (need - (n + pad) // 4))
     buf = b"".join(d + tail for d in datas)
     words = np.frombuffer(buf, dtype="<u4").astype(np.uint32).reshape(k, need)
-    digests = hash_words(words, n)  # (k, 8)
+    digests = hash_words_plain(words, n)  # (k, 8)
     raw = digests.astype("<u4").tobytes()
     return [raw[i * 32 : i * 32 + out_len] for i in range(k)]
 
 
-def hash_bytes(data: bytes, out_len: int = 32) -> bytes:
-    """Full BLAKE3 of arbitrary-length input (host)."""
-    return hash_bytes_many([data], out_len)[0]
+def hash_bytes_plain(data: bytes, out_len: int = 32) -> bytes:
+    """The plain version of ``hash_bytes``."""
+    return hash_bytes_many_plain([data], out_len)[0]
 
 
 def digest_to_bytes(d) -> bytes:

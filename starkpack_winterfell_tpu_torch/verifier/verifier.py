@@ -1,11 +1,12 @@
-# Copy of starkpack_winterfell_tpu/verifier/verifier.py; cut: the native C tier (verifier/native_scalar.py), the FieldBackend limb-array paths (batched transition evals, the shared OOD structure, the word-backed DEEP composer); everything runs on python ints.
+# Copy of starkpack_winterfell_tpu/verifier/verifier.py; cut: the FieldBackend limb-array paths (the batched f64 transition evaluations, the shared OOD structure, the word-backed DEEP composer): every instance's OOD evaluation runs on python ints, and the DEEP composition runs in C at every field and degree, with the python-int one as its plain version.
 """Proof verification — equivalent of verifier/src/lib.rs + composer.rs +
 evaluator.rs.  Mirrors the prover transcript step for step.
 
-The verifier's work is O(num_queries * width) scalar field operations, so
-it stays on the host on python ints: the AIR's vectorized
-``evaluate_transition`` runs on ``ScalarFelt`` wrappers, and the DEEP
-composition is a per-query loop."""
+The verifier runs on the host.  Its scalar loops go through the C tier
+(verifier/native_scalar.py over native/verify_scalar.c): the periodic
+columns' Horner, the DEEP composition at the query points, and, in
+fri/verifier.py, the FRI fold.  The AIR's vectorized ``evaluate_transition``
+runs on ``ScalarFelt`` wrappers of python ints, one instance at a time."""
 
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from ..air.air import AuxTraceRandElements
 from ..crypto.random_coin import RandomCoin
 from ..fri.verifier import FriVerificationError, FriVerifier
 from ..math import polynom
+from . import native_scalar as ns
 from .channel import VerifierChannel, VerifierError
 
 
@@ -152,16 +154,12 @@ def _perform_verification(airs, channel, public_coin, hasher, ext_deg, spec):
     queried_constraints = channel.read_constraint_evaluations(query_positions)
 
     # 5. DEEP composition at the query points (composer.rs)
-    composer = DeepComposer(airs[0], query_positions, z, deep_coefficients, spec)
-    t_composition = composer.compose_trace_columns(
-        queried_main_vec, queried_aux, ood_main_frames, ood_aux_frames
-    )
-    c_composition = composer.compose_constraint_evaluations(
+    composer = DeepComposer(airs[0], query_positions, z, deep_coefficients, ext_deg,
+                            spec)
+    deep_evaluations = composer.compose_deep_native(
+        queried_main_vec, queried_aux, ood_main_frames, ood_aux_frames,
         queried_constraints, ood_constraint_evaluations
     )
-    deep_evaluations = [
-        spec.fadd(t, c) for t, c in zip(t_composition, c_composition)
-    ]
 
     # 6. FRI verification
     try:
@@ -172,12 +170,26 @@ def _perform_verification(airs, channel, public_coin, hasher, ext_deg, spec):
 
 
 def _periodic_values_at(air, x, spec):
-    pspec = None if spec.name == "f64" else spec
+    """The periodic columns at x: by C Horner (native_scalar.poly_eval) for
+    base-field coefficients, on f64 from 32 of them, else by
+    ``_periodic_value_plain``."""
     values = []
     for poly in air.get_periodic_column_polys():
         num_cycles = air.trace_length() // len(poly)
-        values.append(polynom.eval_at(poly, spec.fexp(x, num_cycles), pspec))
+        xp = spec.fexp(x, num_cycles)
+        if poly and isinstance(poly[0], int) and (spec.name != "f64" or len(poly) >= 32):
+            # the word pack is identity-cached per poly object (AIRs cache
+            # their periodic polys class-level)
+            ctx = ns.get_ctx(spec, spec.deg_of(xp))
+            values.append(ns.poly_eval(ctx, ns.pack_base_cached(ctx, poly), xp))
+        else:
+            values.append(_periodic_value_plain(poly, xp, spec))
     return values
+
+
+def _periodic_value_plain(poly, xp, spec):
+    """Horner on python ints: the plain version of the C Horner."""
+    return polynom.eval_at(poly, xp, None if spec.name == "f64" else spec)
 
 
 def _evaluate_constraints(air, coeffs, main_frame, aux_frame, aux_rand_elements, x,
@@ -317,27 +329,95 @@ def _batch_inv(xs, spec):
 
 
 class DeepComposer:
-    """verifier/src/composer.rs:55-217 on python ints: per query point x,
+    """verifier/src/composer.rs:55-217, at all query points at once:
 
       sum_ij k_ij (T_ij(x) - T_ij(z)) / (x - z)
       + sum_ij k_ij (T_ij(x) - T_ij(z g)) / (x - z g)
-      + sum_k  c_k  (H_k(x) - H_k(z)) / (x - z)."""
+      + sum_k  c_k  (H_k(x) - H_k(z)) / (x - z)
 
-    def __init__(self, air, query_positions, z, cc, spec):
+    through the C tier (``compose_deep_native``); the ``*_plain`` methods
+    are the same sums on python ints."""
+
+    def __init__(self, air, query_positions, z, cc, ext_deg, spec):
         self.fs = spec
         g_lde = air.lde_domain_generator()
         offset = air.domain_offset()
-        xs = [pow(g_lde, p, spec.P) * offset % spec.P for p in query_positions]
+        self.g_lde = g_lde
+        self.offset = offset
+        self.positions = list(query_positions)
+        self.x_coordinates = [
+            pow(g_lde, p, spec.P) * offset % spec.P for p in query_positions
+        ]
         self.cc = cc
-        zg = spec.fmul(z, air.trace_domain_generator())
-        self._inv_z = _batch_inv([spec.fsub(x, z) for x in xs], spec)
-        self._inv_zg = _batch_inv([spec.fsub(x, zg) for x in xs], spec)
+        self.z = [z, spec.fmul(z, air.trace_domain_generator())]
+        self.ext_deg = ext_deg
 
-    def compose_trace_columns(self, queried_main_vec, queried_aux_vec,
-                              ood_main_frames, ood_aux_frames):
+    def compose_deep_native(self, queried_main_vec, queried_aux_vec,
+                            ood_main_frames, ood_aux_frames,
+                            queried_constraints, ood_evaluations):
+        """Full DEEP composition (trace + constraint parts fused, one
+        batch-inversion chain) through the native scalar kernels
+        (verify_scalar.c).  Returns a packed (q, d, 2) u64 array the FRI
+        verifier's native path consumes directly.  The parsed query tables
+        are word-backed, the degree is at most 3 and the queries at most
+        255 (``ProofOptions``), all within the C library's limits."""
+        import numpy as np
+
+        d = self.ext_deg
+        q = len(self.positions)
+        ctx = ns.get_ctx(self.fs, d)
+        n = len(queried_main_vec)
+        Tm = np.stack([t.words for t in queried_main_vec])  # (n, q, w, nl)
+        w = Tm.shape[2]
+        ood_cur = ctx.pack_elems([v for f in ood_main_frames for v in f.current()])
+        ood_nxt = ctx.pack_elems([v for f in ood_main_frames for v in f.next()])
+        cc = ctx.pack_elems([c for kk in self.cc.traces for c in kk[:w]])
+        t1 = np.zeros((q, d, 2), dtype=np.uint64)
+        t2 = np.zeros_like(t1)
+        rc = ns.deep_trace(ctx, Tm, n, q, w, 1, ood_cur, ood_nxt, cc, t1, t2,
+                           False)
+        if rc != 0:
+            raise RuntimeError(f"vs_deep_trace failed (rc={rc})")
+        if queried_aux_vec is not None:
+            wa = len(ood_aux_frames[0].current())
+            Ta = np.stack([t.words for t in queried_aux_vec])
+            a0 = ctx.pack_elems(
+                [v for f in ood_aux_frames for v in f.current()]
+            )
+            a1 = ctx.pack_elems([v for f in ood_aux_frames for v in f.next()])
+            ka = ctx.pack_elems(
+                [c for kk in self.cc.traces for c in kk[w : w + wa]]
+            )
+            rc = ns.deep_trace(ctx, Ta, n, q, wa, d, a0, a1, ka, t1, t2, True)
+            if rc != 0:
+                raise RuntimeError(f"vs_deep_trace failed (rc={rc})")
+        m = queried_constraints.words.shape[1]
+        ood_c = ctx.pack_elems(list(ood_evaluations))
+        cc2 = ctx.pack_elems(list(self.cc.constraints))
+        rc, out = ns.deep_combine(
+            ctx, q, self.positions, self.g_lde, self.offset, self.z[0],
+            self.z[1], t1, t2, queried_constraints.words, m, ood_c, cc2,
+        )
+        if rc != 0:
+            raise RuntimeError(f"vs_deep_combine failed (rc={rc})")
+        return out
+
+    # -- the plain versions, on python ints ---------------------------------
+
+    def _inv_dens_plain(self):
         spec = self.fs
-        q = len(self._inv_z)
-        zero = spec.zero(spec.deg_of(self._inv_z[0]))
+        z, zg = self.z
+        return (_batch_inv([spec.fsub(x, z) for x in self.x_coordinates], spec),
+                _batch_inv([spec.fsub(x, zg) for x in self.x_coordinates], spec))
+
+    def compose_trace_columns_plain(self, queried_main_vec, queried_aux_vec,
+                                    ood_main_frames, ood_aux_frames):
+        """The trace part of the composition on python ints: the plain
+        version of ``compose_deep_native``'s trace part."""
+        spec = self.fs
+        inv_z, inv_zg = self._inv_dens_plain()
+        q = len(inv_z)
+        zero = spec.zero(spec.deg_of(inv_z[0]))
         t1 = [zero] * q
         t2 = [zero] * q
 
@@ -358,13 +438,15 @@ class DeepComposer:
                            self.cc.traces[i][w:])
         return [
             spec.fadd(spec.fmul(a, iz), spec.fmul(b, izg))
-            for a, b, iz, izg in zip(t1, t2, self._inv_z, self._inv_zg)
+            for a, b, iz, izg in zip(t1, t2, inv_z, inv_zg)
         ]
 
-    def compose_constraint_evaluations(self, queried_evaluations, ood_evaluations):
+    def compose_constraint_evaluations_plain(self, queried_evaluations, ood_evaluations):
+        """The constraint part of the composition on python ints: the plain
+        version of ``compose_deep_native``'s constraint part."""
         spec = self.fs
         out = []
-        for row, iz in zip(queried_evaluations.rows(), self._inv_z):
+        for row, iz in zip(queried_evaluations.rows(), self._inv_dens_plain()[0]):
             num = spec.zero(spec.deg_of(iz))
             for v, o, k in zip(row, ood_evaluations, self.cc.constraints):
                 num = spec.fadd(num, spec.fmul(spec.fsub(v, o), k))

@@ -84,6 +84,11 @@ def _run(code, env_extra=None):
     "starkpack_winterfell_tpu_torch.crypto.rescue_jive_constants, "
     "starkpack_winterfell_tpu_torch.crypto.griffin, "
     "starkpack_winterfell_tpu_torch.crypto.griffin_constants",
+    # the verifier's C tier and the script that times it
+    "starkpack_winterfell_tpu_torch.verifier.native_scalar, "
+    "starkpack_winterfell_tpu_torch.fri.verifier, "
+    "starkpack_winterfell_tpu_torch.crypto.merkle, "
+    "verify_walls",
     "chip_smoke",
     "profile_prove",
 ])
