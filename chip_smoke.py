@@ -32,12 +32,19 @@ with ProofOptions(28, 8, 16, NONE, 4, 31) and BLAKE3-256 unless named:
   the constraint kernel as tables), beside it 64 signatures (2^16 rows), 4
   signatures at k = 15 (512 rows) with a pinned digest, and 4 StarkPack
   instances of one signature each (lamport128, 1024 rows) with SHA3-256;
+  the 1024-signature trace again forced down the coset-streamed pipeline
+  (parallel/streamed.py: the budget at one byte; its proof must be the
+  one-shot proof's bytes), and 4096 signatures (2^22 rows x 14, a 7.5 GB
+  main LDE), which the memory plan streams by itself;
 * the limb path over the extension fields (the eager constraint phase in
   place of the constraint kernel): the 2^18-row Rescue128 chain again at
   ProofOptions(28, 8, 16, QUADRATIC, 4, 31) (limb_ext_main, right after the
   degree-1 prove of the same trace, with kernel 4's launches derived from
-  that prove's); 256 Merkle authentication paths over f128 of depth 32
-  (256 rows x 7 columns each) aggregated into ONE proof, once at degree 1
+  that prove's), and that prove forced down the coset-streamed pipeline
+  (limb_stream_quad: the eager constraint phase a ce coset at a time; the
+  bytes of limb_ext_main's proof); 256 Merkle authentication paths over
+  f128 of depth 32 (256 rows x 7 columns each) aggregated into ONE proof,
+  once at degree 1
   with BLAKE3-256 (the constraint kernel's merkle128 body) and once at
   quadratic with SHA3-256 (merkle128_aggregated, merkle128_aggregated_quad);
   rows 10 (rescue128-chain) and 12 (merkle128) of the golden transcript
@@ -90,13 +97,19 @@ aggregated, ext_cubic_golden, ext_quad_aggregated, small_trace_golden,
 small_trace_main_do_work, small_trace_main_rescue,
 small_trace_ext_golden_row2, small_trace_ext_golden_row4,
 small_trace_ext_do_work, limb_small, limb_fib, limb_fib62, limb_main,
-limb_ext_main, limb_aggregated, merkle128_aggregated,
+limb_ext_main, limb_stream_quad, limb_aggregated, merkle128_aggregated,
 merkle128_aggregated_quad, limb_ext_golden_row10, limb_ext_golden_row12,
 limb_ext_f62, lamport_agg_golden, lamport_agg_64, lamport_agg_main,
-lamport128_aggregated, aux_main, aux_golden, aux_cubic, rp64_main,
+lamport_agg_main_streamed, lamport_agg_4096, lamport128_aggregated,
+aux_main, aux_golden, aux_cubic, rp64_main,
 rpjive_main, griffin_main, rp_golden_row6, rp_golden_row7, rp_golden_row8, rescue_pad, lamport64,
 rp62_main, sponge_search) prints one JSON line as it ends; any failure raises
-and the run exits non-zero.  The last two lines are the per-kernel table
+and the run exits non-zero.  A ``prove_mesh`` phase's line says ``streamed``,
+the path its proves had to take ("prove_mesh path" records); a streamed
+phase's coset transforms and kernel 4 and 5 launches are derived from its
+config and its query positions (``streamed_launches``), and kernels 4 and 5
+are held against their plain versions at its per-coset shapes like every
+other shape.  The last two lines are the per-kernel table
 and the ``{"ok": ...}`` summary.
 
 Needs a CUDA device (exits non-zero without one) and no network.
@@ -111,6 +124,7 @@ import contextlib
 import hashlib
 import importlib.util
 import json
+import logging
 import os
 import random
 import statistics
@@ -180,7 +194,7 @@ from starkpack_winterfell_tpu_torch.ops import ntt4
 from starkpack_winterfell_tpu_torch.ops import ntt_kernel
 from starkpack_winterfell_tpu_torch.ops import rescue_sponge
 from starkpack_winterfell_tpu_torch.ops.backend import get_backend
-from starkpack_winterfell_tpu_torch.parallel import full_pipeline
+from starkpack_winterfell_tpu_torch.parallel import full_pipeline, streamed
 from starkpack_winterfell_tpu_torch.prover import channel as prover_channel
 from starkpack_winterfell_tpu_torch.prover.domain import StarkDomain
 
@@ -259,7 +273,8 @@ AUX_PATHS = {
 # 8 * (k + 1) rows.  lamport128_aggregated: that many StarkPack instances of
 # one signature each
 LAMPORT_PATHS = {"lamport_agg_golden": (4, 15), "lamport_agg_64": (64, 127),
-                 "lamport_agg_main": (1024, 127), "lamport128_aggregated": (4, 127)}
+                 "lamport_agg_main": (1024, 127), "lamport_agg_4096": (4096, 127),
+                 "lamport128_aggregated": (4, 127)}
 
 # the algebraic hashers (the sponge kernel): rp64_main, rpjive_main and
 # griffin_main are the main path's chain proved again with Rp64_256,
@@ -465,11 +480,13 @@ def random_words(shape, rng, device):
     return gl.from_u64(arr, device)
 
 
-def time_cuda(fn, reps: int):
+def time_cuda(fn, reps: int, warm: bool = True):
     """Median milliseconds of ``fn`` over ``reps`` runs, CUDA events around
     each call: the call's time, host work of the wrapper included (the
-    kernel's own time is ``device_kernel_ms``, from the profiler)."""
-    fn()
+    kernel's own time is ``device_kernel_ms``, from the profiler).  ``warm``:
+    one untimed call first (False where the caller has just run ``fn``)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -1412,7 +1429,7 @@ def compare_limb_tile(key, rng, device, used_by):
     del got, want
     bound = limb_tile_bound(key)
     timing = kernel_timing(run, "dit_tile_kernel<F", bound["bound_ms"], limb_ntt)
-    plain_ms = time_cuda(plain, 1)
+    plain_ms = time_cuda(plain, 1, warm=False)  # ``want`` was its first run
     del run, plain
     torch.cuda.empty_cache()
     return {
@@ -1430,12 +1447,12 @@ def compare_limb_tile(key, rng, device, used_by):
 def compare_cons(key, air0, rng, device, used_by):
     """Kernel 5 at one launched shape (AIR, n, w, ce, sequence tables) on
     random inputs: kernel against ``constraint_eval_plain``, then its time."""
-    field, air_name, n, w, ce, n_seq = key
+    field, air_name, n, w, ce, n_seq, shift, blowup = key
     el_bytes = get_backend(field).ELEMENT_BYTES
     w_air, n_per, K, groups = cons_config(air0)
     assert w_air == w and cons_kernel.seq_count(groups) == n_seq
-    args = cons_args(air0, n, ce, BLOWUP, rng, device)
-    shift, pers, scal = args[4], args[7], args[9]
+    args = cons_args(air0, n, ce, blowup, rng, device, shift=shift)
+    pers, scal = args[7], args[9]
     L = ce * shift
     n_ccs = sum(len(g) for g in groups)
     periods = [p[0].shape[0] for p in pers]  # one period of each column over the ce domain
@@ -1455,14 +1472,16 @@ def compare_cons(key, air0, rng, device, used_by):
                               "add": points * add, "sub": points * sub}, field)
     timing = kernel_timing(lambda: cons_kernel.constraint_eval(*args), "cons_eval_kernel",
                            bound["bound_ms"], cons_kernel)
-    plain_ms = time_cuda(lambda: cons_kernel.constraint_eval_plain(*args), 1)
+    # ``hold_cons`` made the plain version's first run
+    plain_ms = time_cuda(lambda: cons_kernel.constraint_eval_plain(*args), 1, warm=False)
     lib_name, path = cons_kernel.kernel_source(air0, w, n_per, K, groups)
     design = cons_kernel.design(body, results)
     del args, pers, scal
     torch.cuda.empty_cache()
     row = {
         "name": f"cons_eval[{field} {air_name} n={n} w={w} ce={ce}"
-                f"{f' seq={n_seq}' if n_seq else ''}]",
+                f"{f' seq={n_seq}' if n_seq else ''}"
+                f"{' one LDE coset (shift 1, blowup 1)' if blowup == 1 else ''}]",
         "route": "cuda",
         "source": "starkpack_winterfell_tpu_torch/csrc/cons_frame.cuh + "
                   "ops/cons_kernel.py emit_cuda",
@@ -1561,9 +1580,110 @@ def extension_launches(base, side, ext_deg):
     return +want
 
 
+@contextlib.contextmanager
+def forced_stream(on: bool):
+    """With ``on``, the memory budget at one byte (``STARKPACK_HBM_BUDGET``),
+    so ``prove_mesh``'s gate sends a limb prove down the coset-streamed
+    path."""
+    old = os.environ.get("STARKPACK_HBM_BUDGET")
+    if on:
+        os.environ["STARKPACK_HBM_BUDGET"] = "1"
+    try:
+        yield
+    finally:
+        if on and old is None:
+            del os.environ["STARKPACK_HBM_BUDGET"]
+        elif on:
+            os.environ["STARKPACK_HBM_BUDGET"] = old
+
+
+class MeshPaths(logging.Handler):
+    """The path each ``prove_mesh`` took, from its "prove_mesh path" record."""
+
+    def __init__(self):
+        super().__init__(level=logging.DEBUG)
+        self.paths = []
+
+    def emit(self, record):
+        if str(record.msg).startswith("prove_mesh path"):
+            self.paths.append(record.args[0])
+
+
+@contextlib.contextmanager
+def mesh_paths():
+    handler = MeshPaths()
+    logger = logging.getLogger("starkpack_winterfell_tpu_torch.prover.device")
+    logger.addHandler(handler)
+    try:
+        yield handler.paths
+    finally:
+        logger.removeHandler(handler)
+
+
+@contextlib.contextmanager
+def coset_transforms():
+    """What the streamed pipeline did in a prove: its coset transforms (each
+    component's ``LimbField.coset_evals`` call), kernel 4's launches inside
+    them, and the query positions ``streamed_query_rows`` re-derived."""
+    seen = {"transforms": 0, "launches": 0, "positions": []}
+    fields = [get_backend(field).F for field in ("f128", "f62")]
+
+    def counted(fn):
+        def call(*args, **kwargs):
+            before = limb_ntt.LAUNCHES
+            seen["transforms"] += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                seen["launches"] += limb_ntt.LAUNCHES - before
+        return call
+
+    saved = streamed.streamed_query_rows
+
+    def query_rows(*args, **kwargs):
+        rows = saved(*args, **kwargs)
+
+        def call(positions):
+            seen["positions"].append(list(positions))
+            return rows(positions)
+        return call
+
+    for F in fields:
+        F.coset_evals = counted(F.coset_evals)
+    streamed.streamed_query_rows = query_rows
+    try:
+        yield seen
+    finally:
+        for F in fields:
+            del F.coset_evals
+        streamed.streamed_query_rows = saved
+
+
+def streamed_launches(air0, options, num_aux: int, positions) -> dict:
+    """The coset transforms (one extension component each) and kernel 4 and 5
+    launches a streamed prove makes, from its config and its query
+    positions: P1 and P1b ``blowup`` cosets a segment; P2 the cb ce cosets
+    (LDE coset rc * shift) of the main segment, and of every aux segment
+    where the eager branch reads aux frames; P3 ``blowup`` cosets of the
+    composition columns; P8 each coset the positions touch, for every
+    segment.  A transform of ``length`` points is one kernel 4 launch up to
+    the tile cap, two (the four-step) above it; kernel 5 runs once a ce
+    coset where it takes the prove (degree 1, no aux segments)."""
+    length, cb = air0.trace_length(), air0.ce_blowup_factor()
+    blowup, d = options.blowup_factor, int(options.field_extension)
+    kernel5 = d == 1 and num_aux == 0
+    cosets = len({p % blowup for p in positions})
+    transforms = (blowup * (1 + num_aux * d) + cb * (1 + num_aux * d)
+                  + blowup * d + cosets * (1 + num_aux * d + d))
+    return {"coset_transforms": transforms,
+            "coset_transform_launches": transforms * (1 if length <= limb_ntt.MAX_TILE_N else 2),
+            "cons_launches": cb if kernel5 else 0, "query_cosets": cosets}
+
+
 def observed_phase(path, prover, air_class, traces, kernel_rows, rng, device,
                    required, airs=None, golden=None, tampers=(), side=None,
-                   expected=None, sponge=None, seed_hash=False, **extra):
+                   expected=None, sponge=None, seed_hash=False, stream=False,
+                   force_stream=False, same_as=None, **extra):
 
     """One size of a path whose kernel shapes are read off a first prove
     (``first_prove``): each new shape is held against its plain version;
@@ -1578,15 +1698,22 @@ def observed_phase(path, prover, air_class, traces, kernel_rows, rng, device,
     ``extension_side_launches``; ``expected``: the counts the counted prove
     must show, derived beforehand (``extension_launches``, ``perm_launches``);
     ``sponge``: the sponge launches by rows it must show (``sponge_launches``);
-    ``seed_hash``: also time the Fiat-Shamir seed's hash (``seed_hash_walls``).  ``extra`` goes
+    ``seed_hash``: also time the Fiat-Shamir seed's hash (``seed_hash_walls``).
+    ``stream``: the path every prove of a ``prove_mesh`` phase must take
+    (its "prove_mesh path" records; the line says ``streamed``), and for a
+    streamed one the coset transforms and kernel 4 and 5 launches
+    ``streamed_launches`` derives; ``force_stream``: both proves with the
+    budget at one byte (``forced_stream``); ``same_as``: the sha256 the
+    proof must have (another path's proof of the same statement).  ``extra`` goes
     into the phase's line; with ``base_steady_prove_s`` the line also gives
     the steady prove over it.  Returns {"counted", "steady_prove_s",
-    "phases_ms"} of the counted prove."""
+    "phases_ms", "sha256"} of the counted prove."""
     n = len(traces)
     hasher = prover.hasher
     pub = [prover.get_pub_inputs(t) for t in traces]
-    first_proof, first_s, seen, new_rows = first_prove(
-        path, prover, traces, kernel_rows, rng, device, airs)
+    with forced_stream(force_stream), mesh_paths() as paths:
+        first_proof, first_s, seen, new_rows = first_prove(
+            path, prover, traces, kernel_rows, rng, device, airs)
     verify(air_class, first_proof, pub, hasher)
     del first_proof
 
@@ -1595,13 +1722,31 @@ def observed_phase(path, prover, air_class, traces, kernel_rows, rng, device,
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()  # tables cached by earlier proves
     with (extension_side_launches() if side is not None
-          else contextlib.nullcontext()) as side_counts:
+          else contextlib.nullcontext()) as side_counts, forced_stream(force_stream), \
+            mesh_paths() as counted_paths, coset_transforms() as transforms:
         proof, seconds, phases = timed_prove(prover, traces)
     peak = torch.cuda.max_memory_allocated()
+    paths += counted_paths
+    want_path = "streamed" if stream else "one-shot"
+    if paths and set(paths) != {want_path}:
+        raise RuntimeError(f"the {path} proves took the paths {paths}, expected {want_path}")
     sponge_seen = collections.Counter(rescue_sponge.LAUNCHES_BY_SHAPE)
     search_seen = dict(rescue_sponge.SEARCH_LAUNCHES_BY_LAYOUT)
     counted = record_observed(path, seen, new_rows, kernel_rows, required)
     fields = dict(extra)
+    if paths:
+        fields["streamed"] = stream
+    if stream:
+        air0 = prover.air_class(traces[0].get_info(), pub[0], prover.options())
+        want = streamed_launches(air0, prover.options(), traces[0].num_aux_segments(),
+                                 transforms["positions"][0])
+        got = {"coset_transforms": transforms["transforms"],
+               "coset_transform_launches": transforms["launches"],
+               "cons_launches": sum(v for k, v in counted.items() if k[0] == "cons"),
+               "query_cosets": want["query_cosets"]}
+        if got != want or len(transforms["positions"]) != 1:
+            raise RuntimeError(f"the {path} prove made {got}, derived were {want}")
+        fields.update(stream_launches=got, stream_launches_as_derived=True)
     if sponge is not None:
         search = (search_seen, proof, prover.options().grinding_factor, hasher.NAME)
         fields.update(check_sponge(path, sponge_seen, sponge, rng, device, search))
@@ -1628,6 +1773,12 @@ def observed_phase(path, prover, air_class, traces, kernel_rows, rng, device,
         if digest != pinned:
             raise RuntimeError(f"{path} proof digest {digest} differs from pinned {pinned}")
         fields.update(sha256=digest, matches_pinned=True)
+    if same_as is not None:
+        digest = hashlib.sha256(data).hexdigest()
+        if digest != same_as:
+            raise RuntimeError(f"{path} proof digest {digest} differs from the other "
+                               f"path's {same_as}")
+        fields.update(sha256=digest, matches_other_path=True)
     for name, tamper in tampers:
         try:
             verify(air_class, proof.from_bytes(data), tamper(pub), hasher)
@@ -1652,7 +1803,8 @@ def observed_phase(path, prover, air_class, traces, kernel_rows, rng, device,
          proof_bytes=len(data), security_level_conjectured=proof.security_level_conjectured(),
          verified=True, **fields)
     return {"counted": counted, "steady_prove_s": seconds,
-            "phases_ms": {name: ms for name, ms in phases}}
+            "phases_ms": {name: ms for name, ms in phases},
+            "sha256": hashlib.sha256(data).hexdigest()}
 
 
 def tamper_seed(pub):
@@ -1693,13 +1845,20 @@ def limb_phases(kernel_rows, rng, device):
     # the same trace at quadratic: the eager constraint phase in place of
     # kernel 5, the extension's steps through kernel 4 once per component
     ext_prover = Rescue128ChainProver(ProofOptions(*LIMB_EXT_OPTIONS), Blake3_256)
-    observed_phase("limb_ext_main", ext_prover, Rescue128ChainAir, [trace], kernel_rows,
-                   rng, device, ("ntt",),
-                   expected=extension_launches(base["counted"], side,
-                                               int(LIMB_EXT_OPTIONS[3])),
-                   tampers=[("seed", tamper_seed)], options=list(LIMB_EXT_OPTIONS),
-                   base_steady_prove_s=base["steady_prove_s"],
-                   base_phases_ms=base["phases_ms"])
+    quad = observed_phase("limb_ext_main", ext_prover, Rescue128ChainAir, [trace], kernel_rows,
+                          rng, device, ("ntt",),
+                          expected=extension_launches(base["counted"], side,
+                                                      int(LIMB_EXT_OPTIONS[3])),
+                          tampers=[("seed", tamper_seed)], options=list(LIMB_EXT_OPTIONS),
+                          base_steady_prove_s=base["steady_prove_s"],
+                          base_phases_ms=base["phases_ms"])
+    # the same prove down the coset-streamed path: the eager constraint
+    # branch per ce coset, in the extension
+    observed_phase("limb_stream_quad", ext_prover, Rescue128ChainAir, [trace], kernel_rows,
+                   rng, device, ("ntt",), stream=True, force_stream=True,
+                   same_as=quad["sha256"], tampers=[("seed", tamper_seed)],
+                   options=list(LIMB_EXT_OPTIONS), base_steady_prove_s=quad["steady_prove_s"],
+                   base_phases_ms=quad["phases_ms"])
     del trace
 
     log2_rows, n = LIMB_PATHS["limb_aggregated"]
@@ -1806,37 +1965,67 @@ def lamport_phases(kernel_rows, rng, device):
     """Aggregated Lamport+ signatures over f128 with BLAKE3-192: 4 signatures
     at k = 15 against the pinned digest, then 64 (2^16 rows) and 1024 (2^20
     rows x 14 columns) signatures of 127-bit messages, the first and last
-    rows of the reference's aggregation table; then 4 StarkPack instances
-    of one signature each (lamport128, k = 127) with SHA3-256.  Every proof
-    is verified; a tampered message and a tampered public key are rejected.
-    The wallet (keys, messages, signatures) and the trace are built on the
-    host and timed apart from the prove."""
+    rows of the reference's aggregation table; the 1024 again forced down
+    the coset-streamed path (its bytes the one-shot proof's), then 4096
+    (2^22 rows, the next row of the table), which the memory plan streams;
+    then 4 StarkPack instances of one signature each (lamport128, k = 127)
+    with SHA3-256.  Every proof is verified; a tampered message and a
+    tampered public key are rejected.  The wallet (keys, messages,
+    signatures) and the trace are built on the host and timed apart from
+    the prove; the 1024 signatures are the first of the 4096's wallet."""
     options = ProofOptions(*BENCH_OPTIONS)
     both = ("ntt", "cons")
-    for path in ("lamport_agg_golden", "lamport_agg_64", "lamport_agg_main"):
+    prover = lagg.Lamport128AggProver(options, Blake3_192)
+    tampers = [("message", tamper_agg_message), ("public key", tamper_agg_pub_key)]
+    big = None  # the 4096-signature wallet and its build's seconds
+    for path in ("lamport_agg_golden", "lamport_agg_64", "lamport_agg_main",
+                 "lamport_agg_4096"):
         n_sigs, k = LAMPORT_PATHS[path]
         golden = path == "lamport_agg_golden"
         # the tables and caches of earlier proves go, so the largest prove
         # finds the card's memory free
         full_pipeline._TABLE_CACHE.clear()
         torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        messages, _, sigs = lagg.make_wallet(n_sigs, k, seed=0 if golden else
-                                             int(rng.integers(1 << 30)))
-        wallet_s = time.perf_counter() - t0
+        if path in ("lamport_agg_main", "lamport_agg_4096"):
+            # one wallet of 4096: make_wallet draws each signature's keys and
+            # message in turn, so its first 1024 are make_wallet(1024)'s
+            if big is None:
+                t0 = time.perf_counter()
+                big = (lagg.make_wallet(LAMPORT_PATHS["lamport_agg_4096"][0], k,
+                                        seed=int(rng.integers(1 << 30))),
+                       time.perf_counter() - t0)
+            messages, _, sigs = (part[:n_sigs] for part in big[0])
+            wallet = ({"wallet_s": big[1]} if path == "lamport_agg_4096" else
+                      {"wallet": "the first 1024 signatures of lamport_agg_4096's wallet"})
+        else:
+            t0 = time.perf_counter()
+            messages, _, sigs = lagg.make_wallet(n_sigs, k, seed=0 if golden else
+                                                 int(rng.integers(1 << 30)))
+            wallet = {"wallet_s": time.perf_counter() - t0}
         t0 = time.perf_counter()
         trace = lagg.build_lamport128_agg_trace(messages, sigs, k)
         trace_s = time.perf_counter() - t0
         del messages, sigs
-        prover = lagg.Lamport128AggProver(options, Blake3_192)
-        observed_phase(path, prover, lagg.Lamport128AggAir, [trace], kernel_rows, rng, device,
-                       both, phase_airs(prover, [trace]),
-                       golden=GOLDEN_LAMPORT if golden else None,
-                       tampers=[("message", tamper_agg_message),
-                                ("public key", tamper_agg_pub_key)],
-                       seed_hash=path == "lamport_agg_main",
-                       signatures=n_sigs, k=k, wallet_s=wallet_s, trace_build_s=trace_s)
+        # 4096 signatures (a 7.5 GB main LDE) stream by the gate alone
+        done = observed_phase(path, prover, lagg.Lamport128AggAir, [trace], kernel_rows, rng,
+                              device, both, phase_airs(prover, [trace]),
+                              golden=GOLDEN_LAMPORT if golden else None, tampers=tampers,
+                              seed_hash=path == "lamport_agg_main",
+                              stream=path == "lamport_agg_4096",
+                              signatures=n_sigs, k=k, trace_build_s=trace_s, **wallet)
+        if path == "lamport_agg_main":
+            # the same trace forced down the coset-streamed path: kernel 5
+            # once a ce coset, the same proof bytes
+            full_pipeline._TABLE_CACHE.clear()
+            torch.cuda.empty_cache()
+            observed_phase("lamport_agg_main_streamed", prover, lagg.Lamport128AggAir, [trace],
+                           kernel_rows, rng, device, both, phase_airs(prover, [trace]),
+                           tampers=tampers, stream=True, force_stream=True,
+                           same_as=done["sha256"], signatures=n_sigs, k=k,
+                           base_steady_prove_s=done["steady_prove_s"],
+                           base_phases_ms=done["phases_ms"])
         del trace
+    del big
 
     n, k = LAMPORT_PATHS["lamport128_aggregated"]
     traces = []
@@ -2201,6 +2390,21 @@ def sponge_search_phase(kernel_rows, rng, device):
          search_launches_by_path=SEARCH_LAUNCHES_BY_PATH)
 
 
+def kernel_sums(kernel_rows) -> dict:
+    """Per phase, each kernel's (by the TPU kernel it replaces) launches, and
+    its device ms and bound summed over them (a shape's ms times its
+    launches in that phase's counted prove)."""
+    sums = {}
+    for row in kernel_rows.values():
+        for path, count in row["launches_by_path"].items():
+            s = sums.setdefault(path, {}).setdefault(
+                row["replaces"], {"launches": 0, "ms": 0.0, "bound_ms": 0.0})
+            s["launches"] += count
+            s["ms"] += count * (row.get("ms") or 0.0)
+            s["bound_ms"] += count * (row.get("bound_ms") or 0.0)
+    return sums
+
+
 def build_all():
     """Build every kernel library and host builder of the driven paths, one
     compiler process per library, all started together."""
@@ -2323,6 +2527,7 @@ def main(argv=None):
     lamport_phases(kernel_rows, rng, device)
     rp_phases(kernel_rows, rng, device)
     sponge_search_phase(kernel_rows, rng, device)
+    emit("kernel_sums", by_phase=kernel_sums(kernel_rows))
 
     print(smi, flush=True)
     print(json.dumps({"kernels": list(kernel_rows.values())}), flush=True)

@@ -314,20 +314,25 @@ def cons_config(air0):
             air0.context.num_transition_constraints(), plan_groups(template))
 
 
-def cons_args(air0, n: int, ce: int, blowup: int, rng, device):
+def cons_args(air0, n: int, ce: int, blowup: int, rng, device, shift=None):
     """Arguments of ``constraint_eval`` / ``constraint_eval_plain`` for an
     AIR at n instances and ce points, on random elements: LDE rows (n, w,
     ce * shift), one period of each periodic column at its own period, the
-    divisor tables, the scalar bank, the (n, ce) sequence tables."""
+    divisor tables, the scalar bank, the (n, ce) sequence tables.  ``shift``
+    defaults to blowup over the AIR's ce blowup (one LDE coset of the
+    streamed pipeline: shift 1, blowup 1)."""
     from starkpack_winterfell_tpu_torch.ops.backend import get_backend
 
     field = air0.field_spec().name
     w, _, K, groups = cons_config(air0)
-    shift = blowup // air0.ce_blowup_factor()
+    if shift is None:
+        shift = blowup // air0.ce_blowup_factor()
     n_ccs = sum(len(g) for g in groups)
     n_seq = sum(pl > 1 for g in groups for (_, _, pl) in g)
     rows = (random_limb(field, (n, w, ce * shift), rng, device),)
-    pers = [random_limb(field, (len(c) * air0.ce_blowup_factor(),), rng, device)
+    # one period over the ce domain; over one LDE coset (blowup 1) a cb-th
+    per_cb = air0.ce_blowup_factor() if blowup > 1 else 1
+    pers = [random_limb(field, (len(c) * per_cb,), rng, device)
             for c in air0.get_periodic_column_values()]
     divs = [random_limb(field, (ce,), rng, device) for _ in range(1 + len(groups))]
     seqs = [random_limb(field, (n, ce), rng, device) for _ in range(n_seq)]
@@ -533,7 +538,8 @@ def time_limb_ext(label, dev):
         inv_offs = limb_drp_inv_offsets(B, L // 4, 4, air.domain_offset(), dev)
         steps = {
             "P2 eager constraint phase": lambda: full_pipeline.eager_constraint_phase(
-                B, air, domain, plan, rows, t_main, singles, [], ccs, fp),
+                B, air, domain.ce_to_lde_blowup, domain.trace_to_lde_blowup, plan, rows,
+                t_main, singles, [], ccs, fp),
             "P4 two OOD power series of 2^18": lambda: [B.power_series_elem(v, length)
                                                         for v in (x, z)],
             "P5+6 syn_div_binomial of 6 x 2^18": lambda: B.syn_div_binomial(p, z),
@@ -555,8 +561,9 @@ def time_limb_ext(label, dev):
             torch.cuda.empty_cache()
         if deg == 1:
             # the eager phase at degree 1 computes what kernel 5 does
-            got = full_pipeline.eager_constraint_phase(B, air, domain, plan, rows, t_main,
-                                                       singles, [], ccs, fp)
+            got = full_pipeline.eager_constraint_phase(
+                B, air, domain.ce_to_lde_blowup, domain.trace_to_lde_blowup, plan, rows,
+                t_main, singles, [], ccs, fp)
             hold_cons((B, air, plan["groups"], K, domain.ce_to_lde_blowup,
                        domain.trace_to_lde_blowup, rows, plan["periodic_tabs"],
                        plan["div_tables"], scal, []), "the eager phase's inputs", got[0])

@@ -522,6 +522,11 @@ class LimbBackend(FieldBackend):
     def interpolate_poly_with_offset(self, comps, offset: int):
         return tuple(self.F.interpolate_poly_with_offset(c, offset) for c in comps)
 
+    def evaluate_coset(self, comps, offset: int, blowup: int, k: int):
+        """Coset k of ``evaluate_poly_with_offset(comps, offset, blowup)``
+        (natural LDE indices q*blowup + k), shaped like ``comps``."""
+        return tuple(self.F.coset_evals(c, offset, blowup, k) for c in comps)
+
     def power_series(self, base: int, n: int, device="cpu"):
         """[1, b, b^2, ...] as one base component, log-doubled on ``device``."""
         return self.F._pow_series(self.F.from_int(base % self.P, (1,), device), n)

@@ -64,7 +64,7 @@ from .felt import Felt
 
 # launches of the CUDA kernel made by ``constraint_eval`` (and nowhere
 # else): the total, and the same split by (field, AIR class name, n, w, ce,
-# sequence tables)
+# sequence tables, shift, blowup)
 LAUNCHES = 0
 LAUNCHES_BY_SHAPE: dict = {}
 
@@ -739,6 +739,6 @@ def constraint_eval(B, air0, plan_groups, K, shift: int, blowup: int,
             f"(air={type(air0).__name__}, n={n}, w={w}, ce={ce})"
         )
     LAUNCHES += 1
-    key = (air0.field_spec().name, type(air0).__name__, n, w, ce, n_seq)
+    key = (air0.field_spec().name, type(air0).__name__, n, w, ce, n_seq, shift, blowup)
     LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
     return (out,)

@@ -327,6 +327,37 @@ class LimbField:
         self._four_step(x, False, False, o, row=row, col=col)
         return out
 
+    def coset_evals(self, a, domain_offset: int, blowup: int, k: int):
+        """Coset k alone of ``evaluate_poly_with_offset(a, domain_offset,
+        blowup)``: planes (..., n), element q the LDE's at natural index
+        q*blowup + k.  The length-n transform of the coefficients scaled by
+        s_k^t, s_k = offset * g_L^k: row k of the factors ``_lde_cosets``
+        takes, riding in the launch as there."""
+        from . import limb_ntt
+
+        n = a[0].shape[-1]
+        device = a[0].device
+        rows = _one_layout(tuple(l.reshape(-1, n) for l in a))
+        nb = rows[0].shape[0]
+        out = tuple(torch.empty((nb, n), dtype=torch.int64, device=device)
+                    for _ in range(self.n))
+        cap = self._tile_cap()
+        if n <= cap:
+            row, _ = self._coset_factors(domain_offset, blowup, n, n, device)
+            rs = rows[0].stride()
+            x = tuple(torch.as_strided(l, (1, 1, n, nb), (0, 0, rs[1], rs[0]),
+                                       l.storage_offset()) for l in rows)
+            limb_ntt.tile(self, x, limb_ntt.tile_twiddles(self, n, False, device),
+                          row=tuple(l[k : k + 1] for l in row),
+                          out=tuple(l.T[None, None] for l in out))
+        else:
+            r, _ = self._split_tiles(n, cap)
+            row, col = self._coset_factors(domain_offset, blowup, n, r, device)
+            self._four_step(tuple(l[None] for l in rows), False, False,
+                            tuple(l[None] for l in out), row=tuple(l[k : k + 1] for l in row),
+                            col=tuple(l[k : k + 1] for l in col))
+        return tuple(l.reshape(a[0].shape) for l in out)
+
     def interpolate_poly(self, a):
         return self.ntt(a, inverse=True, scale=True)
 

@@ -36,12 +36,19 @@ package's ``prover/device.py:410-418`` routes them.
        ``MeshFriProver`` :1215 does on one device), and one gather of the
        queried rows.
 
+Memory plan (JAX :725-736): a limb-field config whose one-shot peak
+estimate is above the budget runs P1, P1b, P2, P3 and the query gather of
+P8 coset by coset through parallel/streamed.py, from the coefficient tables,
+and never holds an LDE; the tail is the same.  An f64 config (it reaches
+this pipeline only with aux segments) does not stream: above the budget it
+fails fast with ProverError (``streamed.preflight_check``).  The DEBUG
+record "prove_mesh path: %s" names the path a prove took.
+
 Ported: every field at every extension degree it has, main and auxiliary
 segments, single-value and sequence boundary assertions, BLAKE3-256,
 BLAKE3-192 and SHA3-256 (``prover/device.py`` names the hashers each field
-takes).  Configs that would need the coset-streamed kernels raise
-NotImplementedError (``parallel/streamed.py``).  Proof bytes equal the JAX
-package's host pipeline.
+takes), the one-shot and the coset-streamed phases.  Proof bytes equal the
+JAX package's host pipeline on both.
 """
 
 from __future__ import annotations
@@ -341,13 +348,18 @@ def _felt_columns(comps, w, B):
     return [Felt(B.emap(lambda l: l[:, wi], comps), B=B) for wi in range(w)]
 
 
-def eager_constraint_phase(B, air0, domain, plan, main_rows, t_main, singles,
-                           seq_tabs, ccs, fp_stack, aux=None):
+def eager_constraint_phase(B, air0, shift: int, blowup: int, plan, main_rows, t_main,
+                           singles, seq_tabs, ccs, fp_stack, aux=None):
     """JAX ``sharded_constraint_phase`` :325 (with ``_frames_from_rows``
     :298) on one device, as eager tensor code: the transition (and the aux
     transition), the boundary groups, the divisor tables and the
     cross-instance ``final_powers`` combination, at any extension degree.
 
+    shift: LDE rows a ce point (the domain's ``ce_to_lde_blowup``); blowup:
+    LDE rows a trace step (``trace_to_lde_blowup``); the ce points are
+    L // shift.  The streamed pipeline passes one LDE coset's rows with
+    shift 1 and blowup 1, and a plan whose periodic and divisor tables are
+    that coset's slices (parallel/streamed.py).
     main_rows: comps (n, w, L) LDE rows; t_main: comps (n, K) and ccs a list
     of comps (n, 1), in the extension; singles: comps (n, 1), base elements
     for the main segment's assertions and extension ones for the aux
@@ -361,9 +373,7 @@ def eager_constraint_phase(B, air0, domain, plan, main_rows, t_main, singles,
     chunks of ``EAGER_POINTS`` // n points; every step is pointwise in ce,
     so chunking changes no value.  Returns comps (ce,)."""
     n, w, L = main_rows[0][0].shape
-    ce = domain.ce_size
-    shift = domain.ce_to_lde_blowup
-    blowup = domain.trace_to_lde_blowup
+    ce = L // shift
     K = plan["K"]
     device = main_rows[0][0].device
     t_coefs = [B.emap(lambda l: l[:, k : k + 1], t_main) for k in range(K)]
@@ -531,10 +541,16 @@ def prove_mesh(prover, n: int, traces, device):
     trace_length = domain.trace_length
     num_aux = traces[0].num_aux_segments()
 
-    # fail fast when the one-shot pipeline cannot fit the card: the aux
-    # columns count once per extension component (JAX :729-736)
+    # the memory plan (JAX :725-736): a limb-field config whose one-shot peak
+    # estimate is above the budget streams the LDE coset by coset; another
+    # that cannot fit fails fast.  The aux columns count once per extension
+    # component
     w_eff = w + sum(traces[0].get_info().layout.aux_segment_widths) * ext_deg
-    streamed.preflight_check(n, w_eff, length, blowup, B.ELEMENT_BYTES, device)
+    stream = spec.name != "f64" and streamed.should_stream(
+        n, w_eff, length, blowup, B.ELEMENT_BYTES, device)
+    if not stream:
+        streamed.preflight_check(n, w_eff, length, blowup, B.ELEMENT_BYTES, device)
+    logger.debug("prove_mesh path: %s", "streamed" if stream else "one-shot")
 
     def stack(segments):  # per-instance comps (w, length) -> comps (n, w, length)
         return tuple(tuple(torch.stack([s[c][l] for s in segments])
@@ -543,7 +559,11 @@ def prove_mesh(prover, n: int, traces, device):
 
     # ---- P1: main-trace commitment ----
     stacked = stack([t.main_segment_limbs(B, device) for t in traces])
-    polys, lde_rows, levels = sharded_segment_commit(B, hasher, stacked, blowup, offset, 1)
+    if stream:
+        polys, levels = streamed.streamed_segment_commit(B, hasher, stacked, blowup, offset, 1)
+        lde_rows = None
+    else:
+        polys, lde_rows, levels = sharded_segment_commit(B, hasher, stacked, blowup, offset, 1)
     del stacked
     main_tree = MerkleTree(levels, hasher)
     channel.commit_trace(main_tree.root())
@@ -560,8 +580,13 @@ def prove_mesh(prover, n: int, traces, device):
             segments.append(trace.build_aux_segment(seg_idx, rand_elements, B, device))
         stacked = B.promote(stack(segments), ext_deg)
         del segments
-        apolys, arows, alevels = sharded_segment_commit(B, hasher, stacked, blowup, offset,
-                                                        ext_deg)
+        if stream:
+            apolys, alevels = streamed.streamed_segment_commit(B, hasher, stacked, blowup,
+                                                               offset, ext_deg)
+            arows = None
+        else:
+            apolys, arows, alevels = sharded_segment_commit(B, hasher, stacked, blowup,
+                                                            offset, ext_deg)
         del stacked
         aux_trees.append(MerkleTree(alevels, hasher))
         aux_polys.append(apolys)
@@ -589,36 +614,47 @@ def prove_mesh(prover, n: int, traces, device):
     )
     singles, seq_specs, ccs = _stack_group_values(boundary_list, domain, airs[0], B,
                                                   ext_deg, device)
-    seq_tabs = sequence_tables(B, seq_specs, ce)
-    del seq_specs
     t_main = _stack_elems(B, [t.main_constraint_coef for t in tc_list], ext_deg, device)
     fp_stack = B.emap(lambda l: l[:, 0],
                       _stack_elems(B, [[p] for p in final_powers], ext_deg, device))
+    scal = aux = None
     if _pcons_gate(plan, ext_deg, spec):
         scal = cons_kernel.pack_scalar_bank(B, t_main, singles, ccs, fp_stack, n,
                                             plan["K"])
-        final_comb = pallas_constraint_phase(B, airs[0], domain, plan, lde_rows, scal,
-                                             [t[0] for t in seq_tabs])
-    else:
-        aux = None
-        if plan["has_aux"]:
+    elif plan["has_aux"]:
+        rand_stacks = [
+            [_stack_elems(B, [[r.get_segment_elements(s)[e]] for r in aux_rand_objs],
+                          ext_deg, device)
+             for e in range(len(aux_rand_objs[0].get_segment_elements(s)))]
+            for s in range(num_aux)
+        ]
+        t_aux = _stack_elems(B, [t.aux_constraint_coef for t in tc_list], ext_deg, device)
+        if stream:
+            aux = (aux_polys, t_aux, rand_stacks)
+        else:
             # the aux frame spans every aux segment's columns
             rows = tuple(tuple(torch.cat([r[c][l] for r in aux_rows], dim=1)
                                for l in range(len(aux_rows[0][c])))
                          for c in range(ext_deg))
-            rand_stacks = [
-                [_stack_elems(B, [[r.get_segment_elements(s)[e]] for r in aux_rand_objs],
-                              ext_deg, device)
-                 for e in range(len(aux_rand_objs[0].get_segment_elements(s)))]
-                for s in range(num_aux)
-            ]
-            t_aux = _stack_elems(B, [t.aux_constraint_coef for t in tc_list], ext_deg,
-                                 device)
             aux = (rows, t_aux, rand_stacks)
-        final_comb = eager_constraint_phase(B, airs[0], domain, plan, lde_rows, t_main,
-                                            singles, seq_tabs, ccs, fp_stack, aux=aux)
-        del aux
-    del seq_tabs
+    if stream:
+        # per ce coset, from the coefficient tables (JAX :903-915); the
+        # sequences are evaluated coset by coset from their (n, m)
+        # coefficients, never as (n, ce) tables
+        final_comb = streamed.streamed_constraint_kernel(
+            B, airs[0], domain, plan, polys, t_main, singles, seq_specs, ccs, fp_stack,
+            scal=scal, aux=aux)
+    else:
+        seq_tabs = sequence_tables(B, seq_specs, ce)
+        if scal is not None:
+            final_comb = pallas_constraint_phase(B, airs[0], domain, plan, lde_rows, scal,
+                                                 [t[0] for t in seq_tabs])
+        else:
+            final_comb = eager_constraint_phase(
+                B, airs[0], domain.ce_to_lde_blowup, blowup, plan, lde_rows, t_main, singles,
+                seq_tabs, ccs, fp_stack, aux=aux)
+        del seq_tabs
+    del seq_specs, aux
     _mark("P2 constraint evaluation")
 
     # ---- P3: composition poly + LDE + commitment ----
@@ -630,9 +666,16 @@ def prove_mesh(prover, n: int, traces, device):
         B.promote(coeffs, ext_deg),
     )
     del coeffs
-    comp_lde_rows, clevels = sharded_lde_blocks(
-        B, comp_columns, L // trace_length, offset, hasher=hasher, deg=ext_deg
-    )
+    if stream:
+        # the composition columns share the main trace's length and blowup
+        # (JAX :991-1000)
+        clevels = streamed.streamed_comp_commit(B, hasher, comp_columns, L // trace_length,
+                                                offset, ext_deg)
+        comp_lde_rows = None
+    else:
+        comp_lde_rows, clevels = sharded_lde_blocks(
+            B, comp_columns, L // trace_length, offset, hasher=hasher, deg=ext_deg
+        )
     constraint_tree = MerkleTree(clevels, hasher)
     channel.commit_constraints(constraint_tree.root())
     _mark("P3 composition LDE + commit")
@@ -651,6 +694,11 @@ def prove_mesh(prover, n: int, traces, device):
 
         comp_g = B.emap(lambda l: l.index_select(1, idx).cpu(), comp_lde_rows)
         return (per_instance(lde_rows), [per_instance(r) for r in aux_rows], comp_g)
+
+    if stream:
+        # the queried rows re-derived coset by coset (JAX :1051-1058)
+        query_rows = streamed.streamed_query_rows(B, n, blowup, offset, polys, aux_polys,
+                                                  comp_columns)
 
     def deep_fri(deep_coefficients):
         cols = B.emap(lambda l: l.reshape(1, trace_length), deep_coefficients)

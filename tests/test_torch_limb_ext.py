@@ -223,8 +223,9 @@ def test_eager_phase_matches_the_jax_sharded_constraint_phase():
     want = call(j_rows, (), j_t, (), j_singles, [], j_ccs, [], j_fp_stack,
                 jplan["div_tables"], jplan["periodic_tabs"])
     t_rows, t_t, t_singles, t_ccs, t_fp_stack = args(TB, "torch")
-    got = t_fp.eager_constraint_phase(TB, tair, tdom, tplan, t_rows, t_t, t_singles, [],
-                                      t_ccs, t_fp_stack)
+    got = t_fp.eager_constraint_phase(TB, tair, tdom.ce_to_lde_blowup,
+                                      tdom.trace_to_lde_blowup, tplan, t_rows, t_t,
+                                      t_singles, [], t_ccs, t_fp_stack)
     assert len(got) == deg and got[0][0].shape == (tdom.ce_size,)
     assert _same(field, deg, want, got)
 
@@ -273,6 +274,7 @@ def test_eager_phase_in_chunks_matches_the_plain_kernel_at_degree_one(case, monk
         B, air, groups, K, dom.ce_to_lde_blowup, dom.trace_to_lde_blowup, rows,
         plan["periodic_tabs"], plan["div_tables"], scal, seqs)
     monkeypatch.setattr(t_fp, "EAGER_POINTS", n * ce // 8)
-    got = t_fp.eager_constraint_phase(B, air, dom, plan, rows, t_main, singles,
+    got = t_fp.eager_constraint_phase(B, air, dom.ce_to_lde_blowup, dom.trace_to_lde_blowup,
+                                      plan, rows, t_main, singles,
                                       [(s,) for s in seqs], ccs, fp)
     assert all(torch.equal(g, x) for g, x in zip(got[0], want[0]))

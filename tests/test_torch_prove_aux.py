@@ -196,8 +196,10 @@ def test_eager_phase_with_aux_matches_the_jax_sharded_constraint_phase(deg, monk
                 jplan["div_tables"], jplan["periodic_tabs"])
     t_rows, t_aux_rows, t_t, t_ta, t_singles, t_ccs, t_rand, t_fp_stack = args(TB, "torch")
     monkeypatch.setattr(t_fp, "EAGER_POINTS", n * ce // 4)
-    got = t_fp.eager_constraint_phase(TB, tair, tdom, tplan, t_rows, t_t, t_singles, [],
-                                      t_ccs, t_fp_stack, aux=(t_aux_rows, t_ta, t_rand))
+    got = t_fp.eager_constraint_phase(TB, tair, tdom.ce_to_lde_blowup,
+                                      tdom.trace_to_lde_blowup, tplan, t_rows, t_t,
+                                      t_singles, [], t_ccs, t_fp_stack,
+                                      aux=(t_aux_rows, t_ta, t_rand))
     assert len(got) == deg and tuple(got[0][0].shape) == (ce,)
     assert TB.limbs_to_elems(got, deg) == JB.limbs_to_elems(
         JB.emap(lambda l: np.asarray(l), want), deg)

@@ -17,6 +17,7 @@ from starkpack_winterfell_tpu.models import rescue128_chain as jr
 
 import starkpack_winterfell_tpu_torch as T
 from starkpack_winterfell_tpu_torch.models import fib_multifield as tfib
+from starkpack_winterfell_tpu_torch.models import permutation as tperm
 from starkpack_winterfell_tpu_torch.models import rescue128_chain as tr
 from starkpack_winterfell_tpu_torch.parallel import streamed
 from starkpack_winterfell_tpu_torch.prover.trace import TraceTable
@@ -135,21 +136,41 @@ def test_trace_table_stages_f128_words():
 def test_unsupported_limb_configs_raise(case, monkeypatch):
     """f128 proves up to quadratic (tests/test_torch_prove_limb_ext.py): the
     "quadratic" case asks for the degree above it, cubic, which f128 does
-    not have, and gets the reference's assertion."""
+    not have, and gets the reference's assertion.  "streaming": a limb
+    config above the budget streams (tests/test_torch_streamed.py); an f64
+    config with aux segments (perm) cannot, and above the budget fails fast
+    with ProverError before the prove reads its trace onto the device;
+    with STARKPACK_HBM_PREFLIGHT=0 it proves on the one-shot path anyway."""
+    if case == "streaming":
+        monkeypatch.setenv("STARKPACK_HBM_BUDGET", "1")
+        read = []
+        limbs = tperm.PermTraceTable.main_segment_limbs
+
+        def main_segment_limbs(self, *args, **kwargs):
+            read.append(self.length)
+            return limbs(self, *args, **kwargs)
+
+        monkeypatch.setattr(tperm.PermTraceTable, "main_segment_limbs", main_segment_limbs)
+        traces = [tperm.build_perm_trace(3, 64)]
+        prover = tperm.PermProver(T.ProofOptions(8, 8, 0, 2, 4, 31), T.Blake3_256)
+        with pytest.raises(T.ProverError, match="peak device memory") as err:
+            prover.prove(1, traces, device="cpu")
+        assert not read and "limb fields only" in str(err.value)
+        assert streamed.should_stream(1, 2 + 1 * 2, 64, 8, 8, "cpu")
+        monkeypatch.setenv("STARKPACK_HBM_PREFLIGHT", "0")
+        proof = prover.prove(1, traces, device="cpu")
+        assert read and T.verify(tperm.PermAir, proof, [prover.get_pub_inputs(traces[0])],
+                                 T.Blake3_256)
+        return
     options = T.ProofOptions(*CHEAP)
     traces = [tr.build_rescue128_chain_trace([1, 2], 8)]
     expected = NotImplementedError
     if case == "quadratic":
         options = T.ProofOptions(8, 8, 0, T.FieldExtension.CUBIC, 4, 31)
         expected = AssertionError
-    elif case == "streaming":
-        monkeypatch.setattr(streamed, "budget_bytes", lambda device: 1 << 20)
     else:
         traces.append(tr.build_rescue128_chain_trace([1, 2], 16))
         expected = T.ProverError
     prover = tr.Rescue128ChainProver(options, T.Blake3_256)
-    with pytest.raises(expected) as err:
+    with pytest.raises(expected):
         prover.prove(len(traces), traces, device="cpu")
-    if case == "streaming":
-        assert "queue 1(f)" in str(err.value) and "Rescue128" not in str(err.value)
-        assert streamed.should_stream(1, 6, 64, 8, 16, "cpu")
