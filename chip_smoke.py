@@ -74,7 +74,15 @@ with ProofOptions(28, 8, 16, NONE, 4, 31) and BLAKE3-256 unless named:
   (csrc/dit_tile.cuh: kernel 3 on Goldilocks, kernel 4 on f128 and f62).  Every kernel's bound counts the IMAD-pipe and ALU-pipe
   instructions that csrc/gl64_sass_count.py counts in this run
   (``sponge_bound``, ``op_bound``; kernels 1-5 also at one pipe, the count
-  the earlier bounds used, ``bound_ms_one_pipe``).
+  the earlier bounds used, ``bound_ms_one_pipe``);
+* several ranks, last: the statements of aux_main, limb_aggregated and
+  small_trace_main_do_work proved again by ``prove_mesh(..., mesh=)`` over
+  two gloo ranks spawned on the one card (mesh2_aux, mesh2_limb,
+  mesh2_do_work: equal bytes on both ranks and the one-device phase's
+  sha256, rank 0's verify, rank 0's phase walls beside the one-device
+  ones, each rank's launches by shape, every new per-rank shape held
+  against its plain version here); mesh2_group says which gloo
+  collectives take CUDA tensors (``gloo_cuda_probe``).
 
 Every proof is verified by the port's verifier on the host, through its C
 tier (``verify_tier``: native/verify_scalar.c and native/blake3_compress.c,
@@ -103,7 +111,8 @@ limb_ext_f62, lamport_agg_golden, lamport_agg_64, lamport_agg_main,
 lamport_agg_main_streamed, lamport_agg_4096, lamport128_aggregated,
 aux_main, aux_golden, aux_cubic, rp64_main,
 rpjive_main, griffin_main, rp_golden_row6, rp_golden_row7, rp_golden_row8, rescue_pad, lamport64,
-rp62_main, sponge_search) prints one JSON line as it ends; any failure raises
+rp62_main, sponge_search, mesh2_aux, mesh2_limb, mesh2_do_work, mesh2_group)
+prints one JSON line as it ends; any failure raises
 and the run exits non-zero.  A ``prove_mesh`` phase's line says ``streamed``,
 the path its proves had to take ("prove_mesh path" records); a streamed
 phase's coset transforms and kernel 4 and 5 launches are derived from its
@@ -1862,11 +1871,12 @@ def limb_phases(kernel_rows, rng, device):
     del trace
 
     log2_rows, n = LIMB_PATHS["limb_aggregated"]
-    seeds = rng.integers(0, 1 << 62, size=(n, 2), dtype=np.uint64)
-    traces = [build_rescue128_chain_trace([int(v) for v in sd], (1 << log2_rows) // 8)
-              for sd in seeds]
-    observed_phase("limb_aggregated", prover, Rescue128ChainAir, traces,
-                   kernel_rows, rng, device, both, airs, tampers=[("seed", tamper_seed)])
+    seeds = [[int(v) for v in sd] for sd in rng.integers(0, 1 << 62, size=(n, 2),
+                                                         dtype=np.uint64)]
+    traces = [build_rescue128_chain_trace(sd, (1 << log2_rows) // 8) for sd in seeds]
+    out = observed_phase("limb_aggregated", prover, Rescue128ChainAir, traces,
+                         kernel_rows, rng, device, both, airs, tampers=[("seed", tamper_seed)])
+    ONE_DEVICE["limb_aggregated"] = dict(out, inputs=seeds)
 
 
 # ---------------------------------------------------------------------------
@@ -2073,9 +2083,11 @@ def small_trace_phases(kernel_rows, rng, device):
 
     options = ProofOptions(*BENCH_OPTIONS)
     log2_rows, n = SMALL_TRACE_PATHS["small_trace_main_do_work"]
-    observed_phase("small_trace_main_do_work", DoWorkProver(options, Blake3_256), DoWorkAir,
-                   [build_do_work_trace(i + 1, 1 << log2_rows) for i in range(n)],
-                   kernel_rows, rng, device, dit, tampers=[("start", tamper_start)])
+    starts = [i + 1 for i in range(n)]
+    out = observed_phase("small_trace_main_do_work", DoWorkProver(options, Blake3_256),
+                         DoWorkAir, [build_do_work_trace(s, 1 << log2_rows) for s in starts],
+                         kernel_rows, rng, device, dit, tampers=[("start", tamper_start)])
+    ONE_DEVICE["small_trace_main_do_work"] = dict(out, inputs=starts)
 
     log2_rows, n = SMALL_TRACE_PATHS["small_trace_main_rescue"]
     seeds = rng.integers(0, gl.P, size=(n, 8), dtype=np.uint64)
@@ -2198,6 +2210,7 @@ def aux_phases(kernel_rows, rng, device):
                              tampers=[("a0", tamper_a0)],
                              expected=perm_launches(n, rows, opts), options=list(opts),
                              trace_build_s=trace_s)
+        ONE_DEVICE[path] = dict(out, inputs=starts)
         emit(f"{path}_dit_shapes", shapes=[
             {k: kernel_rows[key][k] for k in ("name", "device_ms", "bound_ms", "bound_by",
                                                 "bound_share", "plain_ms")}
@@ -2390,6 +2403,220 @@ def sponge_search_phase(kernel_rows, rng, device):
          search_launches_by_path=SEARCH_LAUNCHES_BY_PATH)
 
 
+# ---------------------------------------------------------------------------
+# several ranks: prove_mesh over two gloo ranks that share the one card
+# ---------------------------------------------------------------------------
+
+# the one-device proves whose inputs later phases use again, each with its
+# proof's sha256 and walls: path -> observed_phase's result and "inputs"
+ONE_DEVICE: dict = {}
+MESH_RANKS = 2
+# mesh phase -> (the one-device phase whose statement the ranks prove, the
+# kernel kinds the ranks' proves must launch: kernel 5 runs on one rank only)
+MESH_PATHS = {"mesh2_aux": ("aux_main", ("dit",)),
+              "mesh2_limb": ("limb_aggregated", ("ntt",)),
+              "mesh2_do_work": ("small_trace_main_do_work", ("dit",))}
+# a rank still running this long after the spawn is stopped; the group
+# fails unless every proof had been written by then
+MESH_TIMEOUT_S = 400
+
+
+def mesh_job(path, inputs):
+    """(AIR class, prover, traces) of a mesh phase: its one-device phase's
+    statement, rebuilt from that phase's inputs (perm starts, chain seeds,
+    do-work starts)."""
+    base = MESH_PATHS[path][0]
+    if base == "aux_main":
+        _, rows, opts, _ = AUX_PATHS[base]
+        return (PermAir, PermProver(ProofOptions(*opts), Blake3_256),
+                [build_perm_trace(v, rows) for v in inputs])
+    options = ProofOptions(*BENCH_OPTIONS)
+    if base == "limb_aggregated":
+        rows = 1 << LIMB_PATHS[base][0]
+        return (Rescue128ChainAir, Rescue128ChainProver(options, Blake3_256),
+                [build_rescue128_chain_trace(sd, rows // 8) for sd in inputs])
+    rows = 1 << SMALL_TRACE_PATHS[base][0]
+    return (DoWorkAir, DoWorkProver(options, Blake3_256),
+            [build_do_work_trace(v, rows) for v in inputs])
+
+
+def gloo_cuda_probe(mesh) -> dict:
+    """Which collectives of this torch build's gloo backend take CUDA
+    tensors: each is called once on a small CUDA tensor and its result
+    checked.  parallel/mesh.py hands gloo its CUDA tensors in all_gather
+    and all_to_all_single, as this probe found them taken in torch 2.11;
+    a build that refuses them fails the mesh phases, and this line says
+    which collective."""
+    import torch.distributed as dist
+
+    d, r = mesh.size, mesh.rank
+    t = torch.arange(4, dtype=torch.int64, device=mesh.device) + r
+    ranks = torch.arange(d, device=mesh.device)
+
+    def all_gather():
+        parts = [torch.empty_like(t) for _ in range(d)]
+        dist.all_gather(parts, t)
+        return torch.equal(torch.stack(parts), torch.arange(4, device=t.device) + ranks[:, None])
+
+    def all_gather_into_tensor():
+        out = torch.empty(d * 4, dtype=t.dtype, device=t.device)
+        dist.all_gather_into_tensor(out, t)
+        return torch.equal(out.reshape(d, 4), torch.arange(4, device=t.device) + ranks[:, None])
+
+    def all_to_all_single():
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t)
+        per = 4 // d
+        want = torch.cat([torch.arange(r * per, (r + 1) * per, device=t.device) + s
+                          for s in range(d)])
+        return torch.equal(out, want)
+
+    def broadcast():
+        x = t.clone()
+        dist.broadcast(x, 0)
+        return torch.equal(x, torch.arange(4, device=t.device))
+
+    def all_reduce():
+        x = t.clone()
+        dist.all_reduce(x)
+        return torch.equal(x, d * torch.arange(4, device=t.device) + d * (d - 1) // 2)
+
+    out = {}
+    for call in (all_gather, all_gather_into_tensor, all_to_all_single, broadcast, all_reduce):
+        try:
+            out[call.__name__] = "ok" if call() else "wrong values"
+        except Exception as e:  # the probe's finding, recorded
+            out[call.__name__] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    return out
+
+
+def mesh_rank(rank, size, init, jobs, out_dir):
+    """One rank of the mesh group (a spawned process): join the gloo group,
+    prove each job with ``prove_mesh(..., mesh=)`` on the shared card with
+    every launch count set to 0 just before and read just after, verify on
+    rank 0, write the results, then run ``gloo_cuda_probe``."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from starkpack_winterfell_tpu_torch.parallel.mesh import make_mesh
+
+    os.environ["LOCAL_RANK"] = "0"  # the ranks share the one card
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=size)
+    try:
+        mesh = make_mesh()
+        results = {"mesh": repr(mesh)}
+        for path, inputs in jobs.items():
+            air_class, prover, traces = mesh_job(path, inputs)
+            torch.cuda.reset_peak_memory_stats()
+            reset_observed_counts()
+            proof, seconds, phases = timed_prove(prover, traces, prove=lambda: (
+                full_pipeline.prove_mesh(prover, len(traces), traces, mesh.device, mesh=mesh)))
+            row = {"launches": dict(observed_counts()), "prove_s": seconds,
+                   "phases_ms": dict(phases), "bytes": proof.to_bytes(),
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                   "n": len(traces), "rows": traces[0].length, "columns": traces[0].width}
+            if rank == 0:
+                pub = [prover.get_pub_inputs(t) for t in traces]
+                row.update(verify_walls(air_class, proof.from_bytes(row["bytes"]), pub,
+                                        prover.hasher))
+            results[path] = row
+            del proof, traces
+            torch.cuda.empty_cache()
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(results, f)
+        probe = gloo_cuda_probe(mesh)
+        with open(os.path.join(out_dir, f"probe{rank}.json"), "w") as f:
+            json.dump(probe, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phases(kernel_rows, rng, device):
+    """The statements of aux_main (perm 4 x 2^20, quadratic: the aux
+    segment, the halo, f64 FRI across ranks), limb_aggregated (Rescue128
+    4 x 2^14 x 6 over f128: kernel 4 and the eager P2 across ranks) and
+    small_trace_main_do_work (do-work 32 x 1024: an f64 main segment through
+    the mesh) proved again by ``prove_mesh`` over MESH_RANKS gloo ranks that
+    share the card, all in one spawn (a ``file://`` rendezvous in a
+    temporary directory).  Each phase's line: both ranks' bytes equal, their
+    sha256 the one-device phase's, rank 0's verify, rank 0's phase walls
+    beside the one-device phase's, each rank's launches by shape; every
+    shape not yet in the table is held against its plain version here.  Two
+    ranks on one card with gloo staging are no speed result: the walls are
+    recorded, not judged."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    full_pipeline._TABLE_CACHE.clear()  # the one-device phases' tables
+    torch.cuda.empty_cache()
+    jobs = {path: ONE_DEVICE[base]["inputs"] for path, (base, _) in MESH_PATHS.items()}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(
+            mesh_rank, args=(MESH_RANKS, "file://" + os.path.join(tmp, "rendezvous"), jobs, tmp),
+            nprocs=MESH_RANKS, join=False, start_method="spawn")
+        probe = None
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > MESH_TIMEOUT_S:
+                for proc in ctx.processes:
+                    proc.kill()
+                probe = f"the ranks did not finish within {MESH_TIMEOUT_S} s"
+                break
+        results = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                results.append(pickle.load(f))
+        if probe is None:
+            probe = {}
+            for r in range(MESH_RANKS):
+                with open(os.path.join(tmp, f"probe{r}.json")) as f:
+                    probe[f"rank{r}"] = json.load(f)
+    group_s = time.perf_counter() - t0
+
+    for path, (base, required) in MESH_PATHS.items():
+        rows = [res[path] for res in results]
+        data = rows[0]["bytes"]
+        if any(row["bytes"] != data for row in rows):
+            raise RuntimeError(f"{path}: the ranks' proofs differ")
+        digest = hashlib.sha256(data).hexdigest()
+        if digest != ONE_DEVICE[base]["sha256"]:
+            raise RuntimeError(f"{path} proof digest {digest} differs from {base}'s "
+                               f"{ONE_DEVICE[base]['sha256']}")
+        total = collections.Counter()
+        for row in rows:
+            total.update(row["launches"])
+        if {k[0] for k in total} != set(required):
+            raise RuntimeError(f"{path}: the ranks launched {dict(total)}, required kinds "
+                               f"{required} and no other")
+        compared = []
+        for key, count in total.items():
+            if key not in kernel_rows:
+                compare = compare_dit if key[0] == "dit" else compare_limb_tile
+                kernel_rows[key] = compare(key[1:], rng, device, path)
+                compared.append(kernel_rows[key]["name"])
+            elif path not in kernel_rows[key]["used_by"]:
+                kernel_rows[key]["used_by"].append(path)
+            kernel_rows[key]["launches"] += count
+            kernel_rows[key]["launches_by_path"][path] = count
+        one = ONE_DEVICE[base]
+        emit(path, ranks=MESH_RANKS, backend="gloo",
+             one_device_phase=base, n=rows[0]["n"], rows=rows[0]["rows"],
+             columns=rows[0]["columns"], same_bytes_on_ranks=True, sha256=digest,
+             matches_one_device=True, verified=True,
+             **{k: v for k, v in rows[0].items() if k.startswith("verify")},
+             prove_s_by_rank=[row["prove_s"] for row in rows],
+             phases_ms=rows[0]["phases_ms"], one_device_phases_ms=one["phases_ms"],
+             one_device_steady_prove_s=one["steady_prove_s"],
+             launches_by_rank=[{kernel_rows[k]["name"]: v for k, v in row["launches"].items()}
+                               for row in rows],
+             shapes_compared=len(compared), compared=compared, mismatching_words=0,
+             peak_memory_bytes_by_rank=[row["peak_memory_bytes"] for row in rows])
+    emit("mesh2_group", group_s=group_s, mesh=results[0]["mesh"], gloo_cuda_tensors=probe)
+
+
 def kernel_sums(kernel_rows) -> dict:
     """Per phase, each kernel's (by the TPU kernel it replaces) launches, and
     its device ms and bound summed over them (a shape's ms times its
@@ -2527,6 +2754,7 @@ def main(argv=None):
     lamport_phases(kernel_rows, rng, device)
     rp_phases(kernel_rows, rng, device)
     sponge_search_phase(kernel_rows, rng, device)
+    mesh_phases(kernel_rows, rng, device)
     emit("kernel_sums", by_phase=kernel_sums(kernel_rows))
 
     print(smi, flush=True)

@@ -218,9 +218,10 @@ class PhaseLog(logging.Handler):
             self.phases.append((str(record.args[0]), float(record.args[1])))
 
 
-def timed_prove(prover, traces):
-    """One synchronised prove with the provers' phase records collected.
-    Returns (proof, wall seconds, [(phase name, ms), ...])."""
+def timed_prove(prover, traces, prove=None):
+    """One synchronised prove with the provers' phase records collected:
+    ``prover.prove`` on the card, or ``prove()`` where given (a rank's
+    ``prove_mesh``).  Returns (proof, wall seconds, [(phase name, ms), ...])."""
     log = PhaseLog()
     logger = logging.getLogger("starkpack_winterfell_tpu_torch.prover.device")
     old_level = logger.level
@@ -229,7 +230,7 @@ def timed_prove(prover, traces):
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        proof = prover.prove(len(traces), traces)
+        proof = prover.prove(len(traces), traces) if prove is None else prove()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     finally:

@@ -1,4 +1,4 @@
-# Copy of starkpack_winterfell_tpu/crypto/merkle.py; cut: the jitted bucketed multi-level gathers (one index_select + one host copy per tree instead).
+# Copy of starkpack_winterfell_tpu/crypto/merkle.py; cut: the jitted bucketed multi-level gathers (one index_select + one host copy per tree instead); added: the tree split across ranks (ShardedMerkleTree).
 """Merkle tree with batched Octopus-style proofs.
 
 Equivalent of crypto/src/merkle/{mod.rs, proofs.rs}.  The tree *build* is a
@@ -178,6 +178,73 @@ class MerkleTree:
                 i += 1
 
         return BatchMerkleProof(leaves, nodes, self.depth, self.h)
+
+
+def sharded_levels(leaves, hasher, mesh):
+    """This rank's block of leaves -> (its subtree's levels, leaves first,
+    ending at its subtree root; the levels above the ranks' subtree roots,
+    the same on every rank): the subtree roots are all-gathered and merged
+    on every rank (JAX ``sharded_segment_commit`` :118, ``assemble_levels``
+    :173)."""
+    sub = build_levels(leaves, hasher) if leaves.shape[0] > 1 else [leaves]
+    return sub, build_levels(mesh.all_gather(sub[-1][0]), hasher)
+
+
+class ShardedMerkleTree(MerkleTree):
+    """A Merkle tree whose lower levels stay split across the ranks of a
+    mesh (parallel/mesh.py): of every level up to the subtree roots, rank r
+    holds the nodes above its block of leaves; the levels from the subtree
+    roots up are on every rank (``sharded_levels``).  ``root()`` and
+    ``prove_batch()`` are MerkleTree's; a batch proof fetches only the nodes
+    it touches, each from the rank that holds it, in one all_gather of
+    those nodes for the whole tree (JAX: the lazy ``MerkleTree`` gathers of
+    sharded levels, :176-180).  Every rank must make the same calls in the
+    same order, as it does in an SPMD prove."""
+
+    def __init__(self, sub_levels, top_levels, hasher, mesh):
+        self.mesh = mesh
+        # levels below the subtree roots, each split across the ranks
+        self.split = len(sub_levels) - 1
+        super().__init__(list(sub_levels[:-1]) + list(top_levels), hasher)
+        self.n = sub_levels[0].shape[0] * mesh.size
+
+    def _fetch(self, level: int, idx: int) -> bytes:
+        # prove_batch prefetches every digest it reads
+        return self._fetch_cache[(level, idx)]
+
+    def _prefetch_finish(self, per_level):
+        if not sum(len(i) for i in per_level):
+            return
+        mesh = self.mesh
+        device = self.levels[0].device
+        parts, owners = [], []
+        for level, idxs in enumerate(per_level[: self.split]):
+            if not idxs:
+                continue
+            lvl = self.levels[level]
+            pos = torch.as_tensor(idxs, dtype=torch.int64, device=device)
+            owner = pos // lvl.shape[0]
+            local = pos - owner * lvl.shape[0]
+            mine = owner == mesh.rank
+            sel = torch.zeros((len(idxs), lvl.shape[1]), dtype=lvl.dtype, device=device)
+            sel[mine] = lvl.index_select(0, local[mine])
+            parts.append(sel)
+            owners.append(owner)
+        rows = []
+        if parts:
+            owner = torch.cat(owners)
+            gathered = mesh.all_gather(torch.cat(parts))  # (size, T, words)
+            rows.append(gathered[owner, torch.arange(owner.numel(), device=device)])
+        rows += [self.levels[level].index_select(
+                     0, torch.as_tensor(idxs, dtype=torch.int64, device=device))
+                 for level, idxs in enumerate(per_level) if level >= self.split and idxs]
+        rows = torch.cat(rows).cpu().numpy()
+        o = 0
+        rows_per_level = []
+        for idxs in per_level:
+            rows_per_level.append(rows[o : o + len(idxs)])
+            o += len(idxs)
+        self._fill_fetch_cache(per_level, rows_per_level)
 
 
 class BatchMerkleProof:

@@ -8,7 +8,9 @@ through ``GL64Backend``), ``LimbFriProver`` (:175), ``limb_drp_inv_offsets``
 (:288) and ``limb_apply_drp`` (:302) on tensors: every layer (transpose, row hash,
 Merkle levels, fold) runs on the device of the evaluations; only roots,
 alphas, the remainder and the queried rows reach the host.  The host
-``FriProver`` class is not ported.
+``FriProver`` class is not ported.  ``MeshFriProver`` is JAX
+parallel/full_pipeline.py's (:1215): the layers split across the ranks of
+a mesh (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -135,12 +137,9 @@ class LimbFriProver:
             MerkleTree.prefetch_trees(
                 [(t[1], p) for t, p in zip(self.layers, layer_pos)]
             )
-            for (transposed, tree, _, _), pos in zip(self.layers, layer_pos):
-                idx = torch.as_tensor(pos, dtype=torch.int64,
-                                      device=transposed[0][0].device)
-                # one gather and one host copy per plane of the queried rows
-                gathered = B.emap(lambda l: l.index_select(0, idx).cpu(), transposed)
-                mp = tree.prove_batch(pos)
+            for layer, pos in zip(self.layers, layer_pos):
+                gathered = self._layer_rows(layer, pos)
+                mp = layer[1].prove_batch(pos)
                 rows = [
                     B.limbs_to_elems(B.emap(lambda l: l[i], gathered), self.ext_deg)
                     for i in range(len(pos))
@@ -150,6 +149,85 @@ class LimbFriProver:
         self.layers = []
         self.remainder_poly = None
         return FriProof.new(proof_layers, remainder, 1, spec)
+
+    def _layer_rows(self, layer, pos):
+        """A layer's queried rows on the host: one gather and one host copy
+        a plane."""
+        transposed = layer[0]
+        idx = torch.as_tensor(pos, dtype=torch.int64, device=transposed[0][0].device)
+        return self.B.emap(lambda l: l.index_select(0, idx).cpu(), transposed)
+
+
+class MeshFriProver(LimbFriProver):
+    """FRI over the ranks of a mesh (JAX ``MeshFriProver``
+    parallel/full_pipeline.py:1215, ``_fri_layer_kernels`` :1128), byte for
+    byte ``LimbFriProver``.  The evaluations arrive split in contiguous
+    blocks, one a rank.  A layer's (m, N) rows take one element from each of
+    N blocks of the (N, m) view, so one all-to-all gives each rank its m/d
+    rows; their hashes, subtree and fold are local, the subtree roots are
+    all-gathered, and every rank's channel commits the layer and draws
+    alpha.  The fold of a rank's rows is its block of the next layer.  Once
+    a layer's m is not a multiple of d, or m < 2d, or d does not divide N
+    (the all-to-all's blocks), the evaluations are all-gathered and the
+    remaining layers and the remainder run as ``LimbFriProver``'s, the same
+    on every rank (JAX :1268).  There is no device coin: the host channel
+    draws every alpha, as ``LimbFriProver`` does."""
+
+    def __init__(self, options, hasher, B, ext_deg: int, mesh):
+        super().__init__(options, hasher, B, ext_deg)
+        self.mesh = mesh
+
+    def build_layers(self, channel, evaluations):
+        """evaluations: this rank's block of the element tuple, components
+        shaped (L/d,)."""
+        assert not self.layers
+        B, mesh = self.B, self.mesh
+        d, N = mesh.size, self.options.folding_factor
+        n_layers = self.options.num_fri_layers(evaluations[0][0].shape[-1] * d)
+        while len(self.layers) < n_layers:
+            m = evaluations[0][0].shape[-1] * d // N
+            if m % d or m < 2 * d or N % d:
+                break
+            evaluations = self._build_layer_split(channel, evaluations, m, N)
+        evaluations = tuple(B.cmap(lambda l: mesh.all_gather(l).reshape(-1), c)
+                            for c in evaluations)
+        while len(self.layers) < n_layers:
+            evaluations = self._build_layer(channel, evaluations)
+        self._set_remainder(channel, evaluations)
+
+    def _build_layer_split(self, channel, evaluations, m: int, N: int):
+        from ..crypto.merkle import ShardedMerkleTree, sharded_levels
+
+        B, mesh = self.B, self.mesh
+        d = mesh.size
+
+        def rows(l):  # this rank's N/d rows of the (N, m) view -> its m/d rows (m/d, N)
+            return mesh.all_to_all(l.reshape(N // d, m), 1, 0).T.contiguous()
+
+        transposed = tuple(B.cmap(rows, c) for c in evaluations)
+        words = B.rows_to_words(transposed, self.ext_deg)
+        leaves = self.hasher.hash_words(words, N * self.ext_deg * self.spec.ELEMENT_BYTES)
+        tree = ShardedMerkleTree(*sharded_levels(leaves, self.hasher, mesh), self.hasher, mesh)
+        channel.commit_fri_layer(tree.root())
+        alpha = channel.draw_fri_alpha()
+        device = evaluations[0][0].device
+        m_loc = m // d
+        inv_offs = B.cmap(
+            lambda l: l[mesh.rank * m_loc:(mesh.rank + 1) * m_loc],
+            limb_drp_inv_offsets(B, m, N, self.options.domain_offset(), device))
+        alpha_l = B.scalar_to_limbs(alpha, self.ext_deg, device=device)
+        folded = limb_apply_drp(B, transposed, alpha_l, inv_offs, self.ext_deg)
+        self.layers.append((transposed, tree, m, N))
+        return folded
+
+    def _layer_rows(self, layer, pos):
+        from ..crypto.merkle import ShardedMerkleTree
+
+        transposed, tree, m, _ = layer
+        if not isinstance(tree, ShardedMerkleTree):
+            return super()._layer_rows(layer, pos)
+        mesh = self.mesh
+        return self.B.emap(lambda l: mesh.take(l, 0, pos, m // mesh.size).cpu(), transposed)
 
 
 def limb_drp_inv_offsets(B, m: int, N: int, domain_offset: int, device="cpu"):

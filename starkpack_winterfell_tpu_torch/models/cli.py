@@ -9,7 +9,12 @@ limb pipeline; perm (f64 with an auxiliary segment,
 parallel/full_pipeline.py).  ``-e 2`` (quadratic) reaches every example,
 ``-e 3`` (cubic) every one but the f128 examples, which have no cubic
 extension.  ``--hash`` takes blake3_256, blake3_192, sha3_256 and, on f64,
-rp64_256, rp_jive64_256 and griffin_jive64_256, on f62 rp62_248.
+rp64_256, rp_jive64_256 and griffin_jive64_256, on f62 rp62_248.  Every
+example builds the JAX CLI's traces and takes its defaults; ``--profile
+DIR`` writes a ``torch.profiler`` Chrome trace of the prove into DIR (the
+JAX CLI's ``jax.profiler`` trace).  There is no flag for ranks: a prove
+over several ranks is ``parallel/full_pipeline.py:prove_mesh`` with a
+``parallel/mesh.py:make_mesh`` mesh.
 
 Usage:
   python -m starkpack_winterfell_tpu_torch.models.cli do-work -n 32 -l 1024
@@ -30,6 +35,7 @@ Usage:
   python -m starkpack_winterfell_tpu_torch.models.cli lamport -n 2 -l 64 --hash sha3_256 --device cpu
   python -m starkpack_winterfell_tpu_torch.models.cli do-work -n 1 -l 32 --hash rp_jive64_256 --device cpu
   python -m starkpack_winterfell_tpu_torch.models.cli do-work -n 1 -l 32 --hash griffin_jive64_256 --device cpu
+  python -m starkpack_winterfell_tpu_torch.models.cli rescue128-chain -n 1 -l 8 -q 16 --device cpu --profile /tmp/prof
 """
 
 from __future__ import annotations
@@ -110,7 +116,7 @@ def get_example(name: str):
         return (
             Rescue128ChainAir,
             Rescue128ChainProver,
-            lambda i, l: build_rescue128_chain_trace([i + 1, 2 * i + 7], l),
+            lambda i, l: build_rescue128_chain_trace([i + 1, i + 2], l),
         )
     if name == "merkle128":
         import random as _random
@@ -170,7 +176,7 @@ def main(argv=None):
                                        "merkle128", "lamport128", "lamport128-agg",
                                        "perm"])
     p.add_argument("-n", "--num-traces", type=int, default=2)
-    p.add_argument("-l", "--trace-length", type=int, default=2048,
+    p.add_argument("-l", "--trace-length", type=int, default=1024,
                    help="the hash chains: CHAIN length (hashes), the trace has "
                         "8*l rows (rescue-chain-pad: the live length, padded to a "
                         "bucket); the others: the trace length (lamport128-agg: "
@@ -190,6 +196,9 @@ def main(argv=None):
                         "without a card unless cpu is named)")
     p.add_argument("-v", "--verbose", action="store_true",
                    help="per-phase prover debug timing")
+    p.add_argument("--profile", metavar="DIR", default=None,
+                   help="write a torch.profiler Chrome trace of the prove (CPU "
+                        "activities, and CUDA ones on a card) into DIR")
     args = p.parse_args(argv)
     if args.verbose:
         import logging
@@ -213,9 +222,26 @@ def main(argv=None):
 
     prover = prover_class(options, hasher)
     pub_inputs = [prover.get_pub_inputs(t) for t in traces]
-    t2 = time.perf_counter()
-    proof = prover.prove(args.num_traces, traces, device=args.device)
-    t3 = time.perf_counter()
+    if args.profile:
+        import os
+
+        import torch
+
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if torch.device(args.device).type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=activities) as prof:
+            t2 = time.perf_counter()
+            proof = prover.prove(args.num_traces, traces, device=args.device)
+            t3 = time.perf_counter()
+        os.makedirs(args.profile, exist_ok=True)
+        path = os.path.join(args.profile, "prove_trace.json")
+        prof.export_chrome_trace(path)
+        print(f"Profiler trace written to {path}")
+    else:
+        t2 = time.perf_counter()
+        proof = prover.prove(args.num_traces, traces, device=args.device)
+        t3 = time.perf_counter()
     print(f"Generated the aggregated proof on {args.device} in "
           f"{(t3 - t2) * 1000:.0f} ms")
 

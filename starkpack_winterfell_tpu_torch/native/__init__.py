@@ -87,8 +87,13 @@ def build_cuda(name: str, sources) -> ctypes.CDLL:
         so = os.path.join(BUILD_DIR, f"lib{name}.so")
         if _stale(so, list(sources) + headers):
             t0 = time.perf_counter()
-            r = _run([find_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", so, *sources],
+            # beside the target, then renamed: processes that build the same
+            # library at once (the ranks of a multi-rank prove) never load a
+            # half-written file
+            tmp = f"{so}.{os.getpid()}.tmp"
+            r = _run([find_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, *sources],
                      f"nvcc build of {name}")
+            os.replace(tmp, so)
             BUILD_LOGS[name] = (time.perf_counter() - t0, r.stdout + r.stderr)
         _CACHE[name] = ctypes.CDLL(so)
     return _CACHE[name]
@@ -136,6 +141,20 @@ def launch(fn, device, *args) -> int:
         raise ValueError(f"the port's kernels run on the current CUDA device "
                          f"(cuda:{current}); the tensor lies on {device}")
     return fn(*args, _raw_stream(current))
+
+
+def write_source(path: str, src: str) -> str:
+    """Write a generated source file under the build directory where it is
+    missing or differs, beside the target and renamed, so a process that
+    builds from it at the same time never reads a half-written file.
+    Returns ``path``."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if not os.path.exists(path) or open(path).read() != src:
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
+            f.write(src)
+        os.replace(tmp, path)
+    return path
 
 
 def _build_host(name: str, source: str, compilers, headers=()) -> ctypes.CDLL:

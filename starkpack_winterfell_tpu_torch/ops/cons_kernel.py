@@ -639,7 +639,7 @@ def kernel_source(air0, w: int, n_periodic: int, K: int, plan_groups):
     """(library name, path of the emitted source) of the kernel for this
     (AIR class, field, plan groups); writes the source under the build
     directory when it is missing or differs."""
-    from ..native import BUILD_DIR
+    from ..native import BUILD_DIR, write_source
 
     field_name = air0.field_spec().name
     if field_name not in _FIELD_TYPES:
@@ -648,11 +648,8 @@ def kernel_source(air0, w: int, n_periodic: int, K: int, plan_groups):
     ops, results = record_transition(air0, w, n_periodic, K)
     src = emit_cuda(field_name, air_name, ops, results, w, n_periodic, plan_groups)
     tag = hashlib.sha256(src.encode()).hexdigest()[:12]
-    path = os.path.join(BUILD_DIR, f"cons_{air_name}_{field_name}_{tag}.cu")
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    if not os.path.exists(path) or open(path).read() != src:
-        with open(path, "w") as f:
-            f.write(src)
+    path = write_source(os.path.join(BUILD_DIR, f"cons_{air_name}_{field_name}_{tag}.cu"),
+                        src)
     return f"starkcons_{air_name}_{field_name}_{tag}", path
 
 

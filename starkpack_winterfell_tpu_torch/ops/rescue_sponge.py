@@ -467,17 +467,13 @@ def kernel_source(group: int = None):
     ``kernel_prelude(group)`` and includes csrc/rescue_sponge.cu, written
     under the build directory when missing or different; the name carries
     a hash of both."""
-    from ..native import BUILD_DIR
+    from ..native import BUILD_DIR, write_source
 
     src = kernel_prelude(group) + '#include "rescue_sponge.cu"\n'
     with open(kernel_sources()[0]) as f:
         body = f.read()
     tag = hashlib.sha256((src + body).encode()).hexdigest()[:12]
-    path = os.path.join(BUILD_DIR, f"rescue_sponge_{tag}.cu")
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    if not os.path.exists(path) or open(path).read() != src:
-        with open(path, "w") as f:
-            f.write(src)
+    path = write_source(os.path.join(BUILD_DIR, f"rescue_sponge_{tag}.cu"), src)
     return f"starkrescue_{tag}", path
 
 

@@ -61,9 +61,9 @@ import torch
 from ..air.air import AuxTraceRandElements
 from ..air.divisors import ConstraintDivisor
 from ..air.transition import EvaluationFrame
-from ..crypto.merkle import MerkleTree, build_levels
+from ..crypto.merkle import MerkleTree, ShardedMerkleTree, build_levels, sharded_levels
 from ..errors import ProverError
-from ..fri.prover import LimbFriProver
+from ..fri.prover import LimbFriProver, MeshFriProver
 from ..ops import cons_kernel
 from ..ops.backend import get_backend
 from ..ops.felt import Felt
@@ -105,12 +105,20 @@ class BatchedAuxRand:
         return self._segments[idx]
 
 
-def _row_levels(B, rows, hasher, row_elems: int, deg: int):
-    """rows: comps shaped (L, row_elems) -> Merkle levels, leaves first."""
+def _row_levels(B, rows, hasher, row_elems: int, deg: int, mesh=None):
+    """rows: comps shaped (L, row_elems) -> Merkle levels, leaves first.
+    Over a mesh, rows are this rank's block and the result is
+    ``sharded_levels``' pair (its subtree's levels, the top of the tree)."""
     words = B.rows_to_words(rows, deg)
     leaves = hasher.hash_words(words, row_elems * deg * B.ELEMENT_BYTES)
     del words
+    if mesh is not None:
+        return sharded_levels(leaves, hasher, mesh)
     return build_levels(leaves, hasher)
+
+
+def _tree(levels, hasher, mesh):
+    return MerkleTree(levels, hasher) if mesh is None else ShardedMerkleTree(*levels, hasher, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -118,15 +126,25 @@ def _row_levels(B, rows, hasher, row_elems: int, deg: int):
 # ---------------------------------------------------------------------------
 
 
-def sharded_segment_commit(B, hasher, comps, blowup: int, offset: int, deg: int):
+def sharded_segment_commit(B, hasher, comps, blowup: int, offset: int, deg: int,
+                           mesh=None, n: int = None):
     """comps shaped (n, w, length) -> (polys (n, w, length), lde_rows
-    (n, w, L), Merkle levels over the combined rows (L, n*w))."""
-    n, w, length = comps[0][0].shape
-    L = length * blowup
+    (n, w, L), Merkle levels over the combined rows (L, n*w)).
+
+    Over a mesh of d ranks (JAX :118) comps are this rank's n_pad/d
+    instances: each rank interpolates and extends its own, and one
+    all-to-all turns them into row blocks, so lde_rows is (n_pad, w, L/d):
+    rows [r*L/d, (r+1)*L/d) of every instance.  Only the first ``n``
+    instances are hashed (the rest are zero padding, :144), and the levels
+    are ``sharded_levels``'."""
     polys = B.interpolate_poly(comps)
     lde = B.evaluate_poly_with_offset(polys, offset, blowup)
-    rows = B.emap(lambda l: l.permute(2, 0, 1).reshape(L, n * w), lde)
-    return polys, lde, _row_levels(B, rows, hasher, n * w, deg)
+    if mesh is not None:
+        lde = B.emap(lambda l: mesh.all_to_all(l, 2, 0), lde)
+    n_all, w, rows_here = lde[0][0].shape
+    n = n_all if n is None else n
+    rows = B.emap(lambda l: l[:n].permute(2, 0, 1).reshape(rows_here, n * w), lde)
+    return polys, lde, _row_levels(B, rows, hasher, n * w, deg, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -148,23 +166,44 @@ def _coset_offsets(B, length: int, blowup: int, offset: int, device):
     return _cached(("offs", B.name, length, blowup, offset, str(device)), build)
 
 
-def sharded_lde_blocks(B, comps, blowup: int, offset: int, hasher=None, deg=1):
+def sharded_lde_blocks(B, comps, blowup: int, offset: int, hasher=None, deg=1, mesh=None):
     """Coefficient columns (C, length) comps -> evals (C, L) comps in natural
     order: coset r (natural index i = q*blowup + r) is the length-sized NTT
     of the coefficients scaled by (offset*g_L^r)^j.  With ``hasher`` also
-    row-hashes the evaluations into Merkle levels."""
+    row-hashes the evaluations into Merkle levels.
+
+    Over a mesh of d ranks (JAX :191) every rank holds all the columns and
+    evaluates blowup/d cosets; one all-to-all puts them into natural-order
+    row blocks, so each rank returns its (C, L/d) block, and the levels are
+    ``sharded_levels``'.  d must divide blowup and length (JAX :211)."""
     C, length = comps[0][0].shape
-    L = length * blowup
     offs = _coset_offsets(B, length, blowup, offset, comps[0][0].device)
+    if mesh is not None:
+        d = mesh.size
+        check_mesh_divides(d, blowup, length)
+        offs = B.cmap(lambda o: o[mesh.rank * (blowup // d):(mesh.rank + 1) * (blowup // d)],
+                      offs)
     offs_b = B.cmap(lambda o: o[:, None, :], offs)
     scaled = tuple(B.bmul(B.cmap(lambda l: l[None, :, :], c), offs_b) for c in comps)
     evals = B.evaluate_poly_with_offset(scaled, 1, 1)  # plain NTT, last axis
+    if mesh is not None:
+        # this rank's cosets at every q -> every coset at this rank's q block
+        evals = B.emap(lambda a: mesh.all_to_all(a, 2, 0), evals)
+    rows_here = evals[0][0].shape[2] * blowup
     # natural-order rows: out[c, q*blowup + r] = evals[r, c, q]
-    out = B.emap(lambda a: a.permute(1, 2, 0).reshape(C, L), evals)
+    out = B.emap(lambda a: a.permute(1, 2, 0).reshape(C, rows_here), evals)
     if hasher is None:
         return out
     rows = B.emap(lambda a: a.T, out)
-    return out, _row_levels(B, rows, hasher, C, deg)
+    return out, _row_levels(B, rows, hasher, C, deg, mesh)
+
+
+def check_mesh_divides(d: int, blowup: int, length: int):
+    """The coset LDE over d ranks gives each blowup/d cosets and length/d
+    points a coset (JAX :211)."""
+    if blowup % d or length % d:
+        raise ProverError(f"sharded LDE needs mesh size {d} to divide blowup {blowup} "
+                          f"and length {length}")
 
 
 # ---------------------------------------------------------------------------
@@ -172,11 +211,12 @@ def sharded_lde_blocks(B, comps, blowup: int, offset: int, hasher=None, deg=1):
 # ---------------------------------------------------------------------------
 
 
-def _pcons_gate(plan, ext_deg, spec):
-    """What the constraint kernel takes: main segment only, no field
-    extension, a limb field; single-value and sequence assertions.  The
-    rest goes to ``eager_constraint_phase``."""
-    return not plan["has_aux"] and ext_deg == 1 and spec.name in ("f62", "f128")
+def _pcons_gate(plan, ext_deg, spec, d: int = 1):
+    """What the constraint kernel takes: one rank (JAX :425; its frame wraps
+    rows mod L, csrc/cons_frame.cuh, which a rank's row block does not),
+    main segment only, no field extension, a limb field; single-value and
+    sequence assertions.  The rest goes to ``eager_constraint_phase``."""
+    return d == 1 and not plan["has_aux"] and ext_deg == 1 and spec.name in ("f62", "f128")
 
 
 def _inv_divisor_numerator(B, divisor, domain, device):
@@ -349,7 +389,7 @@ def _felt_columns(comps, w, B):
 
 
 def eager_constraint_phase(B, air0, shift: int, blowup: int, plan, main_rows, t_main,
-                           singles, seq_tabs, ccs, fp_stack, aux=None):
+                           singles, seq_tabs, ccs, fp_stack, aux=None, points=None):
     """JAX ``sharded_constraint_phase`` :325 (with ``_frames_from_rows``
     :298) on one device, as eager tensor code: the transition (and the aux
     transition), the boundary groups, the divisor tables and the
@@ -369,11 +409,15 @@ def eager_constraint_phase(B, air0, shift: int, blowup: int, plan, main_rows, t_
     (n, K_aux); per aux segment the list of its random elements, each comps
     (n, 1)), else None.  The current frame of ce point j is LDE row
     j*shift, the next row j*shift + blowup (mod L: the d = 1 case of the JAX
-    ``ppermute``), for main and aux rows alike.  The ce domain goes in
+    ``ppermute``), for main and aux rows alike.  ``points``: the ce points
+    to evaluate, L // shift where None; a rank of a mesh passes its row
+    block with the first ``blowup`` rows of the next rank's appended (the
+    halo) and the points of its block, with the plan's tables and seq_tabs
+    sliced to them (``_rank_block``).  The ce domain goes in
     chunks of ``EAGER_POINTS`` // n points; every step is pointwise in ce,
     so chunking changes no value.  Returns comps (ce,)."""
     n, w, L = main_rows[0][0].shape
-    ce = L // shift
+    ce = L // shift if points is None else points
     K = plan["K"]
     device = main_rows[0][0].device
     t_coefs = [B.emap(lambda l: l[:, k : k + 1], t_main) for k in range(K)]
@@ -413,19 +457,31 @@ def eager_constraint_phase(B, air0, shift: int, blowup: int, plan, main_rows, t_
 # ---------------------------------------------------------------------------
 
 
-def _tail_kernels(B, spec, ext_deg, n, polys, aux_polys, comp_columns, domain, device):
+def _tail_kernels(B, spec, ext_deg, n, polys, aux_polys, comp_columns, domain, device,
+                  mesh=None):
     """Device OOD evaluation + DEEP composition (JAX ``_limb_tail_kernels``
     :1353): the (n, w, length) coefficient tables of the main segment and
     of each aux segment (``aux_polys``, in the extension) never leave the
     device, only the OOD values do.  An instance's OOD states are its main
     columns then its aux columns, W of them in all, and the DEEP sum runs
-    over all W (:1370-1404).  Returns (ood_fn, deep_fn) for
+    over all W (:1370-1404).  Over a mesh the tables are this rank's
+    n_pad/d instances: each rank computes their OOD states, which are
+    all-gathered, and their DEEP sum, which is all-gathered and summed; the
+    composition columns are the same on every rank.  Padding instances (zero
+    tables, zero weights) add nothing.  Returns (ood_fn, deep_fn) for
     ``finish_proof``."""
     length = domain.trace_length
     d = ext_deg
     segments = [polys] + list(aux_polys)
     widths = [p[0][0].shape[1] for p in segments]
     W = sum(widths)
+    n_loc = polys[0][0].shape[0]
+    first = 0 if mesh is None else mesh.rank * n_loc  # this rank's first instance
+
+    def every_instance(comps):  # this rank's (n_loc, k) values -> all n instances'
+        if mesh is None:
+            return comps
+        return B.emap(lambda l: mesh.all_gather(l).flatten(0, 1)[:n], comps)
 
     def _sub0_batch(t, vals):
         # subtract (k,)-shaped scalars from coefficient 0 of (k, length) tables
@@ -446,8 +502,8 @@ def _tail_kernels(B, spec, ext_deg, n, polys, aux_polys, comp_columns, domain, d
         states = [[[], []] for _ in range(n)]
         for seg, width in zip(segments, widths):
             pm = B.promote(seg, d)
-            at_z = rows(B.vsum(B.vmul(powz, pm), axis=-1), width)  # (n, width)
-            at_zg = rows(B.vsum(B.vmul(powzg, pm), axis=-1), width)
+            at_z = rows(every_instance(B.vsum(B.vmul(powz, pm), axis=-1)), width)  # (n, width)
+            at_zg = rows(every_instance(B.vsum(B.vmul(powzg, pm), axis=-1)), width)
             for i in range(n):
                 states[i][0].extend(at_z[i])
                 states[i][1].extend(at_zg[i])
@@ -458,18 +514,20 @@ def _tail_kernels(B, spec, ext_deg, n, polys, aux_polys, comp_columns, domain, d
         z_l = B.scalar_to_limbs(z, d, device=device)
         g_trace = B.get_root_of_unity(length.bit_length() - 1)
         zg_l = B.scalar_to_limbs(spec.fmul(z, g_trace), d, device=device)
+        local = range(first, first + n_loc)  # this rank's instances, padding past n
+        zero = spec.zero(d)
         ccs = B.emap(
-            lambda l: l.reshape(n, W, 1),
-            B.elems_to_limbs([cc.traces[i][j] for i in range(n) for j in range(W)],
-                             d, device),
+            lambda l: l.reshape(n_loc, W, 1),
+            B.elems_to_limbs([cc.traces[i][j] if i < n else zero
+                              for i in local for j in range(W)], d, device),
         )
         cc_cons = B.elems_to_limbs(list(cc.constraints), d, device)
 
         def consts(row):  # sum_j T_ij(z) * cc_ij per instance, host scalars
             vals = []
-            for i in range(n):
-                acc = spec.zero(d)
-                for j in range(W):
+            for i in local:
+                acc = zero
+                for j in range(W if i < n else 0):
                     acc = spec.fadd(acc, spec.fmul(ood_states[i][row][j], cc.traces[i][j]))
                 vals.append(acc)
             return B.elems_to_limbs(vals, d, device)
@@ -485,6 +543,8 @@ def _tail_kernels(B, spec, ext_deg, n, polys, aux_polys, comp_columns, domain, d
         q1 = B.syn_div_binomial(_sub0_batch(t, consts(0)), z_l)
         q2 = B.syn_div_binomial(_sub0_batch(t, consts(1)), zg_l)
         total = B.vsum(B.vadd(q1, q2), axis=0)  # (length,)
+        if mesh is not None:  # the sum over every rank's instances, in the field
+            total = B.vsum(B.emap(mesh.all_gather, total), axis=0)
         cols = _sub0_batch(B.promote(comp_columns, d), hz_c)  # (num_cols, length)
         qc = B.syn_div_binomial(cols, z_l)
         kw = B.emap(lambda l: l[:, None], cc_cons)
@@ -498,15 +558,48 @@ def _tail_kernels(B, spec, ext_deg, n, polys, aux_polys, comp_columns, domain, d
 # ---------------------------------------------------------------------------
 
 
-def prove_mesh(prover, n: int, traces, device):
+def _rank_block(B, mesh, plan, seq_tabs, ce: int):
+    """The plan's divisor and periodic tables and the sequence tables sliced
+    to this rank's block of ce points (contiguous, from rank * ce/d), as
+    ``streamed.py`` slices them to a coset: a divisor or sequence table by
+    its points, a periodic table rotated so that index i % period reads the
+    block's point i."""
+    ce_loc = ce // mesh.size
+    g0 = mesh.rank * ce_loc
+    block = dict(plan,
+                 div_tables=[B.cmap(lambda l: l[g0:g0 + ce_loc], t) for t in plan["div_tables"]],
+                 periodic_tabs=[B.cmap(lambda l: l.roll(-(g0 % l.shape[0])), t)
+                                for t in plan["periodic_tabs"]])
+    return block, [B.emap(lambda l: l[:, g0:g0 + ce_loc], t) for t in seq_tabs]
+
+
+def prove_mesh(prover, n: int, traces, device, mesh=None):
     """One aggregated proof of ``n`` traces with every heavy phase on
     ``device``; byte-identical to the JAX package's host ``Prover.prove``.
+
+    ``mesh`` (parallel/mesh.py:make_mesh): a prove over its d ranks, SPMD,
+    each rank calling this with every trace and its own device
+    (``mesh.device``); every rank returns the same proof.  Instances ride
+    the rank axis, zero-padded to n_pad = ceil(n/d)*d (JAX :723); P1, P1b
+    and P3 commit row blocks (``sharded_segment_commit``,
+    ``sharded_lde_blocks``) into trees split across the ranks
+    (``ShardedMerkleTree``); P2 evaluates each rank's block of the ce
+    domain in ``eager_constraint_phase`` with the next rank's first rows as
+    its halo (the constraint kernel only on one rank, ``_pcons_gate``); the
+    tail computes each rank's instances; FRI runs in ``MeshFriProver``; P8
+    takes each queried row from its owner.  A mesh never streams.  None, or
+    a mesh of one rank, is the one-device pipeline.
 
     The phase walls logged at DEBUG level are real phase costs: on a CUDA
     device each mark waits for the device first (P2 ends in a kernel launch,
     not in a channel interaction that would).  Each record carries ``(phase
     name, milliseconds)`` as its arguments."""
     device = torch.device(device)
+    if mesh is not None and mesh.size == 1:
+        mesh = None
+    if mesh is not None and mesh.device != device:
+        raise ValueError(f"prove_mesh on {device}, its mesh rank on {mesh.device}")
+    d = 1 if mesh is None else mesh.size
     t0 = time.perf_counter()
 
     def _mark(phase):
@@ -540,32 +633,46 @@ def prove_mesh(prover, n: int, traces, device):
     ce = domain.ce_size
     trace_length = domain.trace_length
     num_aux = traces[0].num_aux_segments()
+    # this rank's instances: [first, first + n_loc), zero padding past n
+    n_pad = -(-n // d) * d
+    n_loc = n_pad // d
+    first = 0 if mesh is None else mesh.rank * n_loc
+    if mesh is not None:
+        check_mesh_divides(d, blowup, length)
 
     # the memory plan (JAX :725-736): a limb-field config whose one-shot peak
     # estimate is above the budget streams the LDE coset by coset; another
     # that cannot fit fails fast.  The aux columns count once per extension
-    # component
+    # component.  Over d ranks nothing streams, and each rank's share of the
+    # estimate is checked
     w_eff = w + sum(traces[0].get_info().layout.aux_segment_widths) * ext_deg
     stream = spec.name != "f64" and streamed.should_stream(
-        n, w_eff, length, blowup, B.ELEMENT_BYTES, device)
+        n_pad, w_eff, length, blowup, B.ELEMENT_BYTES, device, d)
     if not stream:
-        streamed.preflight_check(n, w_eff, length, blowup, B.ELEMENT_BYTES, device)
+        streamed.preflight_check(n_pad, w_eff, length, blowup, B.ELEMENT_BYTES, device, d)
     logger.debug("prove_mesh path: %s", "streamed" if stream else "one-shot")
 
-    def stack(segments):  # per-instance comps (w, length) -> comps (n, w, length)
+    mine = range(first, min(first + n_loc, n))  # this rank's real instances
+
+    def stack(build):  # build(i): instance i's comps (w, length) -> comps (n_loc, w, length)
+        segments = [build(i) for i in mine]
+        if len(segments) < n_loc:  # zero instances pad n to n_pad
+            zero = B.emap(torch.zeros_like, segments[0] if segments else build(0))
+            segments += [zero] * (n_loc - len(segments))
         return tuple(tuple(torch.stack([s[c][l] for s in segments])
                            for l in range(len(segments[0][c])))
                      for c in range(len(segments[0])))
 
     # ---- P1: main-trace commitment ----
-    stacked = stack([t.main_segment_limbs(B, device) for t in traces])
+    stacked = stack(lambda i: traces[i].main_segment_limbs(B, device))
     if stream:
         polys, levels = streamed.streamed_segment_commit(B, hasher, stacked, blowup, offset, 1)
         lde_rows = None
     else:
-        polys, lde_rows, levels = sharded_segment_commit(B, hasher, stacked, blowup, offset, 1)
+        polys, lde_rows, levels = sharded_segment_commit(B, hasher, stacked, blowup, offset, 1,
+                                                         mesh=mesh, n=n)
     del stacked
-    main_tree = MerkleTree(levels, hasher)
+    main_tree = _tree(levels, hasher, mesh)
     channel.commit_trace(main_tree.root())
     _mark("P1 main-trace commit")
 
@@ -573,22 +680,20 @@ def prove_mesh(prover, n: int, traces, device):
     aux_rand_objs = [AuxTraceRandElements() for _ in range(n)]
     aux_polys, aux_rows, aux_trees = [], [], []
     for seg_idx in range(num_aux):
-        segments = []
-        for i, trace in enumerate(traces):
-            rand_elements = channel.get_aux_trace_segment_rand_elements(seg_idx)
-            aux_rand_objs[i].add_segment_elements(rand_elements)
-            segments.append(trace.build_aux_segment(seg_idx, rand_elements, B, device))
-        stacked = B.promote(stack(segments), ext_deg)
-        del segments
+        rands = [channel.get_aux_trace_segment_rand_elements(seg_idx) for _ in range(n)]
+        for obj, rand_elements in zip(aux_rand_objs, rands):
+            obj.add_segment_elements(rand_elements)
+        stacked = B.promote(stack(lambda i: traces[i].build_aux_segment(
+            seg_idx, rands[i], B, device)), ext_deg)
         if stream:
             apolys, alevels = streamed.streamed_segment_commit(B, hasher, stacked, blowup,
                                                                offset, ext_deg)
             arows = None
         else:
             apolys, arows, alevels = sharded_segment_commit(B, hasher, stacked, blowup,
-                                                            offset, ext_deg)
+                                                            offset, ext_deg, mesh=mesh, n=n)
         del stacked
-        aux_trees.append(MerkleTree(alevels, hasher))
+        aux_trees.append(_tree(alevels, hasher, mesh))
         aux_polys.append(apolys)
         aux_rows.append(arows)
         channel.commit_trace(aux_trees[-1].root())
@@ -618,7 +723,9 @@ def prove_mesh(prover, n: int, traces, device):
     fp_stack = B.emap(lambda l: l[:, 0],
                       _stack_elems(B, [[p] for p in final_powers], ext_deg, device))
     scal = aux = None
-    if _pcons_gate(plan, ext_deg, spec):
+    # the LDE rows of the n real instances (a mesh's rows hold n_pad)
+    lde_rows_n = None if stream else B.emap(lambda l: l[:n], lde_rows)
+    if _pcons_gate(plan, ext_deg, spec, d):
         scal = cons_kernel.pack_scalar_bank(B, t_main, singles, ccs, fp_stack, n,
                                             plan["K"])
     elif plan["has_aux"]:
@@ -633,7 +740,7 @@ def prove_mesh(prover, n: int, traces, device):
             aux = (aux_polys, t_aux, rand_stacks)
         else:
             # the aux frame spans every aux segment's columns
-            rows = tuple(tuple(torch.cat([r[c][l] for r in aux_rows], dim=1)
+            rows = tuple(tuple(torch.cat([r[c][l][:n] for r in aux_rows], dim=1)
                                for l in range(len(aux_rows[0][c])))
                          for c in range(ext_deg))
             aux = (rows, t_aux, rand_stacks)
@@ -649,10 +756,26 @@ def prove_mesh(prover, n: int, traces, device):
         if scal is not None:
             final_comb = pallas_constraint_phase(B, airs[0], domain, plan, lde_rows, scal,
                                                  [t[0] for t in seq_tabs])
-        else:
+        elif mesh is None:
             final_comb = eager_constraint_phase(
                 B, airs[0], domain.ce_to_lde_blowup, blowup, plan, lde_rows, t_main, singles,
                 seq_tabs, ccs, fp_stack, aux=aux)
+        else:
+            # this rank's block of the ce domain; its next-row frames reach
+            # `blowup` rows into the next rank's block (JAX
+            # ``_frames_from_rows`` :298), then every block is all-gathered
+            def with_halo(rows):
+                return B.emap(lambda l: torch.cat([l, mesh.halo(l, blowup)], dim=2), rows)
+
+            block_plan, block_seqs = _rank_block(B, mesh, plan, seq_tabs, ce)
+            if aux is not None:
+                aux = (with_halo(aux[0]),) + aux[1:]
+            part = eager_constraint_phase(
+                B, airs[0], domain.ce_to_lde_blowup, blowup, block_plan,
+                with_halo(lde_rows_n), t_main, singles, block_seqs, ccs, fp_stack, aux=aux,
+                points=ce // d)
+            final_comb = B.emap(lambda l: mesh.all_gather(l).reshape(ce), part)
+            del part, block_plan, block_seqs
         del seq_tabs
     del seq_specs, aux
     _mark("P2 constraint evaluation")
@@ -674,26 +797,33 @@ def prove_mesh(prover, n: int, traces, device):
         comp_lde_rows = None
     else:
         comp_lde_rows, clevels = sharded_lde_blocks(
-            B, comp_columns, L // trace_length, offset, hasher=hasher, deg=ext_deg
+            B, comp_columns, L // trace_length, offset, hasher=hasher, deg=ext_deg, mesh=mesh
         )
-    constraint_tree = MerkleTree(clevels, hasher)
+    constraint_tree = _tree(clevels, hasher, mesh)
     channel.commit_constraints(constraint_tree.root())
     _mark("P3 composition LDE + commit")
 
     # ---- tail: OOD + DEEP + FRI + queries ----
     ood_fn, deep_fn = _tail_kernels(
-        B, spec, ext_deg, n, polys, aux_polys, comp_columns, domain, device
+        B, spec, ext_deg, n, polys, aux_polys, comp_columns, domain, device, mesh
     )
 
     def query_rows(positions):
-        idx = torch.as_tensor(list(positions), dtype=torch.int64, device=device)
+        if mesh is None:
+            idx = torch.as_tensor(list(positions), dtype=torch.int64, device=device)
+
+            def select(l, dim):
+                return l.index_select(dim, idx).cpu()
+        else:  # each row from the rank whose block holds it
+            def select(l, dim):
+                return mesh.take(l, dim, positions, L // d).cpu()
 
         def per_instance(rows):  # comps (n, w, L) -> per instance comps (w, q)
-            g = B.emap(lambda l: l.index_select(2, idx).cpu(), rows)
+            g = B.emap(lambda l: select(l, 2), rows)
             return [B.emap(lambda l: l[i], g) for i in range(n)]
 
-        comp_g = B.emap(lambda l: l.index_select(1, idx).cpu(), comp_lde_rows)
-        return (per_instance(lde_rows), [per_instance(r) for r in aux_rows], comp_g)
+        comp_g = B.emap(lambda l: select(l, 1), comp_lde_rows)
+        return (per_instance(lde_rows_n), [per_instance(r) for r in aux_rows], comp_g)
 
     if stream:
         # the queried rows re-derived coset by coset (JAX :1051-1058)
@@ -702,12 +832,15 @@ def prove_mesh(prover, n: int, traces, device):
 
     def deep_fri(deep_coefficients):
         cols = B.emap(lambda l: l.reshape(1, trace_length), deep_coefficients)
-        deep_rows = sharded_lde_blocks(B, cols, L // trace_length, offset)
-        deep_evals = B.emap(lambda a: a.reshape(L), deep_rows)
+        deep_rows = sharded_lde_blocks(B, cols, L // trace_length, offset, mesh=mesh)
+        deep_evals = B.emap(lambda a: a.reshape(-1), deep_rows)
         # f64 folds over the options' default coset (its generator, 7),
         # the limb fields over their own generator (JAX :1103-1108)
         fri_options = options.to_fri_options(field=None if spec.name == "f64" else spec)
-        fri = LimbFriProver(fri_options, hasher, B, ext_deg)
+        if mesh is None:
+            fri = LimbFriProver(fri_options, hasher, B, ext_deg)
+        else:
+            fri = MeshFriProver(fri_options, hasher, B, ext_deg, mesh)
         fri.build_layers(channel, deep_evals)
         return fri
 

@@ -85,24 +85,32 @@ def oneshot_peak_estimate(n: int, w: int, length: int, blowup: int,
     return ONESHOT_PEAK_FACTOR * n * w * length * blowup * el_bytes
 
 
-def should_stream(n, w, length, blowup, el_bytes, device) -> bool:
+def should_stream(n, w, length, blowup, el_bytes, device, d: int = 1) -> bool:
+    """Whether a prove over ``d`` ranks streams: only on one rank (JAX :73).
+    A multi-rank prove keeps the one-shot path, whose share on each rank is
+    1/d of the peak (``preflight_check`` checks that share)."""
+    if d != 1:
+        return False
     return oneshot_peak_estimate(n, w, length, blowup, el_bytes) > budget_bytes(device)
 
 
-def preflight_check(n, w, length, blowup, el_bytes, device):
+def preflight_check(n, w, length, blowup, el_bytes, device, d: int = 1):
     """Fail fast, before anything is allocated, when a config that takes
     the one-shot pipeline cannot fit the budget (``prove_mesh`` calls it for
-    the configs that do not stream)."""
+    the configs that do not stream); over ``d`` ranks each rank's share,
+    1/d of the estimate, is held against its budget (JAX :84)."""
     if os.environ.get("STARKPACK_HBM_PREFLIGHT") == "0":
         return
-    if should_stream(n, w, length, blowup, el_bytes, device):
-        demand = oneshot_peak_estimate(n, w, length, blowup, el_bytes)
+    demand = oneshot_peak_estimate(n, w, length, blowup, el_bytes)
+    if demand // d > budget_bytes(device):
+        why = ("the coset-streamed pipeline takes the limb fields only" if d == 1 else
+               f"~{demand / d / 1e9:.1f} GB a rank over {d} ranks, and the coset-streamed "
+               f"pipeline runs on one rank only")
         raise ProverError(
             f"the one-shot pipeline projects ~{demand / 1e9:.1f} GB peak device memory "
             f"(n={n}, width={w}, trace length={length}, blowup={blowup}) against a "
-            f"{budget_bytes(device) / 1e9:.1f} GB budget, and the coset-streamed "
-            f"pipeline takes the limb fields only; raise STARKPACK_HBM_BUDGET, or set "
-            f"STARKPACK_HBM_PREFLIGHT=0 to attempt it anyway"
+            f"{budget_bytes(device) / 1e9:.1f} GB budget, and {why}; raise "
+            f"STARKPACK_HBM_BUDGET, or set STARKPACK_HBM_PREFLIGHT=0 to attempt it anyway"
         )
 
 

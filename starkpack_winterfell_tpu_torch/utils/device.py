@@ -17,3 +17,16 @@ def resolve_device(device="cuda") -> torch.device:
             "False; pass device='cpu' to run the plain tensor code on the host"
         )
     return dev
+
+
+def use_device(device) -> torch.device:
+    """Make ``device`` this process's current CUDA device (a CPU device is
+    left as it is).  The port's kernels run on the current device: their
+    libraries set their limits on it when they load, and ``native.launch``
+    refuses a tensor on any other.  So a process that proves on another card
+    than the first, each rank of a multi-rank prove among them, calls this
+    before its first kernel loads (``parallel/mesh.py:make_mesh`` does)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return dev

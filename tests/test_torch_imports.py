@@ -89,6 +89,9 @@ def _run(code, env_extra=None):
     "starkpack_winterfell_tpu_torch.fri.verifier, "
     "starkpack_winterfell_tpu_torch.crypto.merkle, "
     "verify_walls",
+    # the multi-rank prover
+    "starkpack_winterfell_tpu_torch.parallel.mesh, "
+    "starkpack_winterfell_tpu_torch.utils.device",
     "chip_smoke",
     "profile_prove",
 ])
@@ -189,6 +192,102 @@ def test_limb_cli_runs_on_the_cpu_and_refuses_the_default_device():
     r = subprocess.run(base + ["--device", "cpu"], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=SUBPROCESS_TIMEOUT)
     assert r.returncode == 0 and "Proof verified" in r.stdout, r.stderr
+
+
+# every CLI example at a small -l (the hash chains: their chain length)
+CLI_EXAMPLES = {"do-work": 16, "fib": 16, "rescue-chain": 8, "rescue-chain-pad": 5,
+                "lamport": 64, "rescue128-chain": 8, "merkle128": 64, "lamport128": 64,
+                "lamport128-agg": 1024, "fib-f128": 16, "fib-f62": 16, "perm": 16}
+
+
+@pytest.mark.parametrize("example", sorted(CLI_EXAMPLES))
+def test_cli_examples_build_the_jax_cli_traces(example):
+    """Both packages' ``get_example`` build the same traces, instance by
+    instance, so a CLI invocation proves the same statement in both."""
+    from starkpack_winterfell_tpu.models import cli as jcli
+
+    from starkpack_winterfell_tpu_torch.models import cli as tcli
+
+    rows = CLI_EXAMPLES[example]
+    for i in range(2):
+        want = jcli.get_example(example)[2](i, rows)
+        got = tcli.get_example(example)[2](i, rows)
+        assert (got.width, got.length) == (want.width, want.length)
+        for col in range(want.width):
+            assert [got.get(col, s) for s in range(got.length)] == \
+                [want.get(col, s) for s in range(want.length)], (example, i, col)
+
+
+class _Parsed(Exception):
+    pass
+
+
+def _parser_defaults(main, monkeypatch):
+    """The namespace and the example choices ``main`` parses for a bare
+    ``do-work``: argparse is stopped right after parsing."""
+    import argparse
+
+    parse = argparse.ArgumentParser.parse_args
+
+    def stop(self, args=None, namespace=None):
+        choices = next(a.choices for a in self._actions if a.dest == "example")
+        raise _Parsed(vars(parse(self, args, namespace)), set(choices))
+
+    with monkeypatch.context() as m:
+        m.setattr(argparse.ArgumentParser, "parse_args", stop)
+        with pytest.raises(_Parsed) as got:
+            main(["do-work"])
+    return got.value.args
+
+
+def test_cli_parsers_have_the_jax_cli_defaults(monkeypatch):
+    """Every option of the JAX CLI has its default in the port's; only
+    ``--device`` differs in kind (a flag there, the torch device here)."""
+    from starkpack_winterfell_tpu.models import cli as jcli
+
+    from starkpack_winterfell_tpu_torch.models import cli as tcli
+
+    want, want_examples = _parser_defaults(jcli.main, monkeypatch)
+    got, got_examples = _parser_defaults(tcli.main, monkeypatch)
+    assert got_examples == want_examples
+    assert set(got) == set(want)
+    assert {k: v for k, v in got.items() if k != "device"} == \
+        {k: v for k, v in want.items() if k != "device"}
+    assert want["device"] is False and got["device"] == "cuda"
+
+
+def test_rescue128_chain_cli_prints_the_jax_cli_proof_hash(capsys):
+    """``rescue128-chain -n 1 -l 8 -q 16`` proves one statement in both
+    CLIs: the same proof hash (the JAX CLI's host pipeline; the port's on
+    the CPU)."""
+    from starkpack_winterfell_tpu.models import cli as jcli
+
+    from starkpack_winterfell_tpu_torch.models import cli as tcli
+
+    args = ["rescue128-chain", "-n", "1", "-l", "8", "-q", "16"]
+
+    def proof_hash(out):
+        return [line for line in out.splitlines() if line.startswith("Proof hash")]
+
+    jcli.main(args)
+    want = proof_hash(capsys.readouterr().out)
+    tcli.main(args + ["--device", "cpu"])
+    got = proof_hash(capsys.readouterr().out)
+    assert len(want) == 1 and got == want
+
+
+def test_cli_profile_writes_a_chrome_trace(tmp_path):
+    base = [sys.executable, "-m", "starkpack_winterfell_tpu_torch.models.cli",
+            "do-work", "-n", "1", "-l", "16", "-q", "4", "--device", "cpu",
+            "--profile", str(tmp_path / "prof")]
+    env = dict(os.environ, PYTHONPATH=ROOT, **_torch_one_thread.ENV)
+    r = subprocess.run(base, cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=SUBPROCESS_TIMEOUT)
+    assert r.returncode == 0 and "Proof verified" in r.stdout, r.stderr
+    trace = tmp_path / "prof" / "prove_trace.json"
+    assert "Profiler trace written to" in r.stdout
+    with open(trace) as f:
+        assert '"traceEvents"' in f.read(4096)
 
 
 def test_chip_smoke_exits_nonzero_without_a_card():

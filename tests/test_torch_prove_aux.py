@@ -210,8 +210,8 @@ def test_prove_device_routes_aux_traces_to_prove_mesh(monkeypatch):
     memory plan counts the aux column once per extension component."""
     seen = {}
 
-    def preflight(n, w, length, blowup, el_bytes, device):
-        seen["preflight"] = (n, w, length, blowup, el_bytes)
+    def preflight(n, w, length, blowup, el_bytes, device, d=1):
+        seen["preflight"] = (n, w, length, blowup, el_bytes, d)
         raise RuntimeError("stop after the plan")
 
     monkeypatch.setattr(streamed, "preflight_check", preflight)
@@ -219,7 +219,7 @@ def test_prove_device_routes_aux_traces_to_prove_mesh(monkeypatch):
     prover = tperm.PermProver(T.ProofOptions(8, 8, 0, 3, 4, 31), T.Blake3_256)
     with pytest.raises(RuntimeError, match="stop after the plan"):
         prover.prove(2, traces, device="cpu")
-    assert seen["preflight"] == (2, 2 + 1 * 3, 64, 8, 8)
+    assert seen["preflight"] == (2, 2 + 1 * 3, 64, 8, 8, 1)
 
 
 def test_default_device_raises_without_a_card():
