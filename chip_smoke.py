@@ -9,16 +9,25 @@ with ProofOptions(28, 8, 16, NONE, 4, 31) and BLAKE3-256 unless named:
 * the f64 big-trace path: a Rescue hash-chain STARK of 2^20 rows x 12
   columns, beside it a 2^14-row prove with a pinned digest and an aggregated
   prove of 4 x 2^16 rows;
+* kernel 5 on Goldilocks: three f64 statements proved again by
+  ``prove_mesh(prover, n, traces, device)`` called directly, whose P2 is
+  the constraint kernel's f64 body (``_pcons_gate``; csrc/gl64_fe.cuh),
+  each proof's sha256 that of the phase it follows: the 2^20 x 12 chain
+  (f64_cons_main, right after main; its line gives main's P2+3 wall),
+  do-work 32 x 1024 (f64_cons_do_work) and 64 f64 Lamport+ signatures
+  with SHA3-256 (f64_cons_lamport64, the largest f64 body); each body's
+  ptxas registers and spills in its line;
 * the same path over the extension fields: the 2^20-row chain again with
   the 128-bit options ProofOptions(38, 8, 16, CUBIC, 4, 31) (ext_cubic_main,
   right after the base prove of the same trace), those options at 2^14 rows
   with a pinned digest (ext_cubic_golden), and 4 x 2^16 rows aggregated
   with ProofOptions(28, 8, 16, QUADRATIC, 4, 31) (ext_quad_aggregated);
-* the f128 limb-field path: a Rescue128 hash-chain STARK of 2^18 rows x 6
+* the f128 limb-field path: a Rescue128 hash-chain STARK of 2^17 rows x 6
   columns of 16-byte elements (cut from 2^20 rows, whose f128 shapes the
   1024-signature Lamport+ prove runs, to spare most of the chain's serial
-  host trace build), beside it a 2^12-row prove with a pinned digest and an
-  aggregated prove of 4 x 2^14 rows;
+  host trace build, and from 2^18 to keep the run inside its time limit),
+  beside it a 2^12-row prove with a pinned digest and an aggregated prove
+  of 4 x 2^14 rows;
 * the f64 small-trace path (every transform through the DIT kernels):
   do-work 32 x 1024 rows x 10 columns and a Rescue hash chain of 64
   instances x 2^13 rows x 12 columns, beside them do-work 2 x 64 with
@@ -37,13 +46,14 @@ with ProofOptions(28, 8, 16, NONE, 4, 31) and BLAKE3-256 unless named:
   one-shot proof's bytes), and 4096 signatures (2^22 rows x 14, a 7.5 GB
   main LDE), which the memory plan streams by itself;
 * the limb path over the extension fields (the eager constraint phase in
-  place of the constraint kernel): the 2^18-row Rescue128 chain again at
+  place of the constraint kernel): the 2^17-row Rescue128 chain again at
   ProofOptions(28, 8, 16, QUADRATIC, 4, 31) (limb_ext_main, right after the
   degree-1 prove of the same trace, with kernel 4's launches derived from
   that prove's), and that prove forced down the coset-streamed pipeline
   (limb_stream_quad: the eager constraint phase a ce coset at a time; the
-  bytes of limb_ext_main's proof); 256 Merkle authentication paths over
-  f128 of depth 32 (256 rows x 7 columns each) aggregated into ONE proof,
+  bytes of limb_ext_main's proof); 64 Merkle authentication paths over
+  f128 of depth 32 (256 rows x 7 columns each; 256 paths until the run
+  neared its time limit) aggregated into ONE proof,
   once at degree 1
   with BLAKE3-256 (the constraint kernel's merkle128 body) and once at
   quadratic with SHA3-256 (merkle128_aggregated, merkle128_aggregated_quad);
@@ -100,9 +110,9 @@ shapes.  The big-trace path's tile shapes are known in advance
 (which also serve the small transforms of the big-trace path) are read off
 a first prove of each size, compared, and then required of the counted
 prove.  Every proof is checked with the port's verifier.  Each phase
-(device, build, kernels, dit_kernels, small, main, ext_cubic_main,
+(device, build, kernels, dit_kernels, small, main, f64_cons_main, ext_cubic_main,
 aggregated, ext_cubic_golden, ext_quad_aggregated, small_trace_golden,
-small_trace_main_do_work, small_trace_main_rescue,
+small_trace_main_do_work, f64_cons_do_work, small_trace_main_rescue,
 small_trace_ext_golden_row2, small_trace_ext_golden_row4,
 small_trace_ext_do_work, limb_small, limb_fib, limb_fib62, limb_main,
 limb_ext_main, limb_stream_quad, limb_aggregated, merkle128_aggregated,
@@ -111,7 +121,7 @@ limb_ext_f62, lamport_agg_golden, lamport_agg_64, lamport_agg_main,
 lamport_agg_main_streamed, lamport_agg_4096, lamport128_aggregated,
 aux_main, aux_golden, aux_cubic, rp64_main,
 rpjive_main, griffin_main, rp_golden_row6, rp_golden_row7, rp_golden_row8, rescue_pad, lamport64,
-rp62_main, sponge_search, mesh2_aux, mesh2_limb, mesh2_do_work, mesh2_group)
+f64_cons_lamport64, rp62_main, sponge_search, mesh2_aux, mesh2_limb, mesh2_do_work, mesh2_group)
 prints one JSON line as it ends; any failure raises
 and the run exits non-zero.  A ``prove_mesh`` phase's line says ``streamed``,
 the path its proves had to take ("prove_mesh path" records); a streamed
@@ -132,6 +142,7 @@ import concurrent.futures
 import contextlib
 import hashlib
 import importlib.util
+import itertools
 import json
 import logging
 import os
@@ -239,13 +250,13 @@ PATHS = {"small": (14, 1, BENCH_OPTIONS), "main": (20, 1, BENCH_OPTIONS),
 # the limb-field proves (limb_fib, limb_fib62: the cheap second AIR over
 # f128 and over f62): name -> (log2 of the rows, instances)
 LIMB_PATHS = {"limb_small": (12, 1), "limb_fib": (9, 2), "limb_fib62": (9, 2),
-              "limb_main": (18, 1), "limb_aggregated": (14, 4)}
+              "limb_main": (17, 1), "limb_aggregated": (14, 4)}
 LIMB_WIDTH = 6
 # the limb path over the extension fields: the limb_main trace at quadratic;
 # Merkle authentication paths (paths, tree depth: 8 rows a level) aggregated
 # into one proof, at degree 1 and at quadratic with SHA3-256
 LIMB_EXT_OPTIONS = QUAD_OPTIONS
-MERKLE_PATHS = (256, 32)
+MERKLE_PATHS = (64, 32)
 MERKLE_QUAD_OPTIONS = QUAD_OPTIONS
 # rows 10 and 12 of the golden transcript matrix and fib-f62 at cubic: name
 # -> (example, instances, -l as the CLI takes it, ProofOptions, hasher, pin)
@@ -340,7 +351,8 @@ IMAD_WIDE_SLOTS = 2
 PIPE_COSTS: dict = {}
 PIPE_COSTS_WIDE1: dict = {}
 ONE_PIPE = {field: {**ops, "twmul": ops["mul"]} for field, ops in (
-    ("gl64", {"mul": OPS_FIELD_MUL, "add": OPS_FIELD_ADD, "sub": OPS_FIELD_SUB}),
+    ("gl64", {"mul": OPS_FIELD_MUL, "sqr": OPS_FIELD_MUL, "add": OPS_FIELD_ADD,
+              "sub": OPS_FIELD_SUB}),
     *OPS_LIMB.items())}
 # NVIDIA H100 SXM dispatch rates, lanes a second: the IMAD pipe and the integer
 # ALU pipe (IADD3, LOP3, SHF, ISETP, SEL, LEA) 64 lanes a clock an SM each,
@@ -356,13 +368,53 @@ def slotted(by_pipe, slots: int) -> dict:
             for probe, c in by_pipe.items()}
 
 
+def row_pieces(bp) -> dict:
+    """A Goldilocks sum of products by small constants (kernel 5's f64 MDS
+    rows, ``cons_kernel.small_constant_rows``) as the MDS row probes price
+    it, per pipe: "row_term" each product and its accumulation, (row of
+    12 - row of 8) / 4, and "row_base" the rest of the 12-term row (its
+    reduction) less the round-constant add that the probe makes."""
+    term = {k: max(0.0, (bp["gl64_mds_row"][k] - bp["gl64_mds_row8"][k]) / 4)
+            for k in ("imad", "alu")}
+    base = {k: max(0.0, bp["gl64_mds_row"][k] - 12 * term[k] - bp["add"][k])
+            for k in ("imad", "alu")}
+    return {"row_term": term, "row_base": base}
+
+
+def op_forms(cost: dict, op: str) -> list:
+    """The forms one operation of ``op_bound``'s counts can take, each at
+    its price in a field's ``cost`` (per pipe, or one-pipe numbers): a row
+    of m small-constant products ("row<m>") as the lazy accumulation with
+    one reduction (``row_pieces``), as one reduction priced as a multiply
+    and each term as an add (as ``sponge_costs`` prices a row), or as m
+    multiplies summed by m - 1 adds; an entry that lists forms (the
+    Goldilocks square: the square probe or the multiply) those; any other
+    operation its one entry."""
+    if not op.startswith("row"):
+        return cost[op] if isinstance(cost[op], list) else [cost[op]]
+    m = int(op[3:])
+
+    def comb(*terms):
+        if isinstance(cost["mul"], dict):
+            return {k: sum(n * c[k] for n, c in terms) for k in ("imad", "alu")}
+        return sum(n * c for n, c in terms)
+
+    return [comb((1, cost["row_base"]), (m, cost["row_term"])),
+            comb((1, cost["mul"]), (m, cost["add"])),
+            comb((m, cost["mul"]), (m - 1, cost["add"]))]
+
+
 def pipe_costs(bp) -> dict:
     """``PIPE_COSTS`` from ``slotted`` counts.  "twmul" is an NTT
     butterfly's product by a twiddle at its cheapest form: the multiply,
     except on f62, whose twiddles kernel 4 holds in Montgomery form
-    (``f62_twmul``)."""
+    (``f62_twmul``).  A Goldilocks square has two forms, the square probe
+    (``gl64_sqr``, the cross product once) and the multiply; its rows of
+    small-constant products take ``row_pieces`` (``op_forms``)."""
     limb = ("mul", "sqr", "add", "sub")
-    return {"gl64": {**{op: bp[op] for op in ("mul", "add", "sub")}, "twmul": bp["mul"]},
+    return {"gl64": {**{op: bp[op] for op in ("mul", "add", "sub")},
+                     "sqr": [bp["gl64_sqr"], bp["mul"]], "twmul": bp["mul"],
+                     **row_pieces(bp)},
             "f128": {**{op: bp[f"f128_{op}"] for op in limb}, "twmul": bp["f128_mul"]},
             "f62": {**{op: bp[f"f62_{op}"] for op in limb}, "twmul": bp["f62_twmul"]}}
 
@@ -377,21 +429,26 @@ def pipe_ms(ops) -> float:
 
 def op_bound(nbytes: int, counts: dict, field: str) -> dict:
     """The least time (ms) of a kernel that moves ``nbytes`` and does
-    ``counts`` field operations ({"mul", "sqr", "add", "sub"}: how many):
+    ``counts`` field operations ({"mul", "sqr", "add", "sub"} and, on
+    Goldilocks, "row<m>": how many):
     the bytes against the memory rate or the operations against the
     integer rates, whichever is larger.  ``bound_ms`` prices each
-    operation pipe by pipe (``PIPE_COSTS``, ``pipe_ms``);
+    operation pipe by pipe (``PIPE_COSTS``, ``pipe_ms``), each kind of
+    operation in the one of its forms (``op_forms``) that, with the
+    others', takes the least time;
     ``bound_ms_wide_one_slot`` the same with an IMAD.WIDE at one slot (the
     earlier count); ``bound_ms_one_pipe`` at its instructions all on one
     64-lane pipe (``ONE_PIPE``, ``PEAK_INT32_OPS_PER_S``), the count the
     earlier bounds of these kernels used."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_one = sum(n * ONE_PIPE[field][op] for op, n in counts.items()) \
+    t_one = sum(n * min(op_forms(ONE_PIPE[field], op)) for op, n in counts.items()) \
         / PEAK_INT32_OPS_PER_S * 1e3
 
     def t_pipe(costs):
-        return pipe_ms({k: sum(n * costs[field][op][k] for op, n in counts.items())
-                        for k in ("imad", "alu")})
+        choices = [[(n, form) for form in op_forms(costs[field], op)]
+                   for op, n in counts.items()]
+        return min(pipe_ms({k: sum(n * form[k] for n, form in pick) for k in ("imad", "alu")})
+                   for pick in itertools.product(*choices))
 
     def pick(t_ops):
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -1124,15 +1181,17 @@ def table_build_launches():
         full_pipeline._cached = cached
 
 
-def first_prove(path, prover, traces, kernel_rows, rng, device, airs=None):
+def first_prove(path, prover, traces, kernel_rows, rng, device, airs=None, prove=None):
     """A first prove of a size shows which shapes of the kernels whose
     shapes are not known in advance (the DIT and the limb kernels) the path
     launches; each shape not yet in the table is held against its plain
-    version.  Returns (proof, seconds, the counts a steady prove must show:
-    the first prove's less its table builds, rows of the new shapes)."""
+    version.  ``prove``: what proves (``timed_prove``'s), ``prover.prove``
+    where None.  Returns (proof, seconds, the counts a steady prove must
+    show: the first prove's less its table builds, rows of the new
+    shapes)."""
     reset_observed_counts()
     with table_build_launches() as built:
-        proof, seconds, _ = timed_prove(prover, traces)
+        proof, seconds, _ = timed_prove(prover, traces, prove=prove)
     seen = observed_counts()
     new_rows = {}
     for key in seen:
@@ -1287,8 +1346,10 @@ def big_phase(path, kernel_rows, rng, device, traces, hasher=Blake3_256, **extra
         fields["tampered_rejected"] = str(e)
     else:
         raise RuntimeError(f"{path}: a tampered seed was accepted")
+    digest = hashlib.sha256(data).hexdigest()
+    ONE_DEVICE[path] = {"sha256": digest, "steady_prove_s": steady_s,
+                        "phases_ms": {name: ms for name, ms in phases}}
     if path in GOLDEN_BIG:
-        digest = hashlib.sha256(data).hexdigest()
         with open(GOLDEN_BIG[path]) as f:
             pinned = f.read().strip()
         if digest != pinned:
@@ -1320,6 +1381,13 @@ def big_trace_phases(kernel_rows, rng, device):
     main_traces = chain([[7] * 8], 1 << PATHS["main"][0])
     trace_s = time.perf_counter() - t0
     base_s = big_phase("main", kernel_rows, rng, device, main_traces, trace_build_s=trace_s)
+    main = ONE_DEVICE["main"]
+    f64_cons_phase("f64_cons_main", RescueChainProver(ProofOptions(*PATHS["main"][2]),
+                                                      Blake3_256),
+                   main_traces, kernel_rows, rng, device, "main",
+                   [("seed", tamper_chain_seed)], trace_build_s=trace_s,
+                   main_p2_3_ms=main["phases_ms"]["P2+3 constraint eval+composition+commit"],
+                   base_steady_prove_s=main["steady_prove_s"])
     for path, hasher in (("rp64_main", Rp64_256), ("rpjive_main", RpJive64_256),
                          ("griffin_main", GriffinJive64_256)):
         with nonce_search_timer() as nonce:
@@ -1345,9 +1413,10 @@ FIB = {field: get_fib_family(field) for field in ("f128", "f62")}
 
 
 def smoke_airs():
-    """One AIR object per constraint kernel the limb phases launch (the
-    emitted body depends on the AIR class and which assertions are
-    sequences, not on the sizes: 4 signatures stand for any number)."""
+    """One AIR object per constraint kernel the limb and the f64_cons_*
+    phases launch (the emitted body depends on the AIR class and which
+    assertions are sequences, not on the sizes: 4 signatures stand for any
+    number)."""
     options = ProofOptions(*BENCH_OPTIONS)
     airs = {("f128", "Rescue128ChainAir"): Rescue128ChainAir(
         TraceInfo(LIMB_WIDTH, 64), Rescue128ChainInputs([1, 2], [3, 4]), options)}
@@ -1359,6 +1428,12 @@ def smoke_airs():
         TraceInfo(lam.TRACE_WIDTH, 128), lam.Lamport128Inputs(1, [1, 2]), options)
     airs[("f128", "Merkle128Air")] = mk.Merkle128Air(
         TraceInfo(mk.TRACE_WIDTH, 64), mk.Merkle128Inputs([1, 2]), options)
+    # the Goldilocks bodies (csrc/gl64_fe.cuh) of the f64_cons_* phases
+    airs[("f64", "RescueChainAir")] = RescueChainAir(
+        TraceInfo(WIDTH, 64), ChainInputs([1] * 8, [2] * 4), options)
+    airs[("f64", "DoWorkAir")] = DoWorkAir(TraceInfo(10, 64), DoWorkInputs(1, 2), options)
+    airs[("f64", "LamportAir")] = lam64.LamportAir(
+        TraceInfo(lam64.TRACE_WIDTH, 64), lam64.LamportInputs(1, [1, 2, 3, 4]), options)
     return airs
 
 
@@ -1458,6 +1533,7 @@ def compare_cons(key, air0, rng, device, used_by):
     random inputs: kernel against ``constraint_eval_plain``, then its time."""
     field, air_name, n, w, ce, n_seq, shift, blowup = key
     el_bytes = get_backend(field).ELEMENT_BYTES
+    costs = "gl64" if field == "f64" else field  # the SASS counts' name
     w_air, n_per, K, groups = cons_config(air0)
     assert w_air == w and cons_kernel.seq_count(groups) == n_seq
     args = cons_args(air0, n, ce, blowup, rng, device, shift=shift)
@@ -1467,9 +1543,15 @@ def compare_cons(key, air0, rng, device, used_by):
     periods = [p[0].shape[0] for p in pers]  # one period of each column over the ce domain
     err, _ = hold_cons(args, key)
     # bound: every input read once, the output written once; the recorded
-    # transition plus the frame's operations per point and instance
+    # transition plus the frame's operations per point and instance; on
+    # Goldilocks each sum of products by small constants (an MDS row) as
+    # one row (``op_forms``)
     body, results = cons_kernel.record_transition(air0, w, n_per, K)
     counts = cons_kernel.count_ops(body)
+    rows = collections.Counter()
+    if field == "f64":
+        counts, row_terms = cons_kernel.small_constant_rows(body, results)
+        rows.update(f"row{m}" for m in row_terms)
     mul = counts["mul"] + K + 1 + len(groups) + n_ccs + 1
     add = counts["add"] + (K - 1) + len(groups) + n_ccs + 1
     sub = counts["sub"] + counts["neg"] + n_ccs
@@ -1478,7 +1560,8 @@ def compare_cons(key, air0, rng, device, used_by):
               + 8 * scal.numel())
     points = n * ce
     bound = op_bound(nbytes, {"mul": points * mul, "sqr": points * counts["sqr"],
-                              "add": points * add, "sub": points * sub}, field)
+                              "add": points * add, "sub": points * sub,
+                              **{r: points * k for r, k in rows.items()}}, costs)
     timing = kernel_timing(lambda: cons_kernel.constraint_eval(*args), "cons_eval_kernel",
                            bound["bound_ms"], cons_kernel)
     # ``hold_cons`` made the plain version's first run
@@ -1493,10 +1576,11 @@ def compare_cons(key, air0, rng, device, used_by):
                 f"{' one LDE coset (shift 1, blowup 1)' if blowup == 1 else ''}]",
         "route": "cuda",
         "source": "starkpack_winterfell_tpu_torch/csrc/cons_frame.cuh + "
-                  "ops/cons_kernel.py emit_cuda",
+                  f"csrc/{cons_kernel._FIELD_TYPES[field][1]} + ops/cons_kernel.py emit_cuda",
         "emitted_source": os.path.relpath(path, os.path.dirname(os.path.abspath(__file__))),
         "emitted_lines": open(path).read().count("\n"),
-        "field_ops_per_point": {"mul": mul, "sqr": counts["sqr"], "add": add, "sub": sub},
+        "field_ops_per_point": {"mul": mul, "sqr": counts["sqr"], "add": add, "sub": sub,
+                                **rows},
         # the emitter's design of the body: its roles (results, mul+sqr of
         # each, repeated between them), the blocks an SM must hold; the
         # body's field constants, all literals
@@ -1692,7 +1776,7 @@ def streamed_launches(air0, options, num_aux: int, positions) -> dict:
 def observed_phase(path, prover, air_class, traces, kernel_rows, rng, device,
                    required, airs=None, golden=None, tampers=(), side=None,
                    expected=None, sponge=None, seed_hash=False, stream=False,
-                   force_stream=False, same_as=None, **extra):
+                   force_stream=False, same_as=None, prove=None, **extra):
 
     """One size of a path whose kernel shapes are read off a first prove
     (``first_prove``): each new shape is held against its plain version;
@@ -1713,7 +1797,8 @@ def observed_phase(path, prover, air_class, traces, kernel_rows, rng, device,
     streamed one the coset transforms and kernel 4 and 5 launches
     ``streamed_launches`` derives; ``force_stream``: both proves with the
     budget at one byte (``forced_stream``); ``same_as``: the sha256 the
-    proof must have (another path's proof of the same statement).  ``extra`` goes
+    proof must have (another path's proof of the same statement); ``prove``:
+    what proves, ``prover.prove`` where None (``timed_prove``).  ``extra`` goes
     into the phase's line; with ``base_steady_prove_s`` the line also gives
     the steady prove over it.  Returns {"counted", "steady_prove_s",
     "phases_ms", "sha256"} of the counted prove."""
@@ -1722,7 +1807,7 @@ def observed_phase(path, prover, air_class, traces, kernel_rows, rng, device,
     pub = [prover.get_pub_inputs(t) for t in traces]
     with forced_stream(force_stream), mesh_paths() as paths:
         first_proof, first_s, seen, new_rows = first_prove(
-            path, prover, traces, kernel_rows, rng, device, airs)
+            path, prover, traces, kernel_rows, rng, device, airs, prove)
     verify(air_class, first_proof, pub, hasher)
     del first_proof
 
@@ -1733,7 +1818,7 @@ def observed_phase(path, prover, air_class, traces, kernel_rows, rng, device,
     with (extension_side_launches() if side is not None
           else contextlib.nullcontext()) as side_counts, forced_stream(force_stream), \
             mesh_paths() as counted_paths, coset_transforms() as transforms:
-        proof, seconds, phases = timed_prove(prover, traces)
+        proof, seconds, phases = timed_prove(prover, traces, prove=prove)
     peak = torch.cuda.max_memory_allocated()
     paths += counted_paths
     want_path = "streamed" if stream else "one-shot"
@@ -1821,6 +1906,31 @@ def tamper_seed(pub):
     bad[-1] = Rescue128ChainInputs(
         [(bad[-1].seed[0] + 1) % get_backend("f128").P, bad[-1].seed[1]], bad[-1].result)
     return bad
+
+
+# ---------------------------------------------------------------------------
+# kernel 5 on Goldilocks: f64 main-segment statements through prove_mesh
+# ---------------------------------------------------------------------------
+
+
+def f64_cons_phase(path, prover, traces, kernel_rows, rng, device, same_as, tampers,
+                   **extra):
+    """The statement of the phase ``same_as`` (its traces, prover and
+    options) proved again through ``prove_mesh`` on the card, where
+    ``_pcons_gate`` sends P2 to kernel 5's Goldilocks body: each kernel-5
+    shape of the first prove held against its plain version, the counted
+    prove launching kernels 2/3 and 5 and only compared shapes, the sha256
+    of ``same_as``'s proof, the tampered inputs rejected; the line also
+    gives ptxas's registers and spills of the body."""
+    air0 = prover.air_class(traces[0].get_info(), prover.get_pub_inputs(traces[0]),
+                            prover.options())
+    lib_name = cons_kernel.kernel_source(air0, *cons_config(air0))[0]
+    return observed_phase(
+        path, prover, prover.air_class, traces, kernel_rows, rng, device, ("cons", "dit"),
+        airs=smoke_airs(), tampers=tampers, same_as=ONE_DEVICE[same_as]["sha256"],
+        prove=lambda: full_pipeline.prove_mesh(prover, len(traces), traces, device),
+        same_statement_as=same_as, cons_ptxas=ptxas_report(native.BUILD_LOGS, lib_name),
+        **extra)
 
 
 def limb_phases(kernel_rows, rng, device):
@@ -2084,10 +2194,15 @@ def small_trace_phases(kernel_rows, rng, device):
     options = ProofOptions(*BENCH_OPTIONS)
     log2_rows, n = SMALL_TRACE_PATHS["small_trace_main_do_work"]
     starts = [i + 1 for i in range(n)]
+    traces = [build_do_work_trace(s, 1 << log2_rows) for s in starts]
     out = observed_phase("small_trace_main_do_work", DoWorkProver(options, Blake3_256),
-                         DoWorkAir, [build_do_work_trace(s, 1 << log2_rows) for s in starts],
-                         kernel_rows, rng, device, dit, tampers=[("start", tamper_start)])
+                         DoWorkAir, traces, kernel_rows, rng, device, dit,
+                         tampers=[("start", tamper_start)])
     ONE_DEVICE["small_trace_main_do_work"] = dict(out, inputs=starts)
+    f64_cons_phase("f64_cons_do_work", DoWorkProver(options, Blake3_256), traces,
+                   kernel_rows, rng, device, "small_trace_main_do_work",
+                   [("start", tamper_start)])
+    del traces
 
     log2_rows, n = SMALL_TRACE_PATHS["small_trace_main_rescue"]
     seeds = rng.integers(0, gl.P, size=(n, 8), dtype=np.uint64)
@@ -2280,10 +2395,14 @@ def rp_phases(kernel_rows, rng, device):
     def tamper_message(pub):
         return pub[:-1] + [lam64.LamportInputs(pub[-1].message ^ 1, pub[-1].pub_key)]
 
-    observed_phase("lamport64", lam64.LamportProver(options, Sha3_256), lam64.LamportAir,
-                   traces, kernel_rows, rng, device, ("dit",),
-                   tampers=[("message", tamper_message)], signatures=n, k=k,
-                   wallet_s=wallet_s, trace_build_s=trace_s)
+    out = observed_phase("lamport64", lam64.LamportProver(options, Sha3_256),
+                         lam64.LamportAir, traces, kernel_rows, rng, device, ("dit",),
+                         tampers=[("message", tamper_message)], signatures=n, k=k,
+                         wallet_s=wallet_s, trace_build_s=trace_s)
+    ONE_DEVICE["lamport64"] = out
+    f64_cons_phase("f64_cons_lamport64", lam64.LamportProver(options, Sha3_256),
+                   traces, kernel_rows, rng, device, "lamport64",
+                   [("message", tamper_message)], signatures=n, k=k)
     del traces
 
     n, rows, opts = RP62_MAIN
@@ -2702,7 +2821,8 @@ def build_all():
 def sass_costs():
     """``SPONGE_COSTS`` and ``PIPE_COSTS`` from one run of the counter, an
     IMAD.WIDE at IMAD_WIDE_SLOTS slots, and at one (the ``_WIDE1`` ones);
-    the one-pipe count of kernel 4's f62 twiddle product (a form the
+    the one-pipe counts of kernel 4's f62 twiddle product, the Goldilocks
+    square and the pieces of a row of small-constant products (forms the
     fixed one-pipe counts do not have) from the same run."""
     sass = sass_count()
     for slots, pipe, sponge in ((IMAD_WIDE_SLOTS, PIPE_COSTS, SPONGE_COSTS),
@@ -2710,7 +2830,12 @@ def sass_costs():
         bp = slotted(sass["by_pipe"], slots)
         pipe.update(pipe_costs(bp))
         sponge.update(sponge_costs(bp))
-    ONE_PIPE["f62"]["twmul"] = sum(sass["by_pipe"]["f62_twmul"][k] for k in ("imad", "alu"))
+    one = {probe: c["imad"] + c["alu"] for probe, c in sass["by_pipe"].items()}
+    ONE_PIPE["f62"]["twmul"] = one["f62_twmul"]
+    ONE_PIPE["gl64"]["sqr"] = min(one["gl64_sqr"], OPS_FIELD_MUL)
+    term = max(0.0, (one["gl64_mds_row"] - one["gl64_mds_row8"]) / 4)
+    ONE_PIPE["gl64"].update(row_term=term, row_base=max(
+        0.0, one["gl64_mds_row"] - 12 * term - OPS_FIELD_ADD))
 
 
 def sass_count() -> dict:

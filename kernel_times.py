@@ -44,8 +44,10 @@ measurement:
 * ``prove`` (with ``--prove``): one warm and one timed 2^20 x 12 Rescue-chain
   prove: its phase walls, peak device memory and kernel launches;
 * ``cons``: kernel 5, the constraint kernel (``time_cons``), at the
-  Lamport+ 1024- and 64-signature shapes and the f128 Rescue128 2^18 x 6
-  one, held against its plain version, with ptxas's registers and spills;
+  Lamport+ 1024- and 64-signature shapes, the f128 Rescue128 2^18 x 6 one
+  and the f64 Rescue chain 2^20 x 12 one (the main path's body, where the
+  checkout has it), held against its plain version, with ptxas's registers
+  and spills;
   with ``--variants`` (this checkout only) also with the emitter's rules
   varied (``CONS_VARIANTS``).
 
@@ -291,14 +293,14 @@ def cons_rules(cons_kernel, **rules):
 
 
 def random_limb(field, shape, rng, device):
-    """Canonical elements of a limb field drawn with numpy from ``rng``, as
-    word planes: f128 (lo, hi) with hi below 2^64 - 1, which keeps every
-    value below p; f62 one word below p."""
+    """Canonical elements of a field drawn with numpy from ``rng``, as word
+    planes: f128 (lo, hi) with hi below 2^64 - 1, which keeps every value
+    below p; f62 and f64 (Goldilocks) one word below p."""
     from starkpack_winterfell_tpu_torch.ops import gl64 as gl
     from starkpack_winterfell_tpu_torch.ops.backend import get_backend
 
-    if field == "f62":
-        return (gl.from_u64(rng.integers(0, get_backend("f62").P, size=shape,
+    if field in ("f62", "f64"):
+        return (gl.from_u64(rng.integers(0, get_backend(field).P, size=shape,
                                          dtype=np.uint64), device),)
     lo = rng.integers(0, 1 << 64, size=shape, dtype=np.uint64)
     hi = rng.integers(0, (1 << 64) - 1, size=shape, dtype=np.uint64)
@@ -363,8 +365,10 @@ def hold_cons(args, where, want=None):
 def time_cons(label, variants: bool, dev):
     """Kernel 5 (``ops/cons_kernel.py:constraint_eval``) at the shapes of
     the 1024- and 64-signature Lamport+ proves (n = 1, w = 14, ce = 2^23 and
-    2^19, three sequence tables) and of the f128 Rescue128 2^18 x 6 prove
-    (ce = 2^21), on random inputs from a fixed seed: each design held
+    2^19, three sequence tables), of the f128 Rescue128 2^18 x 6 prove
+    (ce = 2^21) and, where the checkout's kernel takes f64, of the main
+    path's f64 Rescue chain 2^20 x 12 through ``prove_mesh`` (ce = 2^23,
+    shift 1), on random inputs from a fixed seed: each design held
     against ``constraint_eval_plain`` (``hold_cons``), then its device time
     (``device_kernel_ms``) and ptxas's report.  With ``variants`` the
     designs of ``CONS_VARIANTS`` are timed beside the rules at the largest
@@ -389,6 +393,11 @@ def time_cons(label, variants: bool, dev):
         "rescue128 2^18 x 6": (Rescue128ChainAir(TraceInfo(6, 1 << 18), Rescue128ChainInputs(
             [1, 2], [3, 4]), options), 1 << 18, variants),
     }
+    if "f64" in getattr(cons_kernel, "_FIELD_TYPES", {}):
+        from starkpack_winterfell_tpu_torch.models.rescue_chain import ChainInputs, RescueChainAir
+
+        shapes["f64 rescue-chain 2^20 x 12"] = (RescueChainAir(
+            TraceInfo(12, 1 << 20), ChainInputs([1] * 8, [2] * 4), options), 1 << 20, False)
 
     def designs(timed):
         return CONS_VARIANTS if timed else {"rules": {}}

@@ -5,7 +5,9 @@
 // translation unit per (AIR class, field, plan groups); it defines, before
 // including this header:
 //
-//   typedef <field type> FE;              (csrc/f128.cuh: F128)
+//   typedef <field type> FE;              (F128, csrc/f128.cuh; F62,
+//                                         csrc/f62.cuh; GL64,
+//                                         csrc/gl64_fe.cuh)
 //   CONS_W, CONS_K, CONS_NPER             trace width, transition
 //                                         constraints, periodic columns
 //   CONS_NGROUPS, CONS_NCC                boundary groups, their constraints

@@ -6,8 +6,9 @@ Montgomery f62 multiply of csrc/f62_mont.cuh and one row of each layout's
 MDS product with its round-constant add (Rp64_256: twelve 32 x 32-bit
 products of the state's halves, one reduction; the width-8 Jive layouts:
 eight; Rp62_248: twelve 128-bit products summed, one Montgomery
-reduction), and for kernel 4's f62 butterfly product (``f62_twmul``: a
-canonical word times a twiddle in Montgomery form, made canonical).
+reduction), for kernel 4's f62 butterfly product (``f62_twmul``: a
+canonical word times a twiddle in Montgomery form, made canonical), and
+for a Goldilocks square with its cross product taken once (``gl64_sqr``).
 
     python3 starkpack_winterfell_tpu_torch/csrc/gl64_sass_count.py [SASS_OUT]
 
@@ -45,9 +46,16 @@ IMAD_PIPE = re.compile(r"^IMAD\b")
 IMAD_WIDE = re.compile(r"^IMAD\.WIDE\b")
 ALU_PIPE = re.compile(r"^(IADD3|ISETP|SEL|LOP3|SHF|LEA|IMNMX)\b")
 
-# the sponge's operations and kernel 4's f62 butterfly product: probe name
-# -> body reading a[], writing o[0]
+# the sponge's operations, kernel 4's f62 butterfly product and the
+# Goldilocks square (three 32 x 32-bit products, the cross one once, then
+# the reduction of gl64::mul) that the constraint kernel's f64 bound prices
+# its squares at: probe name -> body reading a[], writing o[0]
 SPONGE_PROBES = {
+    "gl64_sqr": (
+        "const uint64_t l = (uint32_t)a[0], h = a[0] >> 32;"
+        " const uint64_t ll = l * l, lh = l * h;"
+        " const uint64_t lo = ll + (lh << 33);"
+        " o[0] = gl64::reduce128(lo, h * h + (lh >> 31) + (lo < ll ? 1 : 0));"),
     "f62_twmul": "o[0] = f62m::sub_if(f62m::mul(a[0], a[1]), f62m::P);",
     "f62m_mul": "o[0] = f62m::mul(a[0], a[1]);",
     "f62m_mds_row": (

@@ -57,27 +57,8 @@
 #include <cuda_runtime.h>
 
 #include "gl64_radix.cuh"
-
-// Goldilocks as a field type of the DIT tile frame (csrc/dit_tile.cuh).
-struct GL64 {
-  uint64_t v;
-
-  static constexpr int WORDS = 1;  // 64-bit words per element
-  static GL64_HD GL64 make(uint64_t v) {
-    GL64 r;
-    r.v = v;
-    return r;
-  }
-  static GL64_HD GL64 zero() { return make(0); }
-  static GL64_HD GL64 load(const uint64_t* lo, const uint64_t*, size_t i) {
-    return make(lo[i]);
-  }
-  static GL64_HD void store(uint64_t* lo, uint64_t*, size_t i, GL64 x) { lo[i] = x.v; }
-};
-
-GL64_HD GL64 fe_add(GL64 a, GL64 b) { return GL64::make(gl64::add(a.v, b.v)); }
-GL64_HD GL64 fe_sub(GL64 a, GL64 b) { return GL64::make(gl64::sub(a.v, b.v)); }
-GL64_HD GL64 fe_mul(GL64 a, GL64 b) { return GL64::make(gl64::mul(a.v, b.v)); }
+// Goldilocks as a field type of the DIT tile frame (csrc/dit_tile.cuh)
+#include "gl64_fe.cuh"
 
 #include "dit_tile.cuh"
 

@@ -24,8 +24,14 @@ groups: which assertions are sequences shows in the source).
 ``constraint_eval_plain`` (the same python AIR code, eager, through
 ``eval_block``), CUDA tensors launch the kernel or raise.
 
-Bound on an H100: operations, a few hundred f128 multiplies per point and
-instance against the card's INT32 rate, far above the bytes of the LDE rows
+Three fields take the frame: f128 (``F128``, two words an element), f62
+(``F62``) and, since the f64 AIRs' main-segment proves reach it through
+``prove_mesh``, Goldilocks (``GL64``, csrc/gl64_fe.cuh; one word each).
+Bound on an H100: operations, the recorded body's multiplies per point and
+instance (the Lamport+ f128 body ~300 at ~130 integer instructions each,
+the f64 Rescue round 384 and the f64 Lamport+ body 801 at the fewer of a
+Goldilocks product; csrc/gl64_sass_count.py counts each field's by pipe)
+against the card's integer rates, far above the bytes of the LDE rows
 read once.  What binds below that is the register file: with the body
 written in the order the python recorded it, one thread a point and every
 input loaded up front, ptxas took 255 registers and spilled on the Lamport+
@@ -357,6 +363,35 @@ def count_ops(ops):
     return counts
 
 
+def small_constant_rows(ops, results, small: int = 1 << 16):
+    """The sums of products by small constants (a ``const`` below
+    ``small``) in a recorded list, the form of an MDS row of Rp64_256 (12
+    products by 6..26 and the 11 additions that sum them).  Returns
+    (counts, rows): ``count_ops`` of the other operations, and the number
+    of terms of each row (a sum that something other than such a sum
+    reads; a product read outside the sums is a row of one term).  An
+    operation bound prices a row as one lazy accumulation of 32 x 64-bit
+    products with one reduction, as the Rescue sponge computes it."""
+    def is_small(i):
+        return ops[i][0] == "const" and ops[i][1] < small
+
+    terms, sums = set(), set()
+    for i, op in enumerate(ops):
+        if op[0] == "mul" and is_small(op[1]) != is_small(op[2]):
+            terms.add(i)
+        elif op[0] == "add" and all(o in terms or o in sums for o in op[1:3]):
+            sums.add(i)
+    outside = set(results)
+    for i, op in enumerate(ops):
+        if i not in sums:
+            outside.update(_operands(op))
+    n_terms = {}
+    for i in sorted(sums):
+        n_terms[i] = sum(n_terms.get(o, 1) for o in ops[i][1:3])
+    rows = [n_terms.get(i, 1) for i in sorted((terms | sums) & outside)]
+    return count_ops([op for i, op in enumerate(ops) if i not in terms | sums]), rows
+
+
 # ---------------------------------------------------------------------------
 # the emitter's rules: roles, schedule, constants, register ceiling
 # ---------------------------------------------------------------------------
@@ -536,7 +571,8 @@ def peak_live(sched):
 
 
 # field name -> (C++ field type, its header, 64-bit words per element)
-_FIELD_TYPES = {"f128": ("F128", "f128.cuh", 2), "f62": ("F62", "f62.cuh", 1)}
+_FIELD_TYPES = {"f128": ("F128", "f128.cuh", 2), "f62": ("F62", "f62.cuh", 1),
+                "f64": ("GL64", "gl64_fe.cuh", 1)}
 
 
 def emit_cuda(field_name: str, air_name: str, ops, results, w: int,
@@ -724,7 +760,7 @@ def constraint_eval(B, air0, plan_groups, K, shift: int, blowup: int,
                 for _ in range(k))
 
     def ptrs(planes):
-        # (low plane, high plane); a one-word field has no high plane
+        # (low plane, high plane); a one-word field (f62, f64) has no high plane
         return [l.data_ptr() for l in planes] + [None] * (2 - k)
 
     rc = launch(lib.cons_eval_launch, lo.device,

@@ -6,9 +6,13 @@ Counterpart of starkpack_winterfell_tpu/parallel/full_pipeline.py
 code around the CUDA kernels of the path (for f128 and f62 the limb NTT
 tile, ops/limb_ntt.py, and the whole-AIR constraint evaluation,
 ops/cons_kernel.py; for f64 the DIT transforms of ops/ntt_kernel.py under
-ops/ntt.py).  It proves every limb-field config, and every f64 config with
-auxiliary trace segments (the randomized AIRs; ``GL64Backend``), as the JAX
-package's ``prover/device.py:410-418`` routes them.
+ops/ntt.py, and the constraint kernel's Goldilocks bodies).  It proves every
+limb-field config, and every f64 config with auxiliary trace segments (the
+randomized AIRs; ``GL64Backend``), as the JAX package's
+``prover/device.py:410-418`` routes them; called directly it also proves the
+f64 main-segment configs, as JAX ``prove_mesh(prover, n, traces,
+make_mesh(1))`` does (``prove_device`` keeps sending those to its own two
+f64 pipelines).
 
   P1   main-trace commitment: interpolate, coset LDE, row words, leaves,
        Merkle levels (``sharded_segment_commit`` :118).
@@ -16,9 +20,10 @@ package's ``prover/device.py:410-418`` routes them.
        elements drawn in instance order, its segment built, ONE tree over
        all instances' extension rows committed.
   P2   constraint evaluation over the ce domain, all instances combined
-       with final_coeff^i: at extension degree 1 on a main-segment limb AIR
-       in the constraint kernel (``pallas_constraint_phase`` :442; its frame
-       slicing happens by index inside the kernel), otherwise in eager
+       with final_coeff^i: on one rank at extension degree 1 on a
+       main-segment AIR over f128, f62 or f64 in the constraint kernel
+       (``pallas_constraint_phase`` :442; its frame slicing happens by index
+       inside the kernel; ``_pcons_gate``), otherwise in eager
        tensor code, chunk by chunk of the ce domain, aux frames and aux
        transition included (``eager_constraint_phase``, the counterpart of
        ``sharded_constraint_phase`` :325).  Sequence assertions enter as
@@ -39,9 +44,9 @@ package's ``prover/device.py:410-418`` routes them.
 Memory plan (JAX :725-736): a limb-field config whose one-shot peak
 estimate is above the budget runs P1, P1b, P2, P3 and the query gather of
 P8 coset by coset through parallel/streamed.py, from the coefficient tables,
-and never holds an LDE; the tail is the same.  An f64 config (it reaches
-this pipeline only with aux segments) does not stream: above the budget it
-fails fast with ProverError (``streamed.preflight_check``).  The DEBUG
+and never holds an LDE; the tail is the same.  An f64 config does not
+stream: above the budget it fails fast with ProverError
+(``streamed.preflight_check``).  The DEBUG
 record "prove_mesh path: %s" names the path a prove took.
 
 Ported: every field at every extension degree it has, main and auxiliary
@@ -212,11 +217,16 @@ def check_mesh_divides(d: int, blowup: int, length: int):
 
 
 def _pcons_gate(plan, ext_deg, spec, d: int = 1):
-    """What the constraint kernel takes: one rank (JAX :425; its frame wraps
-    rows mod L, csrc/cons_frame.cuh, which a rank's row block does not),
-    main segment only, no field extension, a limb field; single-value and
-    sequence assertions.  The rest goes to ``eager_constraint_phase``."""
-    return d == 1 and not plan["has_aux"] and ext_deg == 1 and spec.name in ("f62", "f128")
+    """What the constraint kernel takes, the fields and conditions of JAX
+    ``_pcons_gate`` :425: one rank (its frame wraps rows mod L,
+    csrc/cons_frame.cuh, which a rank's row block does not), main segment
+    only, no field extension, f64, f62 or f128; single-value and sequence
+    assertions.  JAX's ``ce_size % 1024 == 0`` is the Pallas grid's (BS,
+    128) tiling; the CUDA frame has no tile (a block takes CONS_PPB points
+    and the last block stops at ce), so that condition is left out.  The
+    rest goes to ``eager_constraint_phase``."""
+    return (d == 1 and not plan["has_aux"] and ext_deg == 1
+            and spec.name in ("f64", "f62", "f128"))
 
 
 def _inv_divisor_numerator(B, divisor, domain, device):

@@ -1,8 +1,9 @@
 """PyTorch port, whole-AIR constraint evaluation: the plain version of the
 CUDA kernel (ops/cons_kernel.py constraint_eval_plain, i.e. eval_block on
 tensors) against the JAX package's Pallas kernel in interpret mode on the
-fib-f128 AIR, and the emitter's recorded operation list against the AIR's
-own python on ints.  Inputs from a numpy seed; tolerance zero.  The CUDA
+fib AIR over f128, f62 and f64, and the emitter's recorded operation list
+against the AIR's own python on ints (Rescue128, and the f64 Rescue round of
+the main path's chain).  Inputs from a numpy seed; tolerance zero.  The CUDA
 kernel itself is held against the plain version on the card by
 chip_smoke.py."""
 
@@ -36,7 +37,12 @@ GROUPS = [[("main", 0, 1), ("main", 1, 1)], [("main", 1, 1)]]  # fib: first step
 
 
 def rand_planes(rng, shape, field="f128"):
-    """Random canonical elements as the JAX package's u32 limb planes."""
+    """Random canonical elements as the JAX package's u32 limb planes (f64:
+    its (lo, hi) pair)."""
+    if field == "f64":
+        words = rng.integers(0, t_backend("f64").P, size=shape, dtype=np.uint64)
+        return ((words & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+                (words >> np.uint64(32)).astype(np.uint32))
     JF = j_backend(field).F
     lo = rng.integers(0, 1 << 64, size=int(np.prod(shape)), dtype=np.uint64)
     hi = rng.integers(0, 1 << 64, size=int(np.prod(shape)), dtype=np.uint64)
@@ -44,7 +50,7 @@ def rand_planes(rng, shape, field="f128"):
     return tuple(l.reshape(shape) for l in JF.from_ints(ints))
 
 
-@pytest.mark.parametrize("field", ["f128", "f62"])
+@pytest.mark.parametrize("field", ["f128", "f62", "f64"])
 def test_plain_version_matches_the_pallas_kernel_on_fib(field):
     import jax.numpy as jnp
 
@@ -166,6 +172,114 @@ def test_emitted_f62_source_uses_the_one_word_field():
     assert "#define CONS_ROLES 1" in src  # four additions: too small to split
 
 
+def rescue64_air():
+    from starkpack_winterfell_tpu_torch.models.rescue_chain import ChainInputs, RescueChainAir
+
+    return RescueChainAir(T.TraceInfo(12, 64), ChainInputs([1] * 8, [2] * 4),
+                          T.ProofOptions(*OPTIONS))
+
+
+def rescue64_periodic(flag, r):
+    """The f64 chain's periodic row: the round flag, ARK1[r], ARK2[r]."""
+    from starkpack_winterfell_tpu_torch.crypto import rescue as r64
+
+    return [flag] + list(r64.ARK1[r]) + list(r64.ARK2[r])
+
+
+def test_recorded_f64_rescue_round_is_zero_on_a_real_round():
+    """The main path's body (the f64 Rescue chain, 12 columns, 25 periodic)
+    recorded and run on python ints modulo the Goldilocks prime: zero on a
+    real round of Rp64_256 and on a copy row."""
+    from starkpack_winterfell_tpu_torch.crypto import rescue as r64
+
+    P64 = t_backend("f64").P
+    ops, results = t_cons.record_transition(rescue64_air(), 12, 25, 12)
+    state = list(range(3, 15))
+    for r in (0, 6):
+        nxt = r64.round_ints(state, r)
+        assert t_cons.eval_ops_int(ops, results, state, nxt, rescue64_periodic(1, r),
+                                   P64) == [0] * 12
+    assert t_cons.eval_ops_int(ops, results, state, state, [0] * 25, P64) == [0] * 12
+
+
+@pytest.mark.parametrize("flag", [0, 1])
+def test_recorded_f64_rescue_transition_evaluates_as_the_air_on_ints(flag):
+    """The f64 body's op list against the round rule on random frames:
+    flag * (MDS(cur^7) + ARK1 - INV_MDS(next - ARK2)^7) + (1 - flag) *
+    (next - cur), and its scheduled roles against sum t_coef[k] * ev[k]."""
+    from starkpack_winterfell_tpu_torch.crypto import rescue as r64
+
+    P64 = t_backend("f64").P
+    rng = np.random.default_rng(51 + flag)
+    draw = lambda k: [int(v) for v in rng.integers(0, P64, size=k, dtype=np.uint64)]
+    cur, nxt, t = draw(12), draw(12), draw(12)
+    air = rescue64_air()
+    ops, results = t_cons.record_transition(air, 12, 25, 12)
+    per = rescue64_periodic(flag, 3)
+    got = t_cons.eval_ops_int(ops, results, cur, nxt, per, P64)
+
+    def mds(rows, v):
+        return [sum(int(m) * x for m, x in zip(row, v)) % P64 for row in rows]
+
+    fwd = [(a + k) % P64 for a, k in zip(mds(r64.MDS, [pow(c, 7, P64) for c in cur]),
+                                          r64.ARK1[3])]
+    bwd = [pow(b, 7, P64) for b in mds(r64.INV_MDS, [(x - k) % P64
+                                                      for x, k in zip(nxt, r64.ARK2[3])])]
+    want = [(flag * (f - b) + (1 - flag) * (x - c)) % P64
+            for f, b, x, c in zip(fwd, bwd, nxt, cur)]
+    assert got == want
+    roles = t_cons.design(ops, results)["roles"]
+    folded = sum(t_cons.eval_schedule_int(t_cons.schedule(ops, results, role), cur, nxt,
+                                          per, t, P64) for role in roles) % P64
+    assert folded == sum(a * b for a, b in zip(t, want)) % P64
+
+
+def test_emitted_f64_source_uses_the_goldilocks_field():
+    """The main path's body emitted for f64: straight-line code in the
+    frame, ``typedef GL64 FE``, each field constant one 64-bit literal."""
+    air = rescue64_air()
+    groups = [[("main", c, 1) for c in range(12)], [("main", c, 1) for c in range(4, 8)]]
+    ops, results = t_cons.record_transition(air, 12, 25, 12)
+    src = t_cons.emit_cuda("f64", "RescueChainAir", ops, results, 12, 25, groups)
+    assert '#include "gl64_fe.cuh"' in src and "typedef GL64 FE;" in src
+    assert "F128" not in src and "F62" not in src
+    head, roles = src.split('#include "cons_frame.cuh"')
+    assert not re.search(r"\bfor\s*\(", roles) and "cons_role0(const ConsPoint& q)" in roles
+    rules = t_cons.design(ops, results)
+    scheds = [t_cons.schedule(ops, results, role) for role in rules["roles"]]
+    uses = sum(op[0] == "const" for sched in scheds for op in sched)
+    literals = re.findall(r"GL64::make\(([^)]*)\)", roles)
+    assert len(literals) == uses > 0
+    assert all(re.fullmatch(r"0x[0-9A-F]{16}ULL", lit) for lit in literals)
+    counts = t_cons.count_ops(ops)
+    assert counts["mul"] + counts["sqr"] == 384 == sum(rules["mul_per_role"])
+    assert src.count("fe_mul(") == sum(t_cons.count_ops(s)["mul"] for s in scheds) + 12
+    assert "#define CONS_W 12" in src and "#define CONS_NPER 25" in src
+
+
+def test_small_constant_rows_of_the_f64_rescue_body():
+    """The sums of products by small constants that the f64 bound prices as
+    rows: the Rescue round's MDS(cur^7) is 12 rows of 12 terms (120
+    distinct products, as the circulant's repeated entries share some, and
+    132 additions); INV_MDS's products (full-size constants) stay
+    multiplies.  On a small list: a product read outside a sum is a row of
+    one, and a sum read by another sum is inside that one's row, and a row
+    of its own where something else reads it too."""
+    ops, results = t_cons.record_transition(rescue64_air(), 12, 25, 12)
+    counts, rows = t_cons.small_constant_rows(ops, results)
+    full = t_cons.count_ops(ops)
+    assert rows == [12] * 12
+    assert full["mul"] - counts["mul"] == 120 and full["add"] - counts["add"] == 132
+    assert (counts["sqr"], counts["sub"]) == (full["sqr"], full["sub"])
+    big = ("const", 1 << 40)
+    body = [("cur", 0), ("cur", 1), ("const", 3), ("const", 5), big,
+            ("mul", 0, 2), ("mul", 1, 3), ("add", 5, 6), ("mul", 0, 4),
+            ("add", 7, 8), ("mul", 5, 9), ("add", 7, 5)]
+    counts, rows = t_cons.small_constant_rows(body, [10, 11])
+    assert sorted(rows) == [1, 2, 3] and counts == {"mul": 2, "sqr": 0, "add": 1, "sub": 0,
+                                                "neg": 0}
+
+
 @pytest.mark.parametrize("group", [("aux", 0, 1), ("main", 0, 4)])
 def test_kernel_refuses_aux_and_sequence_assertions(group):
     """Aux segments are still refused; a main-segment sequence (poly_len 4)
@@ -241,8 +355,9 @@ def test_plain_version_matches_the_kernel_body_on_lamport_agg_sequences():
 
 
 def five_bodies():
-    """The AIR bodies the port's proves emit (five, and merkle128's since
-    the limb extensions came): (AIR, w, periodic columns, K)."""
+    """The AIR bodies the port's proves emit (five, merkle128's since the
+    limb extensions came, and two of the f64 bodies): (AIR, w, periodic
+    columns, K)."""
     from starkpack_winterfell_tpu_torch.models import lamport128 as t_lam
     from starkpack_winterfell_tpu_torch.models import lamport128_agg as t_agg
     from starkpack_winterfell_tpu_torch.models import merkle128 as t_mk
@@ -260,13 +375,23 @@ def five_bodies():
         "merkle128": t_mk.Merkle128Air(T.TraceInfo(t_mk.TRACE_WIDTH, 64),
                                        t_mk.Merkle128Inputs([3, 4]), options),
     }
+    airs["f64 rescue-chain"] = rescue64_air()
+    airs["f64 merkle"] = f64_merkle_air(options)
     return {name: (air, air.trace_info().width(), len(air.get_periodic_column_values()),
                    air.context.num_transition_constraints()) for name, air in airs.items()}
 
 
+def f64_merkle_air(options):
+    from starkpack_winterfell_tpu_torch.models import merkle
+
+    return merkle.MerklePathAir(T.TraceInfo(merkle.TRACE_WIDTH, 64),
+                                merkle.MerklePathInputs([1, 2, 3, 4]), options)
+
+
 @pytest.mark.parametrize("roles", ["rules", "one", "two", "rules, inputs held"])
 @pytest.mark.parametrize("body", ["rescue128", "fib-f128", "fib-f62", "lamport128",
-                                  "lamport128-agg", "merkle128"])
+                                  "lamport128-agg", "merkle128", "f64 rescue-chain",
+                                  "f64 merkle"])
 def test_scheduled_roles_evaluate_as_the_recorded_body(body, roles, monkeypatch):
     """The roles, each in its schedule, evaluated on python ints and summed:
     equal to sum t_coef[k] * ev[k] of ``eval_ops_int`` on the recorded list,

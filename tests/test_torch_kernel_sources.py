@@ -624,6 +624,45 @@ def test_f62_montgomery_reduction_matches_python_ints(host_f62m):
         assert got < 4 * P and got % P == sum(x * y for x, y in zip(m, s)) * rinv % P
 
 
+def _probe_module():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "gl64_sass_count", os.path.join(CSRC, "gl64_sass_count.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("probe", ["gl64_sqr", "gl64_mds_row", "gl64_mds_row8"])
+def test_goldilocks_probes_compute_their_operation(tmp_path_factory, probe):
+    """The Goldilocks probes whose instruction counts price the bounds
+    (csrc/gl64_sass_count.py), built with the host compiler: the square is
+    x * x mod p at the edges and at random; a row of 12 (or 8) products by
+    small constants plus a round constant is the sum mod p."""
+    body = _probe_module().SPONGE_PROBES[probe]
+    harness = ('#include "gl64.cuh"\n'
+               f'extern "C" void host_probe(const uint64_t* a, uint64_t* o) {{ {body} }}\n')
+    lib = _host_lib(tmp_path_factory, probe, harness)
+    lib.host_probe.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    P = tgl.P
+    rng = np.random.default_rng(61)
+    edges = [0, 1, 2, (1 << 32) - 1, 1 << 32, P - 2, P - 1]
+    out = np.zeros(1, dtype=np.uint64)
+    if probe == "gl64_sqr":
+        for x in edges + [int(v) for v in rng.integers(0, P, size=64, dtype=np.uint64)]:
+            lib.host_probe(np.array([x], dtype=np.uint64).ctypes.data, out.ctypes.data)
+            assert int(out[0]) == x * x % P, x
+        return
+    w = 12 if probe == "gl64_mds_row" else 8
+    for fill in ([P - 1] * w, [int(v) for v in rng.integers(0, P, size=w, dtype=np.uint64)]):
+        m = [int(v) for v in rng.integers(1, 27, size=w)]
+        rc = int(rng.integers(0, P, dtype=np.uint64))
+        a = np.array(m + fill + [rc], dtype=np.uint64)
+        lib.host_probe(a.ctypes.data, out.ctypes.data)
+        assert int(out[0]) == (sum(x * y for x, y in zip(m, fill)) + rc) % P
+
+
 HARNESS_CONS = """
 extern "C" void host_cons_eval(const uint64_t* lde_lo, const uint64_t* lde_hi,
                                const uint64_t* per_lo, const uint64_t* per_hi,
@@ -657,9 +696,14 @@ extern "C" void host_cons_eval(const uint64_t* lde_lo, const uint64_t* lde_hi,
 def _cons_air(case):
     """(AIR, field) of a constraint-kernel rehearsal: the Lamport-agg body
     with its three sequence tables (4 signatures at k = 15), the lamport128,
-    Rescue128 chain and merkle128 bodies (single values), or fib-f62
-    (one-word field, a body too small to split)."""
+    Rescue128 chain and merkle128 bodies (single values), fib-f62
+    (one-word field, a body too small to split), or one of the f64 bodies
+    (Goldilocks, csrc/gl64_fe.cuh): the Rescue chain's round, the padded
+    chain's (a full-period selector column), do-work, fib, the f64 Lamport+
+    body (26 results: one role) and the Merkle path's."""
     options = T.ProofOptions(16, 8, 0, 1, 4, 31)
+    if case.startswith("f64 "):
+        return _f64_air(case.split()[1], options), "f64"
     if case == "merkle128":
         return Merkle128Air(T.TraceInfo(MERKLE_WIDTH, 64), Merkle128Inputs([3, 4]),
                             options), "f128"
@@ -676,16 +720,42 @@ def _cons_air(case):
     return fam[0](T.TraceInfo(2, 64), fam[3](5), options), "f62"
 
 
+def _f64_air(name, options):
+    from starkpack_winterfell_tpu_torch.models import (do_work, fibonacci, lamport, merkle,
+                                                       rescue_chain, rescue_chain_pad)
+
+    if name == "rescue-chain":
+        return rescue_chain.RescueChainAir(T.TraceInfo(12, 64),
+                                           rescue_chain.ChainInputs([1] * 8, [2] * 4), options)
+    if name == "rescue-chain-pad":
+        return rescue_chain_pad.RescueChainPadAir(
+            T.TraceInfo(12, 64), rescue_chain_pad.PaddedChainInputs([1] * 8, [2] * 4, 5),
+            options)
+    if name == "fib":
+        return fibonacci.FibAir(T.TraceInfo(2, 64), fibonacci.FibInputs(5), options)
+    if name == "do-work":
+        return do_work.DoWorkAir(T.TraceInfo(10, 64), do_work.PublicInputs(1, 2), options)
+    if name == "lamport":
+        return lamport.LamportAir(T.TraceInfo(lamport.TRACE_WIDTH, 64),
+                                  lamport.LamportInputs(1, [1, 2, 3, 4]), options)
+    return merkle.MerklePathAir(T.TraceInfo(merkle.TRACE_WIDTH, 64),
+                                merkle.MerklePathInputs([1, 2, 3, 4]), options)
+
+
 @pytest.mark.parametrize("case", ["lamport-agg", "fib-f62", "rescue128", "lamport128",
-                                  "rescue128 two roles", "merkle128"])
+                                  "rescue128 two roles", "merkle128", "f64 rescue-chain",
+                                  "f64 rescue-chain-pad", "f64 do-work", "f64 fib",
+                                  "f64 lamport", "f64 merkle"])
 def test_constraint_kernel_source_matches_the_plain_version(tmp_path, monkeypatch, case):
     """The emitted body in its frame against ``constraint_eval_plain`` on
     random inputs: every thread of a block runs its role, then role 0's
     threads meet the partials (the roles the emitter chose: two for the
-    Lamport+ bodies, one for Rescue128 and fib-f62); periodic columns of two
+    f128 Lamport+ bodies, one for the rest; the f64 Lamport+ body has 26
+    results, more than ``SPLIT_MAX_RESULTS``); periodic columns of two
     periods tiled as the wrapper tiles them, sequence tables, n = 2.  The
-    last case splits the Rescue128 body into two roles that repeat the cubes
-    of the current row, the split the rules measured against one role."""
+    "two roles" case splits the Rescue128 body into two roles that repeat
+    the cubes of the current row, the split the rules measured against one
+    role."""
     two_roles = case.endswith("two roles")
     if two_roles:
         monkeypatch.setattr(tcons, "SPLIT_MAX_REPEAT", 1.0)
